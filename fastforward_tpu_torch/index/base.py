@@ -1,0 +1,1087 @@
+"""The index layer: vector store + scoring engine on one device.
+
+The port of the ``fastforward_tpu/index/base.py`` subset on the main path:
+re-rank (``__call__``, ``submit``) and fused serve (``serve``,
+``submit_serve``) for one-row-per-pair modes (``Mode.PASSAGE``,
+``Mode.FIRSTP``) against a dense device table.  The host resolves string
+IDs to int rows (natively), dense candidate sets stream through kernel K1
+and sparse ones take the gather-dot; results are ordered on the host with
+the native segmented sort while the score copy is still in flight.
+
+Everything runs on the device of the index's table: the card by default,
+the CPU when the caller asks for it (the plain versions of the kernels
+then run).  Features outside this slice raise ``NotImplementedError``
+naming the ROADMAP item that brings them.
+"""
+
+import abc
+import dataclasses
+import logging
+import threading
+import weakref
+from collections import OrderedDict
+from collections.abc import Callable, Iterable, Sequence
+from dataclasses import dataclass
+from time import perf_counter
+
+import numpy as np
+import pandas as pd
+import torch
+
+from fastforward_tpu_torch import ops
+from fastforward_tpu_torch.encoder.base import Encoder
+from fastforward_tpu_torch.index.mode import Mode
+from fastforward_tpu_torch.ops.scoring import _cached_q_upload
+from fastforward_tpu_torch.ranking import Ranking
+from fastforward_tpu_torch.utils.tracing import annotate
+
+LOGGER = logging.getLogger(__name__)
+
+IDSequence = Sequence[str | None]
+
+
+def not_ported(what: str, item: str) -> NotImplementedError:
+    """The error for a feature of ``fastforward_tpu`` the port lacks yet."""
+    return NotImplementedError(
+        f"{what} is not ported to fastforward_tpu_torch yet "
+        f"(ROADMAP.md, Queue 1 item {item})"
+    )
+
+
+def resolve_device(device: "str | torch.device | None") -> torch.device:
+    """The device an index runs on: the card unless the caller names another.
+
+    :raises RuntimeError: When a CUDA device is asked for (or implied by
+        ``None``) and none is available.
+    """
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the index "
+            "on the CPU"
+        )
+    return dev
+
+
+@dataclass
+class DeviceView:
+    """Device-resident scoring arrays: a zero-padded dense ``(N_pad, dim)``
+    fp32 or bf16 table (``kind="dense"``) and its precision tier."""
+
+    kind: str
+    table: torch.Tensor
+    precision: str = "exact"
+
+
+def _cat_from_codes(codes: np.ndarray, like: "pd.Categorical") -> "pd.Categorical":
+    """Wrap already-gathered codes in ``like``'s categorical dtype.
+
+    ``validate=False`` skips the O(n) code-range scan — the codes are takes
+    of ``like.codes`` so they are valid by construction.
+    """
+    try:
+        return pd.Categorical.from_codes(codes, dtype=like.dtype, validate=False)
+    except TypeError:  # pragma: no cover - pandas < 2.1
+        return pd.Categorical.from_codes(codes, dtype=like.dtype)
+
+
+def _overlap_fetch_sort(
+    scores_dev: torch.Tensor,
+    segments: tuple,
+    n_pairs: int,
+    sinks: "tuple[tuple, tuple] | None" = None,
+) -> "tuple[np.ndarray, np.ndarray, bool] | None":
+    """Chunked device->host score fetch overlapped with result ordering.
+
+    The native per-query rank sort runs on the queries whose scores have
+    landed while later chunks are still in flight.
+
+    ``sinks = (srcs, dsts)``: aligned tuples of 1-d arrays — ``srcs`` in
+    candidate (input) order, ``dsts`` in result order; the fetched score
+    buffer itself is an implicit first src whose dst must be passed as
+    ``dsts[0]`` with ``srcs[0] is None``.  As soon as a contiguous result
+    region's take entries are final, ``dst[region] = src[take[region]]``
+    runs under the still-in-flight later chunks.
+
+    Returns ``(scores, take, materialized)`` — ``materialized`` reports
+    that every sink row was written — or ``None`` when the native
+    segmented sort is unavailable (the caller then runs the one-shot path).
+    """
+    if scores_dev.dtype != torch.float32:
+        return None
+    from fastforward_tpu_torch.runtime.idmap import segmented_rank_argsort_into
+
+    n_scores = int(scores_dev.shape[0])
+    seg_starts, out_starts = segments
+    seg_starts = np.ascontiguousarray(seg_starts, dtype=np.int64)
+    out_starts = np.ascontiguousarray(out_starts, dtype=np.int64)
+    num_q = out_starts.shape[0]
+    seg_ends = seg_starts[1:]
+    # the device buffer may carry bucket padding past n_pairs
+    buf = np.empty(n_scores, dtype=np.float32)
+    take = np.empty(n_pairs, dtype=np.int64)
+    pairs = ()
+    if sinks is not None:
+        srcs, dsts = sinks
+        pairs = tuple((buf if src is None else src, dst) for src, dst in zip(srcs, dsts))
+    # mat_lo: result rows [mat_lo, n_pairs) are materialized into the sinks.
+    # Sorted blocks land in input order; their result positions tile a
+    # suffix exactly when the covered length matches (blocks are disjoint
+    # and all end <= n_pairs), so the suffix check is also the hole check.
+    state = {"q": 0, "ok": True, "covered": 0, "lo_min": n_pairs, "mat_lo": n_pairs}
+
+    def on_chunk(lo: int, hi: int) -> None:
+        if not state["ok"]:
+            return
+        q0 = state["q"]
+        # queries whose candidate block ends at or before the landed prefix
+        q1 = int(np.searchsorted(seg_ends, min(hi, n_pairs), side="right"))
+        if q1 <= q0:
+            return
+        if not segmented_rank_argsort_into(
+            buf, seg_starts[q0 : q1 + 1], out_starts[q0:q1], take
+        ):
+            state["ok"] = False
+            return
+        state["q"] = q1
+        if not pairs:
+            return
+        state["covered"] += int(seg_starts[q1] - seg_starts[q0])
+        state["lo_min"] = min(state["lo_min"], int(out_starts[q0:q1].min()))
+        if (
+            state["covered"] == n_pairs - state["lo_min"]
+            and state["lo_min"] < state["mat_lo"]
+        ):
+            region = slice(state["lo_min"], state["mat_lo"])
+            sl = take[region]
+            for src, dst in pairs:
+                dst[region] = src[sl]
+            state["mat_lo"] = state["lo_min"]
+
+    ops.fetch_np_overlapped(scores_dev, on_chunk=on_chunk, out=buf)
+    if not state["ok"] or state["q"] < num_q:
+        return None
+    materialized = False
+    if pairs:
+        if state["mat_lo"] > 0:  # remainder (or non-suffix tiling orders)
+            region = slice(0, state["mat_lo"])
+            sl = take[region]
+            for src, dst in pairs:
+                dst[region] = src[sl]
+        materialized = True
+    return buf[:n_pairs], take, materialized
+
+
+def _desc_rank_order(qhi: np.ndarray, scores: np.ndarray) -> np.ndarray:
+    """Stable result order for (q_id desc, score desc) in ONE pass.
+
+    ``qhi`` holds the per-row query rank pre-shifted into the high 32 bits
+    of a uint64; the low 32 bits get the bit-twiddled descending float32
+    score (sign-flip trick: negatives map below positives, larger scores
+    to smaller keys).  Sorted by the native radix argsort with a stable
+    numpy argsort fallback.
+    """
+    from fastforward_tpu_torch.runtime.idmap import radix_argsort
+
+    bits = np.ascontiguousarray(scores, dtype=np.float32).view(np.uint32)
+    score_asc = np.where(bits >> 31 != 0, ~bits, bits | np.uint32(0x80000000))
+    key = qhi | (np.uint32(0xFFFFFFFF) - score_asc).astype(np.uint64)
+    order = radix_argsort(key)
+    if order is None:
+        order = np.argsort(key, kind="stable")
+    return order
+
+
+class ScoreFuture:
+    """Handle for an in-flight :meth:`Index.submit` call.
+
+    ``result()`` completes the call — the score fetch plus the result
+    assembly — and returns the scored ranking; it is idempotent.
+    """
+
+    __slots__ = ("_finish", "_result", "_pipelined")
+
+    def __init__(
+        self,
+        finish: "Callable[[], Ranking] | None" = None,
+        result: "Ranking | None" = None,
+    ) -> None:
+        self._finish = finish
+        self._result = result
+        self._pipelined = finish is not None
+
+    @property
+    def pipelined(self) -> bool:
+        """Whether the call actually deferred its fetch (vs eager)."""
+        return self._pipelined
+
+    def result(self) -> Ranking:
+        """Fetch scores, assemble and return the ranking (idempotent)."""
+        if self._result is None:
+            assert self._finish is not None
+            self._result = self._finish()
+            self._finish = None
+        return self._result
+
+
+class Index(abc.ABC):
+    """Abstract base class for Fast-Forward indexes on one torch device."""
+
+    _query_encoder: Encoder | None = None
+
+    def __init__(
+        self,
+        query_encoder: Encoder | None = None,
+        quantizer=None,
+        mode: Mode = Mode.MAXP,
+        encoder_batch_size: int = 32,
+        score_transport: str = "f32",
+    ) -> None:
+        """Create an index.
+
+        :param query_encoder: The query encoder to use.
+        :param quantizer: Must be ``None`` (quantizers are not ported yet).
+        :param mode: The ranking mode (scoring supports ``Mode.PASSAGE`` and
+            ``Mode.FIRSTP``).
+        :param encoder_batch_size: The query-encoder batch size.
+        :param score_transport: Must be ``"f32"`` (``"u16"`` is not ported
+            yet).
+        """
+        if score_transport not in ("f32", "u16"):
+            raise ValueError(
+                f"score_transport must be 'f32' or 'u16', got {score_transport!r}"
+            )
+        if score_transport == "u16":
+            raise not_ported("score_transport='u16'", "5")
+        if quantizer is not None:
+            raise not_ported("quantization", "8 and 10")
+        if query_encoder is not None:
+            self.query_encoder = query_encoder
+        self.mode = mode
+        self._encoder_batch_size = encoder_batch_size
+        # host string-ID -> int-row map (native C++ when available); the
+        # device only ever sees int rows
+        from fastforward_tpu_torch.runtime import create_idmap
+
+        self._ids = create_idmap()
+        # prepared-run plans: per-(ranking frame, mode) caches of everything
+        # that depends only on the candidate set and the table — resolved
+        # rows, streamed layouts with device-resident grids, sort keys.
+        self._plans: OrderedDict[tuple, dict] = OrderedDict()
+        self._plans_lock = threading.Lock()
+
+    _MAX_PLANS = 4
+
+    def _get_plan(self, ranking: Ranking) -> dict:
+        """Return (creating if needed) the prepared-run plan for a ranking.
+
+        Keyed on the ranking frame's object identity + ranking mode; a
+        weakref callback evicts the entry when the frame is garbage
+        collected (so a recycled ``id()`` can never alias), and ``add``
+        clears all plans (the table changed).  Rankings are treated as
+        immutable throughout, so identity implies an identical candidate
+        set.
+        """
+        key = (id(ranking._df), self._mode)
+        with self._plans_lock:
+            plan = self._plans.get(key)
+            if plan is None:
+                plans = self._plans
+
+                def _evict(_ref, _key=key, _plans=plans):
+                    _plans.pop(_key, None)
+
+                plan = {"_frame_ref": weakref.ref(ranking._df, _evict)}
+                plans[key] = plan
+                while len(plans) > self._MAX_PLANS:
+                    plans.popitem(last=False)
+            else:
+                self._plans.move_to_end(key)
+        return plan
+
+    # -- encoders ------------------------------------------------------------
+
+    def encode_queries(self, queries: Sequence[str]) -> np.ndarray:
+        """Encode queries with the query encoder (micro-batched).
+
+        :param queries: The queries to encode.
+        :raises RuntimeError: When no query encoder exists.
+        :return: The query vectors, shape ``(len(queries), dim)``.
+        """
+        if self.query_encoder is None:
+            raise RuntimeError("Index does not have a query encoder.")
+        with annotate("ff.encode"):
+            parts = [
+                self.query_encoder(queries[i : i + self._encoder_batch_size])
+                for i in range(0, len(queries), self._encoder_batch_size)
+            ]
+            return np.concatenate(parts)
+
+    @property
+    def query_encoder(self) -> Encoder | None:
+        """The query encoder (if any)."""
+        return self._query_encoder
+
+    @query_encoder.setter
+    def query_encoder(self, encoder: Encoder) -> None:
+        assert isinstance(encoder, Encoder)
+        self._query_encoder = encoder
+
+    @property
+    def quantizer(self) -> None:
+        """The quantizer: always ``None`` (quantizers are not ported yet)."""
+        return None
+
+    @quantizer.setter
+    def quantizer(self, quantizer) -> None:
+        raise not_ported("quantization", "8 and 10")
+
+    # -- mode / shape properties ---------------------------------------------
+
+    @property
+    def mode(self) -> Mode:
+        """The ranking mode."""
+        return self._mode
+
+    @mode.setter
+    def mode(self, mode: Mode) -> None:
+        assert isinstance(mode, Mode)
+        self._mode = mode
+
+    @abc.abstractmethod
+    def _get_internal_dim(self) -> int | None:
+        pass
+
+    @property
+    def dim(self) -> int | None:
+        """Dimensionality of the vectors; ``None`` if empty."""
+        return self._get_internal_dim()
+
+    @property
+    def doc_ids(self) -> set[str]:
+        """All unique document IDs."""
+        return self._ids.doc_id_set()
+
+    @property
+    def psg_ids(self) -> set[str]:
+        """All unique passage IDs."""
+        return self._ids.psg_id_set()
+
+    @abc.abstractmethod
+    def _get_num_vectors(self) -> int:
+        pass
+
+    def __len__(self) -> int:
+        """Number of vectors in the index."""
+        return self._get_num_vectors()
+
+    # -- adding vectors ------------------------------------------------------
+
+    @abc.abstractmethod
+    def _add(
+        self, vectors: np.ndarray, doc_ids: IDSequence, psg_ids: IDSequence
+    ) -> None:
+        """Store vectors and their IDs (backend)."""
+        pass
+
+    def add(
+        self,
+        vectors: np.ndarray,
+        doc_ids: IDSequence | None = None,
+        psg_ids: IDSequence | None = None,
+    ) -> None:
+        """Add vectors and their document/passage IDs to the index.
+
+        Only one of ``doc_ids`` / ``psg_ids`` may be ``None``; individual IDs
+        may be ``None`` but every vector needs at least one ID.  Document IDs
+        may repeat (multi-passage documents); passage IDs must be unique.
+
+        :param vectors: The vectors, shape ``(num_vectors, dim)``.
+        :param doc_ids: Corresponding document IDs.
+        :param psg_ids: Corresponding passage IDs.
+        :raises ValueError: When ID counts don't match the vector count.
+        :raises ValueError: When the dimensionality doesn't match the index.
+        :raises ValueError: When a vector has neither ID.
+        :raises RuntimeError: When the backend rejects the add.
+        """
+        num_vectors, dim = vectors.shape
+        if doc_ids is None:
+            doc_ids = [None] * num_vectors
+        if psg_ids is None:
+            psg_ids = [None] * num_vectors
+        if not len(doc_ids) == len(psg_ids) == num_vectors:
+            raise ValueError("Number of IDs does not match number of vectors.")
+        if self.dim is not None and dim != self.dim:
+            raise ValueError(
+                f"Input vector dimensionality ({dim}) does not match "
+                f"index dimensionality ({self.dim})."
+            )
+        for doc_id, psg_id in zip(doc_ids, psg_ids):
+            if doc_id is None and psg_id is None:
+                raise ValueError("Vector has neither document nor passage ID.")
+        self._add(vectors, doc_ids, psg_ids)
+        # prepared plans hold row indices into the (now stale) table
+        self._plans.clear()
+
+    # -- scoring -------------------------------------------------------------
+
+    def _device_view(self) -> DeviceView | None:
+        """Backend hook: device-resident arrays for the scoring path
+        (``None`` while the index is empty)."""
+        return None
+
+    def _pad_queries(self, query_vectors: np.ndarray) -> np.ndarray:
+        q = np.asarray(query_vectors, dtype=np.float32)
+        q_pad = np.zeros((ops.bucket(q.shape[0]), q.shape[1]), dtype=np.float32)
+        q_pad[: q.shape[0]] = q
+        return q_pad
+
+    def _device_score_grouped(
+        self,
+        view: DeviceView,
+        query_vectors: np.ndarray,
+        rows_mat: np.ndarray,
+        pair_qno: np.ndarray,
+        counts_pp: np.ndarray,
+        k: int,
+        fetch: bool = True,
+        plan: dict | None = None,
+    ) -> "np.ndarray | torch.Tensor":
+        """Score the ``(pairs, K)`` candidate layout on the device (K == 1).
+
+        Dense candidate sets stream through K1; sparse ones
+        (``n_pairs * 500 <= N``) take the plain gather-dot.  With
+        ``fetch=False`` the device tensor is returned (its length may carry
+        bucket padding past ``n_pairs``).  ``plan`` optionally caches the
+        candidate-dependent device arrays across calls.
+        """
+        n_pairs = rows_mat.shape[0]
+        q_pad = self._pad_queries(query_vectors)
+        if q_pad.shape[0] > (1 << 22):
+            raise not_ported("scoring more than 2^22 queries in one call", "4")
+        if k != 1:
+            raise not_ported("grouped scoring of several rows per pair", "4")
+        table = view.table
+        if (
+            table.shape[1] % 128 == 0
+            and n_pairs * k * ops.STREAM_DENSITY > table.shape[0]
+            and table.shape[0] % ops.KERNEL_TILE_ROWS == 0
+        ):
+            row_scores = ops.streamed_scores(
+                table,
+                q_pad,
+                rows_mat[:, 0].astype(np.int64),
+                pair_qno,
+                precision=view.precision,
+                plan=plan,
+                fetch=fetch,
+            )
+            if row_scores is not None:
+                return row_scores
+
+        if n_pairs and not (np.diff(pair_qno) >= 0).all():
+            raise not_ported("scoring pairs that are not grouped by query", "4")
+        # single row per pair, pairs grouped by query: send only the row
+        # array; the device recovers qno from per-query boundaries
+        cached = plan.get("bounded") if plan is not None else None
+        if cached is None:
+            rows_p = np.zeros(ops.bucket(n_pairs), dtype=np.int32)
+            rows_p[:n_pairs] = rows_mat[:, 0]
+            # cumulative end of each query's pair run (padding pairs fall
+            # past the last bound, clipping to the padding query)
+            bounds = np.searchsorted(
+                pair_qno, np.arange(q_pad.shape[0]), side="right"
+            ).astype(np.int32)
+            cached = (
+                torch.from_numpy(rows_p).to(table.device),
+                torch.from_numpy(bounds).to(table.device),
+            )
+            if plan is not None:
+                plan["bounded"] = cached
+        q_dev = _cached_q_upload(q_pad, plan, "q_dev", table.device)
+        scores = ops.score_pairs_bounded(
+            table, q_dev, cached[0], cached[1], precision=view.precision
+        )
+        if not fetch:
+            return scores
+        return ops.fetch_np(scores)[:n_pairs]
+
+    def _candidate_arrays(
+        self, df: pd.DataFrame
+    ) -> "tuple[DeviceView, np.ndarray, np.ndarray, int]":
+        """Resolve every row of ``df`` to the grouped candidate arrays
+        ``(view, rows_mat, counts_pp, k)`` (K == 1: one row per pair).
+
+        :raises IndexError: When an ID is missing from the index.
+        """
+        if self.mode not in (Mode.PASSAGE, Mode.FIRSTP):
+            raise not_ported(f"scoring in {self.mode}", "4")
+        # exactly one row per pair: resolve the whole id column directly
+        # (zero-copy from the arrow buffers)
+        rows, _ = self._ids.resolve(df["id"], self.mode)
+        view = self._device_view()
+        if view is None:
+            raise RuntimeError("the index holds no vectors")
+        return view, rows[:, None], np.ones(len(df), dtype=np.int32), 1
+
+    def _score_and_sort(
+        self,
+        df: pd.DataFrame | None,
+        query_vectors: np.ndarray,
+        q_uniques,
+        score_dtype,
+        plan: dict | None = None,
+        defer: bool = False,
+    ) -> "Ranking | Callable[[], Ranking]":
+        """Fused fast path: device scoring + host result ordering.
+
+        With a *ready* ``plan`` (a previous call on the same ranking
+        succeeded), ``df`` may be ``None`` — every candidate-derived
+        artifact comes from the plan and only queries are live.
+
+        With ``defer=True`` the device work is launched now but the zero-arg
+        *finish* callable is returned instead of the ranking: the score
+        fetch + result assembly run when it is called (the seam used by
+        :meth:`Index.submit`).
+        """
+        if plan is not None and plan.get("cand_ready"):
+            # candidate resolution already done (by an earlier call or a
+            # serve() call on the same ranking)
+            n_pairs = plan["n_pairs"]
+            pair_qno = plan["pair_qno"]
+            rows_mat = plan["rows_mat"]
+            counts_pp = plan["counts_pp"]
+            k = plan["k"]
+            view = self._device_view()
+        else:
+            n_pairs = len(df)
+            pair_qno = df["q_no"].to_numpy(dtype=np.int64)
+            view, rows_mat, counts_pp, k = self._candidate_arrays(df)
+        with annotate("ff.score"):
+            scores_dev = self._device_score_grouped(
+                view,
+                query_vectors,
+                rows_mat,
+                pair_qno,
+                counts_pp,
+                k,
+                fetch=False,
+                plan=plan,
+            )
+
+        def finish() -> Ranking:
+            return self._finish_score_and_sort(
+                scores_dev,
+                df,
+                q_uniques,
+                score_dtype,
+                plan,
+                n_pairs,
+                pair_qno,
+                rows_mat,
+                counts_pp,
+                k,
+            )
+
+        if defer:
+            return finish
+        return finish()
+
+    def _finish_score_and_sort(
+        self,
+        scores_dev: torch.Tensor,
+        df: pd.DataFrame | None,
+        q_uniques,
+        score_dtype,
+        plan: dict | None,
+        n_pairs: int,
+        pair_qno: np.ndarray,
+        rows_mat: np.ndarray,
+        counts_pp: np.ndarray,
+        k: int,
+    ) -> Ranking:
+        """Fetch + order + assemble the result of a launched fast path."""
+        # result order: q_id desc (via per-query rank), then score desc
+        if plan is not None and plan.get("ready"):
+            q_rank = plan["q_rank"]
+            qkey = plan["qkey"]
+            segments = plan["segments"]
+            qid_arr, id_arr, query_arr = plan["out_arrays"]
+        else:
+            n_q = len(q_uniques)
+            q_rank = np.empty(n_q, dtype=np.uint64)
+            q_rank[np.argsort(np.asarray(q_uniques, dtype=object))[::-1]] = np.arange(
+                n_q, dtype=np.uint64
+            )
+            if plan is not None:
+                # categorical columns: reordering is then a take on int
+                # codes instead of on string arrays; the dictionary build
+                # amortizes over the plan
+                qid_arr = pd.Categorical(df["q_id"])
+                id_arr = pd.Categorical(df["id"])
+                query_arr = pd.Categorical(df["query"])
+            else:
+                qid_arr = df["q_id"].array
+                id_arr = df["id"].array
+                query_arr = df["query"].array
+            # the high 32 key bits depend only on the candidate layout
+            qkey = q_rank[pair_qno] << np.uint64(32)
+            # per-query segment bounds: the input frame is (q_id, score)-
+            # sorted so each query's rows are contiguous; the output block
+            # of query rank r starts where the ranks before it end
+            segments = None
+            if n_pairs == 0 or (np.diff(pair_qno) >= 0).all():
+                seg_starts = np.searchsorted(pair_qno, np.arange(n_q + 1)).astype(
+                    np.int64
+                )
+                lengths = np.diff(seg_starts)
+                by_rank = np.empty(n_q, dtype=np.int64)
+                by_rank[q_rank.astype(np.int64)] = np.arange(n_q)
+                cum = np.zeros(n_q + 1, dtype=np.int64)
+                np.cumsum(lengths[by_rank], out=cum[1:])
+                out_starts = np.empty(n_q, dtype=np.int64)
+                out_starts[by_rank] = cum[:-1]
+                segments = (seg_starts, out_starts)
+        scores_np = take = None
+        materialized = False
+        cats = (qid_arr, id_arr, query_arr)
+        dst_cols: tuple = ()
+        if segments is not None:
+            # overlapped fetch: rank-sort each query's block while later
+            # chunks of the score copy are still in flight
+            sinks = None
+            if all(isinstance(a, pd.Categorical) for a in cats):
+                # result assembly rides the overlap too
+                dst_cols = (
+                    np.empty(n_pairs, dtype=np.float32),
+                    *(np.empty(n_pairs, dtype=a.codes.dtype) for a in cats),
+                )
+                sinks = ((None, *(a.codes for a in cats)), dst_cols)
+            with annotate("ff.fetch_sort"):
+                fetched = _overlap_fetch_sort(scores_dev, segments, n_pairs, sinks)
+            if fetched is not None:
+                scores_np, take, materialized = fetched
+        if scores_np is None:
+            scores_np = ops.fetch_np(scores_dev)[:n_pairs]
+            from fastforward_tpu_torch.runtime.idmap import segmented_rank_argsort
+
+            if segments is not None:
+                take = segmented_rank_argsort(scores_np, *segments)
+            if take is None:
+                take = _desc_rank_order(qkey, scores_np)
+        with annotate("ff.assemble"):
+            if materialized:
+                score_col, qid_col, id_col, query_col = dst_cols
+                out = pd.DataFrame(
+                    {
+                        "q_id": _cat_from_codes(qid_col, qid_arr),
+                        "id": _cat_from_codes(id_col, id_arr),
+                        "score": score_col.astype(score_dtype, copy=False),
+                        "query": _cat_from_codes(query_col, query_arr),
+                    }
+                )
+            else:
+                out = pd.DataFrame(
+                    {
+                        "q_id": qid_arr.take(take),
+                        "id": id_arr.take(take),
+                        "score": scores_np[take].astype(score_dtype, copy=False),
+                        "query": query_arr.take(take),
+                    }
+                )
+        if plan is not None and not plan.get("ready"):
+            plan.update(
+                n_pairs=n_pairs,
+                pair_qno=pair_qno,
+                rows_mat=rows_mat,
+                counts_pp=counts_pp,
+                k=k,
+                q_rank=q_rank,
+                qkey=qkey,
+                segments=segments,
+                out_arrays=(qid_arr, id_arr, query_arr),
+                cand_ready=True,
+                ready=True,
+            )
+        q_ids = None
+        if plan is not None:
+            q_ids = plan.get("q_ids_set")
+            if q_ids is None:
+                q_ids = set(np.asarray(q_uniques, dtype=object))
+                plan["q_ids_set"] = q_ids
+            q_ids = q_ids.copy()  # rankings must not share the mutable set
+        return Ranking._from_trusted_frame(out, "fast-forward", q_ids=q_ids)
+
+    def __call__(
+        self,
+        ranking: Ranking,
+        early_stopping: int | None = None,
+        early_stopping_alpha: float | None = None,
+        early_stopping_depths: Iterable[int] | None = None,
+        batch_size: int | None = None,
+    ) -> Ranking:
+        """Compute semantic scores for a ranking.
+
+        :param ranking: The ranking (queries must be attached).
+        :param early_stopping: Must be ``None`` (not ported yet).
+        :param early_stopping_alpha: Must be ``None`` (not ported yet).
+        :param early_stopping_depths: Must be ``None`` (not ported yet).
+        :param batch_size: Queries per device batch; ``None`` (or at least
+            the number of queries) scores all at once, smaller batches are
+            not ported yet.
+        :raises ValueError: When the ranking has no queries attached.
+        :raises IndexError: When an ID is missing from the index.
+        :return: A ranking with the computed scores.
+        """
+        if not ranking.has_queries:
+            raise ValueError("Input ranking has no queries attached.")
+        if (
+            early_stopping is not None
+            or early_stopping_alpha is not None
+            or early_stopping_depths is not None
+        ):
+            raise not_ported("early stopping", "6")
+        from fastforward_tpu_torch.utils.tracing import maybe_trace
+
+        with maybe_trace():
+            return self._call(ranking, batch_size)
+
+    def _call(self, ranking: Ranking, batch_size: int | None) -> Ranking:
+        t0 = perf_counter()
+        score_dtype = ranking._df.dtypes["score"]
+        # prepared-run fast path: the same ranking was scored before against
+        # the current table — skip all frame work and candidate resolution
+        plan = self._get_plan(ranking)
+        if plan.get("ready"):
+            queries = plan["queries"]
+            if batch_size is None or batch_size >= len(queries):
+                query_vectors = self.encode_queries(queries)
+                out = self._score_and_sort(
+                    None, query_vectors, plan["q_uniques"], score_dtype, plan=plan
+                )
+                LOGGER.info("computed scores in %s seconds (prepared)", perf_counter() - t0)
+                return out
+
+        # unique queries -> dense query numbers (device batch indices):
+        # factorize numbers queries by first appearance, and the
+        # first-occurrence rows carry the matching query strings
+        df = ranking._df.copy()
+        q_codes, q_uniques = pd.factorize(df["q_id"], sort=False)
+        df["q_no"] = q_codes
+        queries = df.loc[~df["q_id"].duplicated(), "query"].tolist()
+        if batch_size is not None and batch_size < len(queries):
+            raise not_ported("scoring in query batches (batch_size)", "4")
+        query_vectors = self.encode_queries(queries)
+        plan["queries"] = queries
+        plan["q_uniques"] = q_uniques
+        out = self._score_and_sort(df, query_vectors, q_uniques, score_dtype, plan=plan)
+        LOGGER.info("computed scores in %s seconds", perf_counter() - t0)
+        return out
+
+    def submit(self, ranking: Ranking) -> ScoreFuture:
+        """Launch scoring for a ranking and return a future (pipelined
+        serving).
+
+        The query encode and the device work happen now; the score fetch
+        and the result assembly run inside ``future.result()``, so
+        back-to-back submits overlap call *i+1*'s encode and device work
+        with call *i*'s fetch::
+
+            pending = None
+            for r in rankings:
+                fut = index.submit(r)
+                if pending is not None:
+                    results.append(pending.result())
+                pending = fut
+            results.append(pending.result())
+
+        :param ranking: The ranking (queries must be attached).
+        :raises ValueError: When the ranking has no queries attached.
+        :raises IndexError: When an ID is missing from the index.
+        :return: A :class:`ScoreFuture` whose ``result()`` is the scored
+            ranking (identical to ``self(ranking)``).
+        """
+        if not ranking.has_queries:
+            raise ValueError("Input ranking has no queries attached.")
+        score_dtype = ranking._df.dtypes["score"]
+        plan = self._get_plan(ranking)
+        if plan.get("ready"):
+            query_vectors = self.encode_queries(plan["queries"])
+            deferred = self._score_and_sort(
+                None, query_vectors, plan["q_uniques"], score_dtype, plan=plan, defer=True
+            )
+        else:
+            df = ranking._df.copy()
+            q_codes, q_uniques = pd.factorize(df["q_id"], sort=False)
+            df["q_no"] = q_codes
+            queries = df.loc[~df["q_id"].duplicated(), "query"].tolist()
+            plan["queries"] = queries
+            plan["q_uniques"] = q_uniques
+            query_vectors = self.encode_queries(queries)
+            deferred = self._score_and_sort(
+                df, query_vectors, q_uniques, score_dtype, plan=plan, defer=True
+            )
+        return ScoreFuture(finish=deferred)
+
+    def serve(
+        self,
+        ranking: Ranking,
+        alpha: float,
+        cutoff: int,
+        early_stopping_depths: "Iterable[int] | None" = None,
+        refine: "int | None" = None,
+    ) -> Ranking:
+        """One fused production re-rank call: semantic scoring + score
+        interpolation + per-query top-``cutoff`` cut.
+
+        Equivalent to ``ranking.interpolate(self(ranking), alpha).cut(cutoff)``
+        (reference: interpolation ``ranking.py:293-326``, cut
+        ``ranking.py:279-291``), but the interpolation and the top-k run on
+        the device, so only ``num_queries x cutoff`` (score, index) pairs
+        come back to the host.  Ties at the cutoff go to the candidate that
+        comes first in the ranking.
+
+        With ``refine=margin`` the call runs two-phase: the bf16 ``"fast"``
+        tier preselects the top ``cutoff + margin`` candidates per query,
+        whose dots are then recomputed in full fp32 on the device before the
+        final cut — the returned scores are exact, and a true top-``cutoff``
+        candidate is lost only if the bf16 error pushes it below ``margin``
+        others.
+
+        :param ranking: The ranking (queries must be attached).
+        :param alpha: Interpolation parameter (lexical weight).
+        :param cutoff: Top-k depth per query to return.
+        :param early_stopping_depths: Must be ``None`` (not ported yet).
+        :param refine: Optional two-phase margin (see above).
+        :raises ValueError: When the ranking has no queries attached.
+        :raises ValueError: When the cutoff is not positive.
+        :raises ValueError: When ``refine`` is negative.
+        :raises IndexError: When an ID is missing from the index.
+        :return: The interpolated, cut ranking.
+        """
+        return self._serve(
+            ranking, alpha, cutoff, False, early_stopping_depths, refine
+        )()
+
+    def submit_serve(
+        self,
+        ranking: Ranking,
+        alpha: float,
+        cutoff: int,
+        early_stopping_depths: "Iterable[int] | None" = None,
+        refine: "int | None" = None,
+    ) -> ScoreFuture:
+        """Pipelined :meth:`serve`: launch now, fetch in ``result()``.
+
+        :return: A :class:`ScoreFuture` whose ``result()`` equals
+            ``self.serve(ranking, alpha, cutoff, refine=refine)``.
+        """
+        return ScoreFuture(
+            finish=self._serve(
+                ranking, alpha, cutoff, True, early_stopping_depths, refine
+            )
+        )
+
+    def _serve(
+        self,
+        ranking: Ranking,
+        alpha: float,
+        cutoff: int,
+        defer: bool,
+        early_stopping_depths: "Iterable[int] | None" = None,
+        refine: "int | None" = None,
+    ) -> "Callable[[], Ranking]":
+        if not ranking.has_queries:
+            raise ValueError("Input ranking has no queries attached.")
+        if cutoff < 1:
+            raise ValueError("cutoff must be positive.")
+        if refine is not None and refine < 0:
+            raise ValueError("refine margin must be non-negative.")
+        if early_stopping_depths is not None:
+            raise not_ported("early stopping", "6")
+        t0 = perf_counter()
+        plan = self._get_plan(ranking)
+        if plan.get("cand_ready") and plan.get("queries") is not None:
+            queries = plan["queries"]
+            q_uniques = plan["q_uniques"]
+            q_codes = None
+        else:
+            q_codes, q_uniques = pd.factorize(ranking._df["q_id"], sort=False)
+            first = ~ranking._df["q_id"].duplicated()
+            queries = ranking._df.loc[first, "query"].tolist()
+            plan["queries"] = queries
+            plan["q_uniques"] = q_uniques
+        query_vectors = self.encode_queries(queries)
+        finish = self._serve_fused(
+            ranking, query_vectors, q_uniques, q_codes, plan, alpha, cutoff, refine
+        )
+        if not defer:
+            LOGGER.info("served interpolated top-%d in %s seconds", cutoff, perf_counter() - t0)
+        return finish
+
+    def _serve_fused(
+        self,
+        ranking: Ranking,
+        query_vectors: np.ndarray,
+        q_uniques,
+        q_codes: "np.ndarray | None",
+        plan: dict,
+        alpha: float,
+        cutoff: int,
+        refine: "int | None" = None,
+    ) -> "Callable[[], Ranking]":
+        """Launch the fused serve program; return the finish callable.
+
+        Static artifacts (candidate arrays, the per-query slot layout, the
+        lexical score upload, output id arrays) are plan-cached: warm calls
+        pay only encode + device work + the ``(2, Q, cutoff)`` fetch, whose
+        copy starts as soon as it is launched.
+        """
+        score_dtype = ranking._df.dtypes["score"]
+        if plan.get("cand_ready"):
+            n_pairs = plan["n_pairs"]
+            pair_qno = plan["pair_qno"]
+            rows_mat = plan["rows_mat"]
+            counts_pp = plan["counts_pp"]
+            k = plan["k"]
+            view = self._device_view()
+        else:
+            n_pairs = len(ranking._df)
+            pair_qno = q_codes.astype(np.int64)
+            view, rows_mat, counts_pp, k = self._candidate_arrays(ranking._df)
+            plan.update(
+                n_pairs=n_pairs,
+                pair_qno=pair_qno,
+                rows_mat=rows_mat,
+                counts_pp=counts_pp,
+                k=k,
+                cand_ready=True,
+            )
+        device = view.table.device
+        # two-phase refine: bf16 preselect + exact rescore of the top
+        # (cutoff + margin) per query (fast-tier indexes still get exact
+        # final scores)
+        refine_live = refine is not None and k == 1
+        scoring_view = (
+            dataclasses.replace(view, precision="fast") if refine_live else view
+        )
+        # per-call token: the query upload validated during THIS call's
+        # scoring stamps itself with it, so the refine tail reuses it
+        # without a second content compare
+        plan["_call_tok"] = plan.get("_call_tok", 0) + 1
+        with annotate("ff.score"):
+            scores_dev = self._device_score_grouped(
+                scoring_view,
+                query_vectors,
+                rows_mat,
+                pair_qno,
+                counts_pp,
+                k,
+                fetch=False,
+                plan=plan,
+            )
+        sv = plan.get("serve")
+        if sv is None:
+            n_q = len(q_uniques)
+            d_max = int(np.bincount(pair_qno, minlength=n_q).max()) if n_pairs else 1
+            # pad the depth axis to a power of two (padding slots are -1 ->
+            # -inf, never selected ahead of real candidates)
+            d_max = 1 << max(3, (d_max - 1).bit_length())
+            slot = np.full((n_q, d_max), -1, dtype=np.int32)
+            if n_pairs:
+                if (np.diff(pair_qno) >= 0).all():
+                    spq, order = pair_qno, None
+                else:
+                    order = np.argsort(pair_qno, kind="stable")
+                    spq = pair_qno[order]
+                seg_starts = np.searchsorted(spq, np.arange(n_q))
+                pos = np.arange(n_pairs, dtype=np.int64) - seg_starts[spq]
+                slot[spq, pos] = (
+                    np.arange(n_pairs, dtype=np.int32)
+                    if order is None
+                    else order.astype(np.int32)
+                )
+            # output query order: q_id descending (the ranking sort
+            # convention) — baked into the slot rows so the device result is
+            # already in final row order
+            by_rank = np.argsort(np.asarray(q_uniques, dtype=object))[::-1].astype(
+                np.int64
+            )
+            slot = slot[by_rank]
+            lex = np.zeros(ops.bucket(n_pairs), dtype=np.float32)
+            lex[:n_pairs] = ranking._df["score"].to_numpy(dtype=np.float32)
+            sv = {
+                "slot": slot,
+                "slot_dev": torch.from_numpy(slot).to(device),
+                "lex_dev": torch.from_numpy(lex).to(device),
+                "qid_arr": ranking._df["q_id"].array,
+                "id_arr": ranking._df["id"].array,
+                # keep the query column so serve() output has the same
+                # schema as the unfused interpolate().cut() flow
+                "query_arr": (
+                    ranking._df["query"].array
+                    if "query" in ranking._df.columns
+                    else None
+                ),
+                "by_rank": by_rank,
+            }
+            plan["serve"] = sv
+        kc = min(cutoff, sv["slot"].shape[1])
+        with annotate("ff.serve_tail"):
+            if refine_live:
+                rows_dev = sv.get("rows_dev")
+                if rows_dev is None:
+                    rows_pad = np.zeros(ops.bucket(n_pairs), dtype=np.int32)
+                    rows_pad[:n_pairs] = rows_mat[:, 0]
+                    rows_dev = torch.from_numpy(rows_pad).to(device)
+                    sv["rows_dev"] = rows_dev
+                    # slot-row -> query-index permutation (slot rows are in
+                    # output order, queries in first-appearance order)
+                    sv["q_perm_dev"] = torch.from_numpy(sv["by_rank"]).to(device)
+                cached_q = plan.get("q_dev")
+                if cached_q is not None and plan.get("q_dev_tok") == plan["_call_tok"]:
+                    q_dev = cached_q[1]
+                else:
+                    q_dev = _cached_q_upload(
+                        self._pad_queries(query_vectors), plan, "q_dev", device
+                    )
+                packed = ops.serve_topk_refine(
+                    scores_dev,
+                    sv["lex_dev"],
+                    sv["slot_dev"],
+                    alpha,
+                    kc,
+                    int(refine),
+                    view.table,
+                    rows_dev,
+                    q_dev,
+                    sv["q_perm_dev"],
+                )
+            else:
+                packed = ops.serve_topk(scores_dev, sv["lex_dev"], sv["slot_dev"], alpha, kc)
+        # start the (tiny) result copy the moment the device finishes;
+        # finish() then only waits
+        fetch = ops.fetch_np_async(packed)
+
+        def finish() -> Ranking:
+            with annotate("ff.fetch"):
+                vals, pair_idx = ops.decode_serve_topk(fetch())
+            flat_idx = pair_idx.reshape(-1)
+            mask = flat_idx >= 0
+            take = flat_idx[mask]
+            scores = vals.reshape(-1)[mask]
+            cols = {
+                "q_id": sv["qid_arr"].take(take),
+                "id": sv["id_arr"].take(take),
+                "score": scores.astype(score_dtype, copy=False),
+            }
+            if sv.get("query_arr") is not None:
+                cols["query"] = sv["query_arr"].take(take)
+            out = pd.DataFrame(cols)
+            q_ids = plan.get("q_ids_set")
+            if q_ids is None:
+                q_ids = set(np.asarray(q_uniques, dtype=object))
+                plan["q_ids_set"] = q_ids
+            return Ranking._from_trusted_frame(out, "fast-forward", q_ids=q_ids.copy())
+
+        return finish

@@ -1,0 +1,169 @@
+"""In-memory index: host-canonical store + device scoring table.
+
+The port of ``fastforward_tpu/index/memory.py`` with ``store="host"``: the
+canonical copy is one growable fp32-preserving host array, and the scoring
+copy is a zero-padded ``(N_pad, dim)`` table on the index's device (fp32 or
+bf16), uploaded lazily in row chunks and invalidated on ``add``.
+"""
+
+import logging
+
+import numpy as np
+import torch
+
+from fastforward_tpu_torch.encoder.base import Encoder
+from fastforward_tpu_torch.index.base import (
+    DeviceView,
+    IDSequence,
+    Index,
+    not_ported,
+    resolve_device,
+)
+from fastforward_tpu_torch.index.mode import Mode
+
+LOGGER = logging.getLogger(__name__)
+
+# device tables are padded to a multiple of this many rows (a multiple of
+# the kernel's tile rows), so the layout changes only on growth
+_ROW_PAD = 4096
+
+# rows per host->device upload step (bounds the staging copies)
+_UPLOAD_ROWS = 1 << 16
+
+_DEVICE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+class InMemoryIndex(Index):
+    """Fast-Forward index held in memory (host canonical, device for scoring)."""
+
+    def __init__(
+        self,
+        query_encoder: Encoder | None = None,
+        quantizer=None,
+        mode: Mode = Mode.MAXP,
+        encoder_batch_size: int = 32,
+        init_size: int = 2**16,
+        alloc_size: int = 2**16,
+        device_dtype: str = "float32",
+        mesh_config=None,
+        precision: str = "exact",
+        store: str = "host",
+        hbm_budget: int | None = None,
+        stream_chunk_rows: int | None = None,
+        score_transport: str = "f32",
+        device: "str | torch.device | None" = None,
+    ) -> None:
+        """Create an in-memory index.
+
+        :param query_encoder: The query encoder to use.
+        :param quantizer: Must be ``None`` (not ported yet).
+        :param mode: The ranking mode.
+        :param encoder_batch_size: Batch size for the query encoder.
+        :param init_size: Initially allocated capacity (number of vectors).
+        :param alloc_size: Capacity growth granularity (number of vectors).
+        :param device_dtype: Dtype of the device scoring table
+            (``"float32"`` or ``"bfloat16"``; the host copy stays as added).
+        :param mesh_config: Must be ``None`` (not ported yet).
+        :param precision: ``"exact"`` or ``"high"`` (true fp32 dots) or
+            ``"fast"`` (bf16-rounded operands, fp32 accumulation).
+        :param store: Must be ``"host"`` (``"device"`` is not ported yet).
+        :param hbm_budget: Must be ``None`` (not ported yet).
+        :param stream_chunk_rows: Must be ``None`` (not ported yet).
+        :param score_transport: Must be ``"f32"``.
+        :param device: Torch device of the scoring table; ``None`` means
+            ``"cuda"``.
+        :raises RuntimeError: When the device is CUDA and none is available.
+        """
+        if store not in ("host", "device"):
+            raise ValueError(f"store must be 'host' or 'device', got {store!r}")
+        if store == "device":
+            raise not_ported("store='device'", "12")
+        if mesh_config is not None:
+            raise not_ported("mesh_config (multi-device tables)", "14")
+        if hbm_budget is not None or stream_chunk_rows is not None:
+            raise not_ported("hbm_budget / stream_chunk_rows (the hybrid tier)", "13")
+        if device_dtype not in _DEVICE_DTYPES:
+            raise ValueError(
+                f"device_dtype must be 'float32' or 'bfloat16', got {device_dtype!r}"
+            )
+        if precision not in ("exact", "high", "fast"):
+            raise ValueError(
+                f"precision must be 'exact', 'high' or 'fast', got {precision!r}"
+            )
+        self._device = resolve_device(device)
+        self._store: np.ndarray | None = None
+        self._num = 0
+        self._init_size = init_size
+        self._alloc_size = alloc_size
+        self._device_dtype = device_dtype
+        self._precision = precision
+        self._dev_view: DeviceView | None = None
+        super().__init__(
+            query_encoder=query_encoder,
+            quantizer=quantizer,
+            mode=mode,
+            encoder_batch_size=encoder_batch_size,
+            score_transport=score_transport,
+        )
+
+    @property
+    def device(self) -> torch.device:
+        """The torch device of the scoring table."""
+        return self._device
+
+    # -- storage -------------------------------------------------------------
+
+    def _get_num_vectors(self) -> int:
+        return self._num
+
+    def _get_internal_dim(self) -> int | None:
+        if self._store is None:
+            return None
+        return self._store.shape[1]
+
+    def _grow_to(self, capacity: int, dim: int, dtype: np.dtype) -> None:
+        """Ensure the host store has room for ``capacity`` vectors."""
+        if self._store is None:
+            cap = max(self._init_size, capacity)
+            self._store = np.zeros((cap, dim), dtype=dtype)
+            return
+        cur = self._store.shape[0]
+        if capacity <= cur:
+            return
+        extra = -(-(capacity - cur) // self._alloc_size) * self._alloc_size
+        LOGGER.debug("growing host store from %s to %s rows", cur, cur + extra)
+        grown = np.zeros((cur + extra, self._store.shape[1]), self._store.dtype)
+        grown[: self._num] = self._store[: self._num]
+        self._store = grown
+
+    def _add(
+        self, vectors: np.ndarray, doc_ids: IDSequence, psg_ids: IDSequence
+    ) -> None:
+        num_new = vectors.shape[0]
+        start = self._num
+        self._ids.add(doc_ids, psg_ids, start)
+        self._grow_to(start + num_new, vectors.shape[1], vectors.dtype)
+        self._store[start : start + num_new] = vectors
+        self._num += num_new
+        self._dev_view = None  # device table is stale
+
+    # -- device table --------------------------------------------------------
+
+    def _device_view(self) -> DeviceView | None:
+        if self._num == 0:
+            return None
+        if self._dev_view is None:
+            n_pad = -(-self._num // _ROW_PAD) * _ROW_PAD
+            data = self._store[: self._num]
+            table = torch.zeros(
+                (n_pad, data.shape[1]),
+                dtype=_DEVICE_DTYPES[self._device_dtype],
+                device=self._device,
+            )
+            # fp32 rows go up in chunks and are cast on the device (bf16:
+            # round to nearest even); no padded host copy is made
+            for lo in range(0, self._num, _UPLOAD_ROWS):
+                chunk = np.ascontiguousarray(data[lo : lo + _UPLOAD_ROWS], dtype=np.float32)
+                table[lo : lo + chunk.shape[0]] = torch.from_numpy(chunk).to(self._device)
+            self._dev_view = DeviceView(kind="dense", table=table, precision=self._precision)
+        return self._dev_view

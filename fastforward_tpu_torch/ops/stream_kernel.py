@@ -1,0 +1,189 @@
+"""K1, pairwise stream-select scoring: CUDA kernel wrapper and plain version.
+
+The port of ``fastforward_tpu/ops/stream_kernel.py:stream_select_pairwise``
+(Pallas body ``_pairwise_kernel``).  Contract, shared with the TPU kernel:
+for each slot ``s`` of virtual tile ``t``, unpack ``c = cand3[t, s]`` into
+``local = c // Qb`` and ``qno = c % Qb`` and compute
+
+    out[t, s] = table[tile_idx[t] * r + local] . qvecs[qno]
+
+``exact=True`` is a true fp32 dot; ``exact=False`` rounds the row and the
+query to bf16 and accumulates the products in fp32.  Padding slots carry
+``local 0`` and ``qno Qb - 1`` and are computed like any other slot.
+
+:func:`stream_select_pairwise` launches the hand-written CUDA kernel
+(``csrc/stream_select_pairwise.cu``) for CUDA tensors and runs the plain
+PyTorch version :func:`stream_select_pairwise_plain` only for CPU tensors.
+"""
+
+import ctypes
+import functools
+
+import torch
+
+#: rows per table tile (the layout's tile granularity)
+KERNEL_TILE_ROWS = 512
+#: candidate slots per virtual tile (default; ``_adaptive_cap`` picks 128..1024)
+KERNEL_CAP = 512
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+#: slots per step of the plain version (bounds its gathered temporaries)
+_PLAIN_CHUNK_SLOTS = 1 << 17
+
+
+@functools.cache
+def _kernel() -> ctypes.CDLL:
+    """Build (first call only), load and type the kernel's C interface."""
+    from fastforward_tpu_torch.ops._build import load_kernel
+
+    lib = load_kernel("stream_select_pairwise")
+    fn = lib.ff_stream_select_pairwise
+    fn.restype = ctypes.c_int
+    fn.argtypes = [
+        ctypes.c_void_p,  # table
+        ctypes.c_int,  # dtype code
+        ctypes.c_void_p,  # qvecs
+        ctypes.c_void_p,  # cand3
+        ctypes.c_void_p,  # tile_idx
+        ctypes.c_void_p,  # out
+        ctypes.c_longlong,  # slots
+        ctypes.c_int,  # cap
+        ctypes.c_int,  # qb
+        ctypes.c_int,  # r
+        ctypes.c_int,  # dim
+        ctypes.c_int,  # exact
+        ctypes.c_int,  # device
+        ctypes.c_void_p,  # stream
+    ]
+    lib.ff_cuda_error_string.restype = ctypes.c_char_p
+    lib.ff_cuda_error_string.argtypes = [ctypes.c_int]
+    return lib
+
+
+def _check(table, qvecs, cand3, tile_idx, r) -> int:
+    """Validate the kernel contract; return ``dim``."""
+    if table.dtype not in _DTYPE_CODE:
+        raise TypeError(f"table dtype must be fp32, bf16 or int8, got {table.dtype}")
+    if table.ndim == 3:
+        if table.dtype != torch.int8:
+            raise ValueError("3D tables must be int8 code tables (N_pad, dim/128, 128)")
+        if table.shape[2] != 128:
+            raise ValueError(f"3D tables need 128 lanes, got {tuple(table.shape)}")
+        dim = table.shape[1] * 128
+    elif table.ndim == 2:
+        dim = table.shape[1]
+    else:
+        raise ValueError(f"table must be 2D or 3D, got {tuple(table.shape)}")
+    if dim % 128 or table.shape[0] % r:
+        raise ValueError(
+            f"need dim % 128 == 0 and N_pad % r == 0, got dim={dim}, "
+            f"N_pad={table.shape[0]}, r={r}"
+        )
+    if qvecs.dtype != torch.float32 or qvecs.ndim != 2 or qvecs.shape[1] != dim:
+        raise ValueError(f"qvecs must be fp32 (Qb, {dim}), got {qvecs.dtype} {tuple(qvecs.shape)}")
+    if cand3.dtype != torch.int32 or cand3.ndim != 3 or cand3.shape[2] != 128:
+        raise ValueError(f"cand3 must be int32 (Tv, CAP/128, 128), got {cand3.dtype} {tuple(cand3.shape)}")
+    if tile_idx.dtype != torch.int32 or tuple(tile_idx.shape) != (cand3.shape[0],):
+        raise ValueError(f"tile_idx must be int32 ({cand3.shape[0]},), got {tile_idx.dtype} {tuple(tile_idx.shape)}")
+    if qvecs.shape[0] * r > 2**31 - 1:
+        raise ValueError("Qb * r must fit the int32 packing")
+    devices = {t.device for t in (table, qvecs, cand3, tile_idx)}
+    if len(devices) != 1:
+        raise ValueError(f"all inputs must be on one device, got {devices}")
+    return dim
+
+
+def stream_select_pairwise(
+    table: torch.Tensor,
+    qvecs: torch.Tensor,
+    cand3: torch.Tensor,
+    tile_idx: torch.Tensor,
+    r: int = KERNEL_TILE_ROWS,
+    exact: bool = True,
+) -> torch.Tensor:
+    """Score every candidate slot: K1 on the card, the plain version on CPU.
+
+    :param table: ``(N_pad, dim)`` fp32/bf16, or int8 ``(N_pad, dim/128,
+        128)`` codes (scales folded into the queries); ``N_pad % r == 0``.
+    :param qvecs: Query vectors, ``(Qb, dim)`` fp32.
+    :param cand3: Packed candidates ``local * Qb + qno``, ``(Tv, CAP/128,
+        128)`` int32 (from ``ops.scoring.build_streamed_layout``; values
+        are not range-checked on the card).
+    :param tile_idx: Base table tile per virtual tile, ``(Tv,)`` int32.
+    :param r: Rows per table tile.
+    :param exact: True fp32 dots vs bf16-rounded operands.
+    :raises ValueError: On shapes, layouts or devices the kernel does not take.
+    :raises TypeError: On a table dtype the kernel does not take.
+    :raises RuntimeError: When the launch fails (with the CUDA error).
+    :return: Scores per slot, ``(Tv, CAP/128, 128)`` fp32.
+    """
+    dim = _check(table, qvecs, cand3, tile_idx, r)
+    if table.device.type == "cpu":
+        return stream_select_pairwise_plain(table, qvecs, cand3, tile_idx, r, exact)
+    if table.device.type != "cuda":
+        raise ValueError(f"unsupported device {table.device}")
+    for name, t in (("table", table), ("qvecs", qvecs), ("cand3", cand3), ("tile_idx", tile_idx)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if table.data_ptr() % 16 or qvecs.data_ptr() % 16:
+        raise ValueError("table and qvecs must be 16-byte aligned")
+    lib = _kernel()
+    out = torch.empty(cand3.shape, dtype=torch.float32, device=table.device)
+    device = table.device.index if table.device.index is not None else torch.cuda.current_device()
+    rc = lib.ff_stream_select_pairwise(
+        table.data_ptr(),
+        _DTYPE_CODE[table.dtype],
+        qvecs.data_ptr(),
+        cand3.data_ptr(),
+        tile_idx.data_ptr(),
+        out.data_ptr(),
+        out.numel(),
+        cand3.shape[1] * 128,
+        qvecs.shape[0],
+        r,
+        dim,
+        int(exact),
+        device,
+        torch.cuda.current_stream(device).cuda_stream,
+    )
+    if rc != 0:
+        msg = lib.ff_cuda_error_string(rc).decode()
+        raise RuntimeError(f"stream_select_pairwise launch failed: {msg} ({rc})")
+    stream_select_pairwise.launches += 1
+    return out
+
+
+#: launches of the CUDA kernel (the plain version does not count)
+stream_select_pairwise.launches = 0
+
+
+def stream_select_pairwise_plain(
+    table: torch.Tensor,
+    qvecs: torch.Tensor,
+    cand3: torch.Tensor,
+    tile_idx: torch.Tensor,
+    r: int = KERNEL_TILE_ROWS,
+    exact: bool = True,
+) -> torch.Tensor:
+    """Plain PyTorch version of K1 (same arguments and result).
+
+    Unpacks the slots, indexes the rows and queries, rounds both to bf16
+    for ``exact=False``, multiplies elementwise and sums in fp32 (no matmul,
+    so no TF32 either).
+    """
+    qb = qvecs.shape[0]
+    rows2 = table.reshape(table.shape[0], -1)
+    cand = cand3.reshape(-1).long()
+    tiles = tile_idx.long().repeat_interleave(cand3.shape[1] * 128)
+    row = tiles * r + cand // qb
+    qno = cand % qb
+    q = qvecs.float() if exact else qvecs.to(torch.bfloat16).float()
+    out = torch.empty(cand.shape[0], dtype=torch.float32, device=table.device)
+    for lo in range(0, cand.shape[0], _PLAIN_CHUNK_SLOTS):
+        hi = lo + _PLAIN_CHUNK_SLOTS
+        x = rows2[row[lo:hi]].float()
+        if not exact:
+            x = x.to(torch.bfloat16).float()
+        out[lo:hi] = (x * q[qno[lo:hi]]).sum(-1)
+    return out.view(cand3.shape)

@@ -1,0 +1,71 @@
+"""The port stands alone: no JAX, no fastforward_tpu, and the card by default."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from fastforward_tpu_torch import InMemoryIndex
+
+REPO = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((REPO / "fastforward_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def test_import_pulls_in_neither_jax_nor_the_jax_package():
+    """A fresh interpreter imports every module of the port and parses and
+    loads ``chip_smoke.py``; neither JAX nor ``fastforward_tpu`` appears."""
+    code = """
+import ast, importlib, importlib.util, pkgutil, sys
+import fastforward_tpu_torch
+for m in pkgutil.walk_packages(fastforward_tpu_torch.__path__, "fastforward_tpu_torch."):
+    importlib.import_module(m.name)
+src = open("chip_smoke.py").read()
+ast.parse(src)
+spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
+bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "fastforward_tpu")]
+assert not bad, bad
+print("ok")
+"""
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
+def test_no_source_imports_jax_or_the_jax_package(path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in ("jax", "jaxlib", "fastforward_tpu"), (path, name)
+
+
+def test_index_runs_on_the_card_unless_asked_otherwise():
+    if torch.cuda.is_available():
+        assert InMemoryIndex().device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            InMemoryIndex()
+    assert InMemoryIndex(device="cpu").device.type == "cpu"
+
+
+def test_chip_smoke_refuses_without_a_card(tmp_path):
+    """Alone in a directory (no package beside it) or without CUDA, the
+    smoke run exits non-zero and prints no result."""
+    lone = tmp_path / "chip_smoke.py"
+    lone.write_text((REPO / "chip_smoke.py").read_text())
+    out = subprocess.run(
+        [sys.executable, str(lone)], cwd=tmp_path, capture_output=True, text=True, timeout=120
+    )
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
