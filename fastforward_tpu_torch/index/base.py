@@ -3,10 +3,12 @@
 The port of the ``fastforward_tpu/index/base.py`` subset on the main path:
 re-rank (``__call__``, ``submit``) and fused serve (``serve``,
 ``submit_serve``) for one-row-per-pair modes (``Mode.PASSAGE``,
-``Mode.FIRSTP``) against a dense device table.  The host resolves string
-IDs to int rows (natively), dense candidate sets stream through kernel K1
-and sparse ones take the gather-dot; results are ordered on the host with
-the native segmented sort while the score copy is still in flight.
+``Mode.FIRSTP``) against a device table of fp32/bf16 vectors, int8 codes
+(``ScalarQuantizer``) or PQ codes (``PQ``/``OPQ``).  The host resolves
+string IDs to int rows (natively), dense candidate sets stream through the
+kernels (K1/K2 for vectors and int8 codes, K3/K4 for PQ codes) and sparse
+ones take a gather-dot; results are ordered on the host with the native
+segmented sort while the score copy is still in flight.
 
 Everything runs on the device of the index's table: the card by default,
 the CPU when the caller asks for it (the plain versions of the kernels
@@ -32,6 +34,7 @@ from fastforward_tpu_torch import ops
 from fastforward_tpu_torch.encoder.base import Encoder
 from fastforward_tpu_torch.index.mode import Mode
 from fastforward_tpu_torch.ops.scoring import _cached_q_upload
+from fastforward_tpu_torch.quantizer import OPQ, Quantizer
 from fastforward_tpu_torch.ranking import Ranking
 from fastforward_tpu_torch.utils.tracing import annotate
 
@@ -48,29 +51,45 @@ def not_ported(what: str, item: str) -> NotImplementedError:
     )
 
 
-def resolve_device(device: "str | torch.device | None") -> torch.device:
-    """The device an index runs on: the card unless the caller names another.
+def check_ids(
+    num_vectors: int, doc_ids: "IDSequence | None", psg_ids: "IDSequence | None"
+) -> tuple[IDSequence, IDSequence]:
+    """Validate the IDs of ``num_vectors`` new rows (``None`` lists become
+    all-``None``).
 
-    :raises RuntimeError: When a CUDA device is asked for (or implied by
-        ``None``) and none is available.
+    :raises ValueError: When ID counts don't match the vector count.
+    :raises ValueError: When a vector has neither ID.
     """
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; pass device='cpu' to run the index "
-            "on the CPU"
-        )
-    return dev
+    if doc_ids is None:
+        doc_ids = [None] * num_vectors
+    if psg_ids is None:
+        psg_ids = [None] * num_vectors
+    if not len(doc_ids) == len(psg_ids) == num_vectors:
+        raise ValueError("Number of IDs does not match number of vectors.")
+    for doc_id, psg_id in zip(doc_ids, psg_ids):
+        if doc_id is None and psg_id is None:
+            raise ValueError("Vector has neither document nor passage ID.")
+    return doc_ids, psg_ids
 
 
 @dataclass
 class DeviceView:
-    """Device-resident scoring arrays: a zero-padded dense ``(N_pad, dim)``
-    fp32 or bf16 table (``kind="dense"``) and its precision tier."""
+    """Device-resident scoring arrays for an index backend.
+
+    ``kind`` selects the scoring path: ``"dense"`` scores against a
+    zero-padded ``(N_pad, dim)`` fp32 or bf16 table; ``"scalar"`` against
+    int8 codes (``(N_pad, dim/128, 128)`` when ``dim % 128 == 0``, else
+    ``(N_pad, dim)``) with the per-dimension ``scales`` folded into the
+    queries; ``"pq"`` against ``(N_pad, M)`` uint8 PQ codes and their fp32
+    ``codebooks`` ``(M, Ks, Ds)`` (ADC; OPQ's rotation is folded into the
+    queries).
+    """
 
     kind: str
     table: torch.Tensor
     precision: str = "exact"
+    codebooks: torch.Tensor | None = None
+    scales: np.ndarray | None = None
 
 
 def _cat_from_codes(codes: np.ndarray, like: "pd.Categorical") -> "pd.Categorical":
@@ -228,6 +247,7 @@ class Index(abc.ABC):
     """Abstract base class for Fast-Forward indexes on one torch device."""
 
     _query_encoder: Encoder | None = None
+    _quantizer: Quantizer | None = None
 
     def __init__(
         self,
@@ -240,7 +260,8 @@ class Index(abc.ABC):
         """Create an index.
 
         :param query_encoder: The query encoder to use.
-        :param quantizer: Must be ``None`` (quantizers are not ported yet).
+        :param quantizer: The quantizer to use (attached to the empty
+            index; vectors are encoded as they are added).
         :param mode: The ranking mode (scoring supports ``Mode.PASSAGE`` and
             ``Mode.FIRSTP``).
         :param encoder_batch_size: The query-encoder batch size.
@@ -253,11 +274,11 @@ class Index(abc.ABC):
             )
         if score_transport == "u16":
             raise not_ported("score_transport='u16'", "5")
-        if quantizer is not None:
-            raise not_ported("quantization", "8 and 10")
         if query_encoder is not None:
             self.query_encoder = query_encoder
         self.mode = mode
+        if quantizer is not None:
+            self.quantizer = quantizer
         self._encoder_batch_size = encoder_batch_size
         # host string-ID -> int-row map (native C++ when available); the
         # device only ever sees int rows
@@ -328,13 +349,18 @@ class Index(abc.ABC):
         self._query_encoder = encoder
 
     @property
-    def quantizer(self) -> None:
-        """The quantizer: always ``None`` (quantizers are not ported yet)."""
-        return None
+    def quantizer(self) -> Quantizer | None:
+        """The quantizer (if any)."""
+        return self._quantizer
 
     @quantizer.setter
-    def quantizer(self, quantizer) -> None:
-        raise not_ported("quantization", "8 and 10")
+    def quantizer(self, quantizer: Quantizer) -> None:
+        if not isinstance(quantizer, Quantizer):
+            raise TypeError(f"expected a Quantizer, got {type(quantizer).__name__}")
+        if len(self) > 0:
+            raise RuntimeError("Quantizers can only be attached to empty indexes.")
+        quantizer.set_attached()
+        self._quantizer = quantizer
 
     # -- mode / shape properties ---------------------------------------------
 
@@ -354,7 +380,9 @@ class Index(abc.ABC):
 
     @property
     def dim(self) -> int | None:
-        """Dimensionality of the vectors; ``None`` if empty."""
+        """Dimensionality of the (decoded) vectors; ``None`` if empty."""
+        if self._quantizer is not None:
+            return self._quantizer.dims[0]
         return self._get_internal_dim()
 
     @property
@@ -405,20 +433,14 @@ class Index(abc.ABC):
         :raises RuntimeError: When the backend rejects the add.
         """
         num_vectors, dim = vectors.shape
-        if doc_ids is None:
-            doc_ids = [None] * num_vectors
-        if psg_ids is None:
-            psg_ids = [None] * num_vectors
-        if not len(doc_ids) == len(psg_ids) == num_vectors:
-            raise ValueError("Number of IDs does not match number of vectors.")
+        doc_ids, psg_ids = check_ids(num_vectors, doc_ids, psg_ids)
         if self.dim is not None and dim != self.dim:
             raise ValueError(
                 f"Input vector dimensionality ({dim}) does not match "
                 f"index dimensionality ({self.dim})."
             )
-        for doc_id, psg_id in zip(doc_ids, psg_ids):
-            if doc_id is None and psg_id is None:
-                raise ValueError("Vector has neither document nor passage ID.")
+        if self._quantizer is not None:
+            vectors = self._quantizer.encode(vectors)
         self._add(vectors, doc_ids, psg_ids)
         # prepared plans hold row indices into the (now stale) table
         self._plans.clear()
@@ -430,8 +452,18 @@ class Index(abc.ABC):
         (``None`` while the index is empty)."""
         return None
 
-    def _pad_queries(self, query_vectors: np.ndarray) -> np.ndarray:
+    def _prepare_queries(self, query_vectors: np.ndarray, view: DeviceView) -> np.ndarray:
+        """Fold quantizer-specific transforms into the query vectors (numpy
+        fp32): OPQ's rotation for PQ codes, the scales for int8 codes."""
         q = np.asarray(query_vectors, dtype=np.float32)
+        if view.kind == "pq" and isinstance(self._quantizer, OPQ):
+            q = self._quantizer.rotate(q)
+        elif view.kind == "scalar":
+            q = q * view.scales
+        return q
+
+    def _pad_queries(self, query_vectors: np.ndarray, view: DeviceView) -> np.ndarray:
+        q = self._prepare_queries(query_vectors, view)
         q_pad = np.zeros((ops.bucket(q.shape[0]), q.shape[1]), dtype=np.float32)
         q_pad[: q.shape[0]] = q
         return q_pad
@@ -449,35 +481,72 @@ class Index(abc.ABC):
     ) -> "np.ndarray | torch.Tensor":
         """Score the ``(pairs, K)`` candidate layout on the device (K == 1).
 
-        Dense candidate sets stream through K1; sparse ones
-        (``n_pairs * 500 <= N``) take the plain gather-dot.  With
-        ``fetch=False`` the device tensor is returned (its length may carry
-        bucket padding past ``n_pairs``).  ``plan`` optionally caches the
-        candidate-dependent device arrays across calls.
+        Dense candidate sets stream through the kernels: vectors and int8
+        codes (2D with ``dim % 128 == 0``, or 3D) when ``n_pairs * 500 > N``,
+        PQ codes when ``n_pairs * 200 > N``.  Sparse ones take a gather-dot
+        (the bounded gather for vectors and int8 codes, the grouped LUT
+        gather for PQ codes).  With ``fetch=False`` the device tensor is
+        returned (its length may carry bucket padding past ``n_pairs``).
+        ``plan`` optionally caches the candidate-dependent device arrays
+        across calls.
         """
         n_pairs = rows_mat.shape[0]
-        q_pad = self._pad_queries(query_vectors)
+        q_pad = self._pad_queries(query_vectors, view)
         if q_pad.shape[0] > (1 << 22):
             raise not_ported("scoring more than 2^22 queries in one call", "4")
         if k != 1:
             raise not_ported("grouped scoring of several rows per pair", "4")
         table = view.table
-        if (
-            table.shape[1] % 128 == 0
+        streamable_dense = (
+            view.kind in ("dense", "scalar")
+            and (table.ndim == 3 or (table.ndim == 2 and table.shape[1] % 128 == 0))
             and n_pairs * k * ops.STREAM_DENSITY > table.shape[0]
-            and table.shape[0] % ops.KERNEL_TILE_ROWS == 0
-        ):
-            row_scores = ops.streamed_scores(
-                table,
-                q_pad,
-                rows_mat[:, 0].astype(np.int64),
-                pair_qno,
-                precision=view.precision,
-                plan=plan,
-                fetch=fetch,
-            )
+        )
+        streamable_pq = (
+            view.kind == "pq" and n_pairs * k * ops.STREAM_DENSITY_PQ > table.shape[0]
+        )
+        if (streamable_dense or streamable_pq) and table.shape[0] % ops.KERNEL_TILE_ROWS == 0:
+            rows_flat = rows_mat[:, 0].astype(np.int64)
+            if streamable_pq:
+                row_scores = ops.streamed_scores_pq(
+                    table,
+                    view.codebooks,
+                    q_pad,
+                    rows_flat,
+                    pair_qno,
+                    precision=view.precision,
+                    plan=plan,
+                    fetch=fetch,
+                )
+            else:
+                row_scores = ops.streamed_scores(
+                    table,
+                    q_pad,
+                    rows_flat,
+                    pair_qno,
+                    precision=view.precision,
+                    plan=plan,
+                    fetch=fetch,
+                )
             if row_scores is not None:
                 return row_scores
+
+        if view.kind == "pq":
+            # gather-ADC: one stacked transfer of the row column and the
+            # packed (qno, count) row; pairs need not be grouped by query
+            idx_dev = plan.get("grouped_idx") if plan is not None else None
+            if idx_dev is None:
+                idx = np.zeros((k + 1, ops.bucket(n_pairs)), dtype=np.int32)
+                idx[:k, :n_pairs] = rows_mat.T
+                idx[k, :n_pairs] = (pair_qno.astype(np.int32) << 8) | counts_pp
+                idx_dev = torch.from_numpy(idx).to(table.device)
+                if plan is not None:
+                    plan["grouped_idx"] = idx_dev
+            q_dev = _cached_q_upload(q_pad, plan, "q_dev", table.device)
+            scores = ops.score_pairs_grouped_pq(table, view.codebooks, q_dev, idx_dev, "first")
+            if not fetch:
+                return scores
+            return ops.fetch_np(scores)[:n_pairs]
 
         if n_pairs and not (np.diff(pair_qno) >= 0).all():
             raise not_ported("scoring pairs that are not grouped by query", "4")
@@ -846,7 +915,8 @@ class Index(abc.ABC):
         whose dots are then recomputed in full fp32 on the device before the
         final cut — the returned scores are exact, and a true top-``cutoff``
         candidate is lost only if the bf16 error pushes it below ``margin``
-        others.
+        others.  Quantized indexes ignore ``refine`` and serve in their own
+        precision tier.
 
         :param ranking: The ranking (queries must be attached).
         :param alpha: Interpolation parameter (lexical weight).
@@ -960,8 +1030,9 @@ class Index(abc.ABC):
         device = view.table.device
         # two-phase refine: bf16 preselect + exact rescore of the top
         # (cutoff + margin) per query (fast-tier indexes still get exact
-        # final scores)
-        refine_live = refine is not None and k == 1
+        # final scores) -- dense tables only; quantized tables serve without
+        # it, as in fastforward_tpu
+        refine_live = refine is not None and k == 1 and view.kind == "dense"
         scoring_view = (
             dataclasses.replace(view, precision="fast") if refine_live else view
         )
@@ -1043,7 +1114,7 @@ class Index(abc.ABC):
                     q_dev = cached_q[1]
                 else:
                     q_dev = _cached_q_upload(
-                        self._pad_queries(query_vectors), plan, "q_dev", device
+                        self._pad_queries(query_vectors, view), plan, "q_dev", device
                     )
                 packed = ops.serve_topk_refine(
                     scores_dev,

@@ -1,9 +1,12 @@
 """In-memory index: host-canonical store + device scoring table.
 
 The port of ``fastforward_tpu/index/memory.py`` with ``store="host"``: the
-canonical copy is one growable fp32-preserving host array, and the scoring
-copy is a zero-padded ``(N_pad, dim)`` table on the index's device (fp32 or
-bf16), uploaded lazily in row chunks and invalidated on ``add``.
+canonical copy is one growable host array (vectors as added, or the
+quantizer's codes), and the scoring copy is a zero-padded table on the
+index's device, uploaded lazily in row chunks and invalidated on ``add``:
+``(N_pad, dim)`` fp32 or bf16 vectors; int8 codes, ``(N_pad, dim/128, 128)``
+when ``dim % 128 == 0``; or ``(N_pad, M)`` uint8 PQ codes with their fp32
+codebooks beside them.
 """
 
 import logging
@@ -11,15 +14,11 @@ import logging
 import numpy as np
 import torch
 
+from fastforward_tpu_torch.device import resolve_device
 from fastforward_tpu_torch.encoder.base import Encoder
-from fastforward_tpu_torch.index.base import (
-    DeviceView,
-    IDSequence,
-    Index,
-    not_ported,
-    resolve_device,
-)
+from fastforward_tpu_torch.index.base import DeviceView, IDSequence, Index, not_ported
 from fastforward_tpu_torch.index.mode import Mode
+from fastforward_tpu_torch.quantizer import PQ, Quantizer, ScalarQuantizer
 
 LOGGER = logging.getLogger(__name__)
 
@@ -39,7 +38,7 @@ class InMemoryIndex(Index):
     def __init__(
         self,
         query_encoder: Encoder | None = None,
-        quantizer=None,
+        quantizer: Quantizer | None = None,
         mode: Mode = Mode.MAXP,
         encoder_batch_size: int = 32,
         init_size: int = 2**16,
@@ -56,16 +55,20 @@ class InMemoryIndex(Index):
         """Create an in-memory index.
 
         :param query_encoder: The query encoder to use.
-        :param quantizer: Must be ``None`` (not ported yet).
+        :param quantizer: ``ScalarQuantizer``, ``PQ`` or ``OPQ`` (trained);
+            vectors are stored as its codes.
         :param mode: The ranking mode.
         :param encoder_batch_size: Batch size for the query encoder.
         :param init_size: Initially allocated capacity (number of vectors).
         :param alloc_size: Capacity growth granularity (number of vectors).
         :param device_dtype: Dtype of the device scoring table
-            (``"float32"`` or ``"bfloat16"``; the host copy stays as added).
+            (``"float32"`` or ``"bfloat16"``; the host copy stays as added;
+            ignored for quantized indexes).
         :param mesh_config: Must be ``None`` (not ported yet).
         :param precision: ``"exact"`` or ``"high"`` (true fp32 dots) or
-            ``"fast"`` (bf16-rounded operands, fp32 accumulation).
+            ``"fast"`` (bf16-rounded operands, fp32 accumulation); PQ
+            tables at dense tiles take K4's tiers (``"high"`` rounds the
+            codewords to bf16).
         :param store: Must be ``"host"`` (``"device"`` is not ported yet).
         :param hbm_budget: Must be ``None`` (not ported yet).
         :param stream_chunk_rows: Must be ``None`` (not ported yet).
@@ -149,21 +152,54 @@ class InMemoryIndex(Index):
 
     # -- device table --------------------------------------------------------
 
+    def _upload(
+        self, rows: np.ndarray, shape: tuple, dtype: torch.dtype, host_dtype=None
+    ) -> torch.Tensor:
+        """Zero-padded device copy of host rows, uploaded in row chunks
+        (each chunk converted to ``host_dtype`` on the host, then cast on
+        the device; bf16 rounds to nearest even)."""
+        table = torch.zeros(shape, dtype=dtype, device=self._device)
+        flat = table.view(shape[0], -1)
+        for lo in range(0, rows.shape[0], _UPLOAD_ROWS):
+            chunk = np.ascontiguousarray(rows[lo : lo + _UPLOAD_ROWS], dtype=host_dtype)
+            flat[lo : lo + chunk.shape[0]] = torch.from_numpy(chunk).to(self._device)
+        return table
+
     def _device_view(self) -> DeviceView | None:
         if self._num == 0:
             return None
         if self._dev_view is None:
             n_pad = -(-self._num // _ROW_PAD) * _ROW_PAD
             data = self._store[: self._num]
-            table = torch.zeros(
-                (n_pad, data.shape[1]),
-                dtype=_DEVICE_DTYPES[self._device_dtype],
-                device=self._device,
-            )
-            # fp32 rows go up in chunks and are cast on the device (bf16:
-            # round to nearest even); no padded host copy is made
-            for lo in range(0, self._num, _UPLOAD_ROWS):
-                chunk = np.ascontiguousarray(data[lo : lo + _UPLOAD_ROWS], dtype=np.float32)
-                table[lo : lo + chunk.shape[0]] = torch.from_numpy(chunk).to(self._device)
-            self._dev_view = DeviceView(kind="dense", table=table, precision=self._precision)
+            width = data.shape[1]
+            if isinstance(self._quantizer, PQ):
+                if data.dtype != np.uint8:
+                    raise not_ported("PQ codes wider than uint8 (Ks > 256)", "10")
+                # compact (N_pad, M) codes; the fp32 codebooks stay in L2
+                codebooks = np.array(self._quantizer.codewords, dtype=np.float32)
+                self._dev_view = DeviceView(
+                    kind="pq",
+                    table=self._upload(data, (n_pad, width), torch.uint8),
+                    precision=self._precision,
+                    codebooks=torch.from_numpy(codebooks).to(self._device),
+                )
+            elif isinstance(self._quantizer, ScalarQuantizer):
+                # 3D int8 layout when the lanes divide (the streamed kernels'
+                # table form); the scales fold into the queries
+                shape = (n_pad, width // 128, 128) if width % 128 == 0 else (n_pad, width)
+                self._dev_view = DeviceView(
+                    kind="scalar",
+                    table=self._upload(data, shape, torch.int8),
+                    precision=self._precision,
+                    scales=self._quantizer.scales,
+                )
+            else:
+                # fp32 rows go up in chunks (no padded host copy is made)
+                self._dev_view = DeviceView(
+                    kind="dense",
+                    table=self._upload(
+                        data, (n_pad, width), _DEVICE_DTYPES[self._device_dtype], np.float32
+                    ),
+                    precision=self._precision,
+                )
         return self._dev_view

@@ -1,18 +1,23 @@
-"""Build the CUDA kernels with ``nvcc`` at first use and load them.
+"""Build the CUDA kernels with ``nvcc`` at first use, load and launch them.
 
-Each ``csrc/*.cu`` source exposes a plain C interface and is compiled on its
-own into a shared object in the port's gitignored build directory, named
-after the source's hash (an edited source rebuilds).  The object is loaded
-with ``ctypes``; nothing here includes PyTorch's headers.  Nothing is built
-when the module is imported.
+Each ``csrc/<name>.cu`` source exposes a plain C interface, ``ff_<name>``
+plus ``ff_cuda_error_string``, and is compiled on its own into a shared
+object in the port's gitignored build directory, named after the hash of
+the source and the shared ``csrc/*.cuh`` headers (an edit rebuilds).  The
+object is loaded with ``ctypes``; nothing here includes PyTorch's headers.
+Nothing is built when the module is imported.
 """
 
 import ctypes
+import functools
 import os
 import shutil
 import subprocess
 import threading
+from collections.abc import Callable, Sequence
 from pathlib import Path
+
+import torch
 
 from fastforward_tpu_torch.runtime.build import build_object
 
@@ -59,7 +64,9 @@ def build_kernel(name: str) -> Path:
     :raises RuntimeError: When ``nvcc`` fails, with its stderr.
     """
     try:
-        return build_object(CSRC / f"{name}.cu", [nvcc_path(), *NVCC_FLAGS], 900)
+        return build_object(
+            CSRC / f"{name}.cu", [nvcc_path(), *NVCC_FLAGS], 900, sorted(CSRC.glob("*.cuh"))
+        )
     except subprocess.CalledProcessError as e:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{e.stderr}") from e
 
@@ -72,3 +79,44 @@ def load_kernel(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build_kernel(name)))
             _libs[name] = lib
         return lib
+
+
+@functools.cache
+def bind(name: str, argtypes: tuple) -> Callable[..., None]:
+    """Build (once per process) and load ``csrc/<name>.cu``; return a caller
+    of its entry ``ff_<name>`` that raises when the launch fails.
+
+    :param name: The kernel source's stem.
+    :param argtypes: ``ctypes`` types of the entry's arguments.
+    """
+    lib = load_kernel(name)
+    entry = getattr(lib, f"ff_{name}")
+    entry.argtypes = list(argtypes)
+    entry.restype = ctypes.c_int
+    lib.ff_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.ff_cuda_error_string.restype = ctypes.c_char_p
+
+    def launch(*args) -> None:
+        rc = entry(*args)
+        if rc != 0:
+            msg = lib.ff_cuda_error_string(rc).decode()
+            raise RuntimeError(f"{name} launch failed: {msg} ({rc})")
+
+    return launch
+
+
+def cuda_target(named: "Sequence[tuple[str, torch.Tensor]]") -> tuple[int, int]:
+    """Where a kernel launches: the CUDA device index of the named tensors
+    and the handle of its current stream.
+
+    :raises ValueError: When the tensors are not on a CUDA device, or one of
+        them is not contiguous.
+    """
+    dev = named[0][1].device
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    for name, t in named:
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    return index, torch.cuda.current_stream(index).cuda_stream

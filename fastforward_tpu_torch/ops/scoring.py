@@ -1,10 +1,12 @@
-"""Scoring ops on the re-rank and serve path: candidate layout, K1, top-k.
+"""Scoring ops on the re-rank and serve path: candidate layout, kernels, top-k.
 
 The port of the ``fastforward_tpu/ops/scoring.py`` subset that the main
-path runs.  Dense candidate sets stream through kernel K1
-(:func:`streamed_scores`, which fuses the slot gather after it); sparse
-sets take the plain gather-dot :func:`score_pairs_bounded`; the fused serve
-tail interpolates and cuts per query (:func:`serve_topk`,
+path runs.  Dense candidate sets stream through the kernels
+(:func:`streamed_scores`: K1 or K2 for fp32/bf16/int8 tables;
+:func:`streamed_scores_pq`: K3 or K4 for PQ codes; both fuse the slot
+gather after the kernel); sparse sets take the plain gather-dots
+:func:`score_pairs_bounded` and :func:`score_pairs_grouped_pq`; the fused
+serve tail interpolates and cuts per query (:func:`serve_topk`,
 :func:`serve_topk_refine`).  Everything runs on the device of the table;
 the hand-written kernel runs for CUDA tensors, its plain version for CPU
 tensors, and nothing falls back from one to the other.
@@ -16,7 +18,7 @@ multiply and an fp32 sum, so TF32 settings cannot change a result.
 import numpy as np
 import torch
 
-from fastforward_tpu_torch.ops import stream_kernel
+from fastforward_tpu_torch.ops import stream_kernel, stream_kernel_pq
 
 _BUCKET_MIN = 256
 
@@ -28,8 +30,15 @@ FETCH_CHUNKS = 8
 _FETCH_CHUNK_MIN = 1 << 17
 
 #: candidate sets denser than one pair per this many table rows stream
-#: through K1; sparser ones take the gather-dot (``index/base.py:1277``)
+#: through K1/K2; sparser ones take the gather-dot (``index/base.py:1277``)
 STREAM_DENSITY = 500
+
+#: the same for PQ code tables, whose rows are M bytes: streaming pays off
+#: at lower density (``index/base.py:1282-1286``)
+STREAM_DENSITY_PQ = 200
+
+#: bound on the ``(queries, M, Ks, Ds)`` product block of the PQ LUT
+_LUT_ELEMS = 1 << 26
 
 
 def bucket(n: int) -> int:
@@ -139,7 +148,7 @@ def _cached_q_upload(
     return q_dev
 
 
-# -- streamed scoring (K1) ---------------------------------------------------
+# -- streamed scoring (K1-K4) -------------------------------------------------
 
 
 def _adaptive_cap(p: int, num_tiles: int) -> int:
@@ -221,6 +230,44 @@ def build_streamed_layout(
     return cand, tile_idx, slot_of_pair
 
 
+def _cached_layout(
+    key: str,
+    n_pad: int,
+    q_pad: np.ndarray,
+    rows: np.ndarray,
+    qno: np.ndarray,
+    r: int,
+    plan: dict | None,
+    device: torch.device,
+) -> "tuple[torch.Tensor, torch.Tensor, torch.Tensor] | None":
+    """The streamed layout's device grid ``(cand3, tile_idx, slot_of_pair)``,
+    built once and kept in ``plan[key]``; ``None`` when no layout applies."""
+    cached = plan.get(key) if plan is not None else None
+    if cached is None:
+        cap = _adaptive_cap(rows.shape[0], n_pad // r)
+        layout = build_streamed_layout(rows, qno, n_pad, q_pad.shape[0], r=r, cap=cap)
+        if layout is None:
+            return None
+        cand, tile_idx, slot_of_pair = layout
+        cached = (
+            torch.from_numpy(cand.reshape(cand.shape[0], cap // 128, 128)).to(device),
+            torch.from_numpy(tile_idx).to(device),
+            torch.from_numpy(slot_of_pair).to(device),
+        )
+        if plan is not None:
+            plan[key] = cached
+    return cached
+
+
+def _pick_slots(outs, slot_dev, reduce, fetch):
+    """Each pair's slot score in input order (+ the optional K reduce)."""
+    picked = torch.take(outs, slot_dev)
+    if reduce is not None:
+        op, k, counts = reduce
+        picked = _masked_reduce(picked.view(-1, k), counts, op)
+    return picked if not fetch else fetch_np(picked)
+
+
 def streamed_scores(
     table: torch.Tensor,
     q_pad: np.ndarray,
@@ -231,44 +278,66 @@ def streamed_scores(
     reduce: "tuple[str, int, torch.Tensor] | None" = None,
     fetch: bool = True,
 ) -> "np.ndarray | torch.Tensor | None":
-    """Score ``table[rows[i]] . q_pad[qno[i]]`` through kernel K1.
+    """Score ``table[rows[i]] . q_pad[qno[i]]`` through K1 or K2.
 
     Builds the candidate layout (cached in ``plan`` with its device grid),
-    launches K1 over every virtual tile and gathers each pair's slot on the
-    device.  ``"exact"`` and ``"high"`` run K1 with true fp32 dots,
-    ``"fast"`` with bf16-rounded operands, as ``stream_select_auto`` routes
-    2D tables.  With ``reduce=(op, k, counts)`` the rows are a flattened
-    ``(P, K)`` grouped layout reduced along K on the device.
+    launches the kernel that ``stream_select_auto`` picks over every virtual
+    tile (K1 for 2D tables and for int8 tables at ``cap <= r``, K2 for int8
+    tables at ``cap > r``) and gathers each pair's slot on the device.  With
+    ``reduce=(op, k, counts)`` the rows are a flattened ``(P, K)`` grouped
+    layout reduced along K on the device.
 
+    :param table: ``(N_pad, dim)`` fp32/bf16, or int8 ``(N_pad, dim/128,
+        128)`` codes (scales folded into ``q_pad``).
     :return: Per-pair scores in input order (numpy, or the device tensor with
         ``fetch=False``), or ``None`` when the layout does not apply.
     """
     r = stream_kernel.KERNEL_TILE_ROWS
-    qb = q_pad.shape[0]
-    cached = plan.get("stream") if plan is not None else None
+    cached = _cached_layout("stream", table.shape[0], q_pad, rows, qno, r, plan, table.device)
     if cached is None:
-        cap = _adaptive_cap(rows.shape[0], table.shape[0] // r)
-        layout = build_streamed_layout(rows, qno, table.shape[0], qb, r=r, cap=cap)
-        if layout is None:
-            return None
-        cand, tile_idx, slot_of_pair = layout
-        cached = (
-            torch.from_numpy(cand.reshape(cand.shape[0], cap // 128, 128)).to(table.device),
-            torch.from_numpy(tile_idx).to(table.device),
-            torch.from_numpy(slot_of_pair).to(table.device),
-        )
-        if plan is not None:
-            plan["stream"] = cached
+        return None
     cand_dev, tile_dev, slot_dev = cached
     q_dev = _cached_q_upload(q_pad, plan, "q_dev", table.device)
-    outs = stream_kernel.stream_select_pairwise(
-        table, q_dev, cand_dev, tile_dev, r=r, exact=precision != "fast"
+    # the transposed view of the row-major query block: K2 reads it as
+    # q^T, K1 gets the block itself back
+    outs = stream_kernel.stream_select_auto(
+        table, q_dev.t(), cand_dev, tile_dev, r=r, precision=precision
     )
-    picked = torch.take(outs, slot_dev)
-    if reduce is not None:
-        op, k, counts = reduce
-        picked = _masked_reduce(picked.view(-1, k), counts, op)
-    return picked if not fetch else fetch_np(picked)
+    return _pick_slots(outs, slot_dev, reduce, fetch)
+
+
+def streamed_scores_pq(
+    codes: torch.Tensor,
+    codebooks: torch.Tensor,
+    q_pad: np.ndarray,
+    rows: np.ndarray,
+    qno: np.ndarray,
+    precision: str = "exact",
+    plan: dict | None = None,
+    reduce: "tuple[str, int, torch.Tensor] | None" = None,
+    fetch: bool = True,
+) -> "np.ndarray | torch.Tensor | None":
+    """ADC-score ``codes[rows[i]]`` against ``q_pad[qno[i]]`` through K3 or K4.
+
+    The same layout (at ``r = 512``), plan cache, slot gather and optional K
+    reduce as :func:`streamed_scores`; ``stream_select_pq_auto`` picks K3 at
+    ``cap <= r`` and K4 at ``cap > r``.  Scores are decode-then-dot values
+    (OPQ queries arrive rotated).
+
+    :param codes: PQ codes, ``(N_pad, M)`` uint8.
+    :param codebooks: ``(M, Ks, Ds)`` fp32.
+    :return: As :func:`streamed_scores`.
+    """
+    r = stream_kernel_pq.KERNEL_PQ_TILE_ROWS
+    cached = _cached_layout("stream_pq", codes.shape[0], q_pad, rows, qno, r, plan, codes.device)
+    if cached is None:
+        return None
+    cand_dev, tile_dev, slot_dev = cached
+    q_dev = _cached_q_upload(q_pad, plan, "q_dev", codes.device)
+    outs = stream_kernel_pq.stream_select_pq_auto(
+        codes, codebooks, q_dev.t(), cand_dev, tile_dev, r=r, precision=precision
+    )
+    return _pick_slots(outs, slot_dev, reduce, fetch)
 
 
 def masked_reduce_host(mat: np.ndarray, counts: np.ndarray, op: str) -> np.ndarray:
@@ -313,7 +382,8 @@ def score_pairs_bounded(
     uploaded.  The dot is an elementwise multiply and an fp32 sum; the
     ``"fast"`` tier rounds both operands to bf16 first, as the TPU did.
 
-    :param table: Embedding table, ``(N, dim)``.
+    :param table: Embedding table, ``(N, dim)`` or int8 codes ``(N,
+        dim/128, 128)``.
     :param qvecs: Query vectors, ``(Q, dim)`` fp32.
     :param rows: Table row per pair, ``(S,)`` int32.
     :param bounds: Cumulative pair counts per query (padded with ``S``),
@@ -323,11 +393,68 @@ def score_pairs_bounded(
     """
     iota = torch.arange(rows.shape[0], device=rows.device, dtype=torch.int32)
     qno = torch.searchsorted(bounds, iota, right=True).clamp(0, qvecs.shape[0] - 1)
-    d = table[rows.long()].float()
+    d = table[rows.long()].reshape(rows.shape[0], -1).float()
     q = qvecs[qno]
     if precision == "fast":
         d, q = _round_bf16(d), _round_bf16(q)
     return (d * q).sum(-1)
+
+
+def pq_lut(qvecs: torch.Tensor, codebooks: torch.Tensor) -> torch.Tensor:
+    """Per-query ADC lookup tables ``lut[q, m, k] = q_m . codeword[m, k]``.
+
+    An elementwise product and an fp32 sum over ``Ds``, chunked over
+    queries: no matmul, so no TF32 (``fastforward_tpu`` runs this
+    contraction at ``HIGHEST``).
+
+    :param qvecs: ``(Q, M * Ds)`` fp32.
+    :param codebooks: ``(M, Ks, Ds)`` fp32.
+    :return: ``(Q, M, Ks)`` fp32.
+    """
+    num_q = qvecs.shape[0]
+    m, ks, ds = codebooks.shape
+    qsub = qvecs.float().reshape(num_q, m, 1, ds)
+    cb = codebooks.float()[None]
+    lut = torch.empty((num_q, m, ks), dtype=torch.float32, device=qvecs.device)
+    step = max(1, _LUT_ELEMS // (m * ks * ds))
+    for lo in range(0, num_q, step):
+        lut[lo : lo + step] = (qsub[lo : lo + step] * cb).sum(-1)
+    return lut
+
+
+def score_pairs_grouped_pq(
+    codes: torch.Tensor,
+    codebooks: torch.Tensor,
+    qvecs: torch.Tensor,
+    idx: torch.Tensor,
+    op: str,
+) -> torch.Tensor:
+    """Grouped-layout ADC scoring against PQ codes (sparse candidate sets).
+
+    Each pair's score is the sum over subspaces of its query's LUT entry
+    at the row's code (:func:`pq_lut`), then the mode's masked reduce along
+    the K axis.
+
+    :param codes: PQ codes, ``(N, M)``.
+    :param codebooks: Codebooks, ``(M, Ks, Ds)`` fp32.
+    :param qvecs: (OPQ-rotated) query vectors, ``(Q, M * Ds)`` fp32.
+    :param idx: Stacked int32 ``(K + 1, S)``: the row matrix (first ``K``
+        rows, transposed) and a packed last row ``qno * 256 + counts``.
+    :param op: ``"max"`` | ``"mean"`` | ``"first"``.
+    :return: Per-pair scores, ``(S,)`` fp32.
+    """
+    k = idx.shape[0] - 1
+    s = idx.shape[1]
+    rows_flat = idx[:k].T.reshape(-1).long()
+    qno = (idx[k] >> 8).long()
+    counts = idx[k] & 0xFF
+    m = codebooks.shape[0]
+    lut = pq_lut(qvecs, codebooks)
+    c = codes[rows_flat][:, :m].long()
+    subspace = torch.arange(m, device=codes.device)[None, :]
+    qno_flat = qno.repeat_interleave(k)
+    row_scores = lut[qno_flat[:, None], subspace, c].sum(-1)
+    return _masked_reduce(row_scores.view(s, k), counts, op)
 
 
 # -- fused serve tail --------------------------------------------------------

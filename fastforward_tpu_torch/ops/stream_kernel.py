@@ -1,25 +1,30 @@
-"""K1, pairwise stream-select scoring: CUDA kernel wrapper and plain version.
+"""K1 and K2, stream-select scoring: CUDA kernel wrappers and plain versions.
 
-The port of ``fastforward_tpu/ops/stream_kernel.py:stream_select_pairwise``
-(Pallas body ``_pairwise_kernel``).  Contract, shared with the TPU kernel:
-for each slot ``s`` of virtual tile ``t``, unpack ``c = cand3[t, s]`` into
-``local = c // Qb`` and ``qno = c % Qb`` and compute
+The port of ``fastforward_tpu/ops/stream_kernel.py``: K1,
+``stream_select_pairwise`` (Pallas body ``_pairwise_kernel``), and K2,
+``stream_select`` (Pallas body ``_select_kernel``), with
+``stream_select_auto`` routing between them as the JAX package does.
+Contract, shared with the TPU kernels: for each slot ``s`` of virtual tile
+``t``, unpack ``c = cand3[t, s]`` into ``local = c // Qb`` and
+``qno = c % Qb`` and compute
 
     out[t, s] = table[tile_idx[t] * r + local] . qvecs[qno]
 
-``exact=True`` is a true fp32 dot; ``exact=False`` rounds the row and the
-query to bf16 and accumulates the products in fp32.  Padding slots carry
-``local 0`` and ``qno Qb - 1`` and are computed like any other slot.
+K1 takes ``exact``: ``True`` is a true fp32 dot; ``False`` rounds the row
+and the query to bf16 and accumulates the products in fp32.  K2 takes the
+transposed query block and a ``precision`` tier: ``"exact"`` and
+``"high"`` are true fp32 dots, ``"fast"`` is K1's bf16 tier.  Padding slots
+carry ``local 0`` and ``qno Qb - 1`` and are computed like any other slot.
 
-:func:`stream_select_pairwise` launches the hand-written CUDA kernel
-(``csrc/stream_select_pairwise.cu``) for CUDA tensors and runs the plain
-PyTorch version :func:`stream_select_pairwise_plain` only for CPU tensors.
+Each wrapper launches its hand-written CUDA kernel (``csrc/*.cu``) for CUDA
+tensors and runs its plain PyTorch version only for CPU tensors.
 """
 
 import ctypes
-import functools
 
 import torch
+
+from fastforward_tpu_torch.ops import _build
 
 #: rows per table tile (the layout's tile granularity)
 KERNEL_TILE_ROWS = 512
@@ -32,33 +37,23 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _PLAIN_CHUNK_SLOTS = 1 << 17
 
 
-@functools.cache
-def _kernel() -> ctypes.CDLL:
-    """Build (first call only), load and type the kernel's C interface."""
-    from fastforward_tpu_torch.ops._build import load_kernel
-
-    lib = load_kernel("stream_select_pairwise")
-    fn = lib.ff_stream_select_pairwise
-    fn.restype = ctypes.c_int
-    fn.argtypes = [
-        ctypes.c_void_p,  # table
-        ctypes.c_int,  # dtype code
-        ctypes.c_void_p,  # qvecs
-        ctypes.c_void_p,  # cand3
-        ctypes.c_void_p,  # tile_idx
-        ctypes.c_void_p,  # out
-        ctypes.c_longlong,  # slots
-        ctypes.c_int,  # cap
-        ctypes.c_int,  # qb
-        ctypes.c_int,  # r
-        ctypes.c_int,  # dim
-        ctypes.c_int,  # exact
-        ctypes.c_int,  # device
-        ctypes.c_void_p,  # stream
-    ]
-    lib.ff_cuda_error_string.restype = ctypes.c_char_p
-    lib.ff_cuda_error_string.argtypes = [ctypes.c_int]
-    return lib
+#: argument types of ``ff_stream_select_pairwise``
+_PAIRWISE_ARGS = (
+    ctypes.c_void_p,  # table
+    ctypes.c_int,  # dtype code
+    ctypes.c_void_p,  # qvecs
+    ctypes.c_void_p,  # cand3
+    ctypes.c_void_p,  # tile_idx
+    ctypes.c_void_p,  # out
+    ctypes.c_longlong,  # slots
+    ctypes.c_int,  # cap
+    ctypes.c_int,  # qb
+    ctypes.c_int,  # r
+    ctypes.c_int,  # dim
+    ctypes.c_int,  # exact
+    ctypes.c_int,  # device
+    ctypes.c_void_p,  # stream
+)
 
 
 def _check(table, qvecs, cand3, tile_idx, r) -> int:
@@ -121,17 +116,13 @@ def stream_select_pairwise(
     dim = _check(table, qvecs, cand3, tile_idx, r)
     if table.device.type == "cpu":
         return stream_select_pairwise_plain(table, qvecs, cand3, tile_idx, r, exact)
-    if table.device.type != "cuda":
-        raise ValueError(f"unsupported device {table.device}")
-    for name, t in (("table", table), ("qvecs", qvecs), ("cand3", cand3), ("tile_idx", tile_idx)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    device, stream = _build.cuda_target(
+        (("table", table), ("qvecs", qvecs), ("cand3", cand3), ("tile_idx", tile_idx))
+    )
     if table.data_ptr() % 16 or qvecs.data_ptr() % 16:
         raise ValueError("table and qvecs must be 16-byte aligned")
-    lib = _kernel()
     out = torch.empty(cand3.shape, dtype=torch.float32, device=table.device)
-    device = table.device.index if table.device.index is not None else torch.cuda.current_device()
-    rc = lib.ff_stream_select_pairwise(
+    _build.bind("stream_select_pairwise", _PAIRWISE_ARGS)(
         table.data_ptr(),
         _DTYPE_CODE[table.dtype],
         qvecs.data_ptr(),
@@ -145,11 +136,8 @@ def stream_select_pairwise(
         dim,
         int(exact),
         device,
-        torch.cuda.current_stream(device).cuda_stream,
+        stream,
     )
-    if rc != 0:
-        msg = lib.ff_cuda_error_string(rc).decode()
-        raise RuntimeError(f"stream_select_pairwise launch failed: {msg} ({rc})")
     stream_select_pairwise.launches += 1
     return out
 
@@ -187,3 +175,176 @@ def stream_select_pairwise_plain(
             x = x.to(torch.bfloat16).float()
         out[lo:hi] = (x * q[qno[lo:hi]]).sum(-1)
     return out.view(cand3.shape)
+
+
+# -- K2: stream_select ----------------------------------------------------------
+
+#: precision tiers of K2 (``"exact"`` and ``"high"`` are both true fp32 dots)
+SELECT_TIERS = ("exact", "high", "fast")
+
+#: shared-memory bytes K2 stages per chunk of rows (one row must fit)
+_SELECT_CHUNK_BYTES = 48 * 1024
+
+
+#: argument types of ``ff_stream_select``
+_SELECT_ARGS = (
+    ctypes.c_void_p,  # table
+    ctypes.c_int,  # dtype code
+    ctypes.c_void_p,  # qvecs_t
+    ctypes.c_longlong,  # qvecs_t stride along dim
+    ctypes.c_longlong,  # qvecs_t stride along queries
+    ctypes.c_void_p,  # cand3
+    ctypes.c_void_p,  # tile_idx
+    ctypes.c_void_p,  # out
+    ctypes.c_int,  # virtual tiles
+    ctypes.c_int,  # cap
+    ctypes.c_int,  # qb
+    ctypes.c_int,  # r
+    ctypes.c_int,  # dim
+    ctypes.c_int,  # fast
+    ctypes.c_int,  # device
+    ctypes.c_void_p,  # stream
+)
+
+
+def _check_select(table, qvecs_t, cand3, tile_idx, r, precision) -> int:
+    """Validate K2's contract; return ``dim``."""
+    if precision not in SELECT_TIERS:
+        raise ValueError(f"precision must be one of {SELECT_TIERS}, got {precision!r}")
+    if table.dtype not in _DTYPE_CODE:
+        raise TypeError(f"table dtype must be fp32, bf16 or int8, got {table.dtype}")
+    if table.ndim == 3 and table.shape[2] == 128:
+        dim = table.shape[1] * 128
+    elif table.ndim == 2:
+        dim = table.shape[1]
+    else:
+        raise ValueError(f"table must be (N_pad, dim) or (N_pad, dim/128, 128), got {tuple(table.shape)}")
+    if dim % 128 or table.shape[0] % r:
+        raise ValueError(
+            f"need dim % 128 == 0 and N_pad % r == 0, got dim={dim}, N_pad={table.shape[0]}, r={r}"
+        )
+    if qvecs_t.dtype != torch.float32 or qvecs_t.ndim != 2 or qvecs_t.shape[0] != dim:
+        raise ValueError(f"qvecs_t must be fp32 ({dim}, Qb), got {qvecs_t.dtype} {tuple(qvecs_t.shape)}")
+    if cand3.dtype != torch.int32 or cand3.ndim != 3 or cand3.shape[2] != 128:
+        raise ValueError(f"cand3 must be int32 (Tv, CAP/128, 128), got {cand3.dtype} {tuple(cand3.shape)}")
+    if tile_idx.dtype != torch.int32 or tuple(tile_idx.shape) != (cand3.shape[0],):
+        raise ValueError(f"tile_idx must be int32 ({cand3.shape[0]},), got {tile_idx.dtype} {tuple(tile_idx.shape)}")
+    if qvecs_t.shape[1] * r > 2**31 - 1:
+        raise ValueError("Qb * r must fit the int32 packing")
+    devices = {t.device for t in (table, qvecs_t, cand3, tile_idx)}
+    if len(devices) != 1:
+        raise ValueError(f"all inputs must be on one device, got {devices}")
+    return dim
+
+
+def stream_select(
+    table: torch.Tensor,
+    qvecs_t: torch.Tensor,
+    cand3: torch.Tensor,
+    tile_idx: torch.Tensor,
+    r: int = KERNEL_TILE_ROWS,
+    precision: str = "exact",
+) -> torch.Tensor:
+    """Score every candidate slot of dense tiles: K2 on the card, the plain
+    version on CPU.
+
+    :param table: ``(N_pad, dim)`` or ``(N_pad, dim/128, 128)``, fp32, bf16
+        or int8 (codes; scales folded into the queries); ``N_pad % r == 0``.
+    :param qvecs_t: Transposed query vectors, ``(dim, Qb)`` fp32, any
+        strides (the transposed view ``q.t()`` of a row-major ``(Qb, dim)``
+        block reads fastest).
+    :param cand3: Packed candidates ``local * Qb + qno``, ``(Tv, CAP/128,
+        128)`` int32 (values are not range-checked on the card).
+    :param tile_idx: Base table tile per virtual tile, ``(Tv,)`` int32.
+    :param r: Rows per table tile.
+    :param precision: ``"exact"`` or ``"high"`` (true fp32 dots) or
+        ``"fast"`` (bf16-rounded operands, fp32 accumulation).
+    :raises ValueError: On shapes, layouts, tiers or devices the kernel does
+        not take.
+    :raises TypeError: On a table dtype the kernel does not take.
+    :raises RuntimeError: When the launch fails (with the CUDA error).
+    :return: Scores per slot, ``(Tv, CAP/128, 128)`` fp32.
+    """
+    dim = _check_select(table, qvecs_t, cand3, tile_idx, r, precision)
+    if table.device.type == "cpu":
+        return stream_select_plain(table, qvecs_t, cand3, tile_idx, r, precision)
+    device, stream = _build.cuda_target(
+        (("table", table), ("cand3", cand3), ("tile_idx", tile_idx))
+    )
+    if table.data_ptr() % 16:
+        raise ValueError("table must be 16-byte aligned")
+    if dim * table.element_size() > _SELECT_CHUNK_BYTES:
+        raise ValueError(f"rows of {dim * table.element_size()} bytes do not fit K2's staging")
+    out = torch.empty(cand3.shape, dtype=torch.float32, device=table.device)
+    _build.bind("stream_select", _SELECT_ARGS)(
+        table.data_ptr(),
+        _DTYPE_CODE[table.dtype],
+        qvecs_t.data_ptr(),
+        qvecs_t.stride(0),
+        qvecs_t.stride(1),
+        cand3.data_ptr(),
+        tile_idx.data_ptr(),
+        out.data_ptr(),
+        cand3.shape[0],
+        cand3.shape[1] * 128,
+        qvecs_t.shape[1],
+        r,
+        dim,
+        int(precision == "fast"),
+        device,
+        stream,
+    )
+    stream_select.launches += 1
+    return out
+
+
+#: launches of the CUDA kernel (the plain version does not count)
+stream_select.launches = 0
+
+
+def stream_select_plain(
+    table: torch.Tensor,
+    qvecs_t: torch.Tensor,
+    cand3: torch.Tensor,
+    tile_idx: torch.Tensor,
+    r: int = KERNEL_TILE_ROWS,
+    precision: str = "exact",
+) -> torch.Tensor:
+    """Plain PyTorch version of K2 (same arguments and result).
+
+    Each slot is the same dot as in K1's plain version: ``"exact"`` and
+    ``"high"`` fp32, ``"fast"`` bf16-rounded operands (elementwise multiply
+    and fp32 sum, no matmul).
+    """
+    return stream_select_pairwise_plain(
+        table, qvecs_t.t(), cand3, tile_idx, r, exact=precision != "fast"
+    )
+
+
+def stream_select_auto(
+    table: torch.Tensor,
+    qvecs_t: torch.Tensor,
+    cand3: torch.Tensor,
+    tile_idx: torch.Tensor,
+    r: int = KERNEL_TILE_ROWS,
+    precision: str = "exact",
+) -> torch.Tensor:
+    """Route a streamed layout to K1 or K2 as ``fastforward_tpu`` does
+    (``ops/stream_kernel.py:242-253``).
+
+    2D tables, and integer (int8 code) tables whose slot capacity fits the
+    tile rows, go to K1 (``exact`` for the ``"exact"`` and ``"high"``
+    tiers); other 3D tables, and int8 tables with ``cap > r`` (dense tiles),
+    go to K2.  Arguments as :func:`stream_select`; for K1 the queries are
+    ``qvecs_t.t()``, copied only if that is not contiguous.
+    """
+    if precision not in SELECT_TIERS:
+        raise ValueError(f"precision must be one of {SELECT_TIERS}, got {precision!r}")
+    if table.ndim == 2 or (
+        not table.dtype.is_floating_point and cand3.shape[1] * 128 <= r
+    ):
+        return stream_select_pairwise(
+            table, qvecs_t.t().contiguous(), cand3, tile_idx, r=r,
+            exact=precision != "fast",
+        )
+    return stream_select(table, qvecs_t, cand3, tile_idx, r=r, precision=precision)

@@ -12,10 +12,13 @@ import pytest
 import torch
 
 import fastforward_tpu_torch as ft
+from fastforward_tpu_torch import convert
 from fastforward_tpu_torch.encoder import LambdaEncoder
 from fastforward_tpu_torch.index import InMemoryIndex, Mode
 from fastforward_tpu_torch.ops import scoring
 from fastforward_tpu_torch.ops import stream_kernel as sk
+from fastforward_tpu_torch.ops import stream_kernel_pq as skpq
+from fastforward_tpu_torch.quantizer import OPQ, PQ, ScalarQuantizer
 
 pytestmark = pytest.mark.gpu
 
@@ -104,3 +107,141 @@ def test_cuda_index_matches_cpu_index(cuda, precision):
     np.testing.assert_array_equal(
         out["cpu"][1]._df["id"].astype(str), out["cuda"][1]._df["id"].astype(str)
     )
+
+
+# -- K2, K3, K4 and the quantized index --------------------------------------------
+
+M_PQ, KS, DS = 32, 256, 8
+
+
+@pytest.mark.parametrize("precision", ["exact", "high", "fast"])
+@pytest.mark.parametrize("table_kind", ["fp32", "bf16", "int8"])
+def test_cuda_k2_matches_plain(cuda, table_kind, precision):
+    """K2 against its plain version at cap > r (1024 slots per 512-row
+    tile): the same products summed in another fp32 order (atol 1e-4,
+    rtol 1e-5; atol 1e-3 for int8)."""
+    rng = np.random.default_rng(12)
+    table, q, _, _ = _kernel_inputs(table_kind, 12, cuda)
+    rows = rng.integers(0, N_PAD, size=6000)
+    qno = rng.integers(0, QB, size=6000)
+    cand, tile_idx, _ = scoring.build_streamed_layout(rows, qno, N_PAD, QB, cap=1024)
+    cand3 = torch.from_numpy(cand.reshape(cand.shape[0], 8, 128)).to(cuda)
+    tile_idx = torch.from_numpy(tile_idx).to(cuda)
+    before = sk.stream_select.launches
+    got = sk.stream_select(table, q.t(), cand3, tile_idx, precision=precision)
+    assert sk.stream_select.launches == before + 1
+    want = sk.stream_select_plain(table, q.t(), cand3, tile_idx, precision=precision)
+    atol = 1e-3 if table_kind == "int8" else 1e-4
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=atol, rtol=1e-5)
+
+
+def _pq_inputs(cap: int, seed: int, device):
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, KS, size=(N_PAD, M_PQ)).astype(np.uint8)
+    cb = rng.standard_normal((M_PQ, KS, DS), dtype=np.float32)
+    q = rng.standard_normal((QB, M_PQ * DS), dtype=np.float32)
+    p = 6000 if cap > 512 else P
+    rows = rng.integers(0, N_PAD, size=p)
+    qno = rng.integers(0, QB, size=p)
+    cand, tile_idx, _ = scoring.build_streamed_layout(rows, qno, N_PAD, QB, cap=cap)
+    cand3 = cand.reshape(cand.shape[0], cap // 128, 128)
+    return [torch.from_numpy(a).to(device) for a in (codes, cb, q, cand3, tile_idx)]
+
+
+@pytest.mark.parametrize("precision", ["exact", "high", "fast"])
+def test_cuda_k3_k4_match_plain(cuda, precision):
+    """K3 (cap <= r) and K4 (cap > r) against their plain versions: atol
+    1e-4, rtol 1e-5 (fp32 sums in another order)."""
+    codes, cb, q, cand3, tile_idx = _pq_inputs(512, 13, cuda)
+    exact = precision != "fast"
+    before = skpq.stream_select_pq_pairwise.launches
+    got = skpq.stream_select_pq_pairwise(codes, cb, q, cand3, tile_idx, exact=exact)
+    assert skpq.stream_select_pq_pairwise.launches == before + 1
+    want = skpq.stream_select_pq_pairwise_plain(codes, cb, q, cand3, tile_idx, exact=exact)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=1e-4, rtol=1e-5)
+
+    codes, cb, q, cand3, tile_idx = _pq_inputs(1024, 14, cuda)
+    before = skpq.stream_select_pq.launches
+    got = skpq.stream_select_pq(codes, cb, q.t(), cand3, tile_idx, precision=precision)
+    assert skpq.stream_select_pq.launches == before + 1
+    want = skpq.stream_select_pq_plain(codes, cb, q.t(), cand3, tile_idx, precision=precision)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("kind", ["int8", "PQ", "OPQ"])
+def test_cuda_quantized_index_launches_kernels(cuda, monkeypatch, kind):
+    """A quantized index on the card launches its kernels and never a plain
+    version, and agrees with the same codes scored on the CPU."""
+    for module, name in (
+        (sk, "stream_select_pairwise_plain"),
+        (sk, "stream_select_plain"),
+        (skpq, "stream_select_pq_pairwise_plain"),
+        (skpq, "stream_select_pq_plain"),
+    ):
+        real = getattr(module, name)
+
+        def guarded(*args, _real=real, _name=name, **kw):
+            assert args[0].device.type == "cpu", f"{_name} ran on the card"
+            return _real(*args, **kw)
+
+        monkeypatch.setattr(module, name, guarded)
+    rng = np.random.default_rng(1)
+    n, queries = 4096, 48
+    corpus = rng.standard_normal((n, DIM), dtype=np.float32)
+    qvecs = rng.standard_normal((queries, DIM), dtype=np.float32)
+    by_text = {f"query {i}": qvecs[i] for i in range(queries)}
+    if kind == "int8":
+        quantizer, dense, pairwise = ScalarQuantizer(), sk.stream_select, sk.stream_select_pairwise
+    else:
+        cls = PQ if kind == "PQ" else OPQ
+        quantizer = cls(16, 16, **({"opq_iters": 2} if kind == "OPQ" else {}))
+        dense, pairwise = skpq.stream_select_pq, skpq.stream_select_pq_pairwise
+    quantizer.fit(corpus[:1024])
+    codes = quantizer.encode(corpus)
+    for depth, kernel in ((40, pairwise), (100, dense)):  # cap 256, cap 1024
+        run = {
+            f"q{i}": {f"p{c}": 1.0 for c in rng.choice(n, depth, replace=False)}
+            for i in range(queries)
+        }
+        ranking = ft.Ranking.from_run(run, queries={f"q{i}": f"query {i}" for i in range(queries)})
+        out = {}
+        for device in ("cpu", "cuda"):
+            index = convert.index_from_codes(
+                codes, None, [f"p{i}" for i in range(n)], "PASSAGE", quantizer,
+                query_encoder=LambdaEncoder(by_text.__getitem__), precision="exact", device=device,
+            )
+            before = kernel.launches
+            out[device] = index(ranking)
+            assert kernel.launches - before == (1 if device == "cuda" else 0)
+        np.testing.assert_array_equal(
+            out["cpu"]._df["id"].astype(str), out["cuda"]._df["id"].astype(str)
+        )
+        np.testing.assert_allclose(
+            out["cuda"]._df["score"], out["cpu"]._df["score"], atol=1e-4, rtol=1e-5
+        )
+
+
+@pytest.mark.parametrize("cls", [PQ, OPQ], ids=["PQ", "OPQ"])
+def test_cuda_fit_and_encode_match_cpu(cuda, monkeypatch, cls):
+    """The k-means and the encode on the card against the same on the CPU,
+    with TF32 matmuls allowed: fitted from the same seed on the same
+    clustered data, the two encode at least 99% of held-out codes alike (a
+    near-tie the two sums break differently moves a centroid slightly in
+    every later iteration); with the same codebooks, at least 99.9%."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    rng = np.random.default_rng(5)
+    m, ks, ds, n = 8, 64, 8, 8192
+    centers = rng.normal(size=(m, ks, ds)).astype(np.float32) * 3
+    pick = rng.integers(0, ks, size=(n, m))
+    data = centers[np.arange(m)[None, :], pick].reshape(n, m * ds)
+    data = (data + 0.3 * rng.normal(size=data.shape)).astype(np.float32)
+    kw = {"opq_iters": 2} if cls is OPQ else {}
+    on_card, on_cpu = cls(m, ks, device="cuda", **kw), cls(m, ks, device="cpu", **kw)
+    on_card.fit(data[: n // 2])
+    on_cpu.fit(data[: n // 2])
+    held_out = data[n // 2 :]
+    codes = on_card.encode(held_out)
+    assert (codes == on_cpu.encode(held_out)).mean() >= 0.99
+    same_books = cls.deserialize(*on_card.serialize())
+    same_books.device = "cpu"
+    assert (codes == same_books.encode(held_out)).mean() >= 0.999

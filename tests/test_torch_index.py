@@ -19,6 +19,7 @@ from fastforward_tpu_torch import convert
 from fastforward_tpu_torch.encoder import LambdaEncoder
 from fastforward_tpu_torch.index import InMemoryIndex, Mode, ScoreFuture
 from fastforward_tpu_torch.ops import stream_kernel as sk
+from fastforward_tpu_torch.quantizer import ScalarQuantizer
 
 N, DIM, QUERIES, DEPTH = 8192, 256, 24, 80
 PSG_PER_DOC = 2
@@ -194,7 +195,7 @@ def test_convert_carries_rows_and_ids(data):
         ({"store": "device"}, NotImplementedError),
         ({"hbm_budget": 1 << 30}, NotImplementedError),
         ({"mesh_config": object()}, NotImplementedError),
-        ({"quantizer": object()}, NotImplementedError),
+        ({"stream_chunk_rows": 1 << 16}, NotImplementedError),
         ({"score_transport": "u16"}, NotImplementedError),
         ({"score_transport": "f16"}, ValueError),
         ({"store": "disk"}, ValueError),
@@ -205,6 +206,13 @@ def test_convert_carries_rows_and_ids(data):
 def test_unported_options_raise(kwargs, err):
     with pytest.raises(err):
         InMemoryIndex(device="cpu", **kwargs)
+
+
+def test_quantizer_must_be_a_trained_quantizer():
+    with pytest.raises(TypeError):
+        InMemoryIndex(device="cpu", quantizer=object())
+    with pytest.raises(RuntimeError):  # untrained
+        InMemoryIndex(device="cpu", quantizer=ScalarQuantizer())
 
 
 def test_unported_scoring_paths_raise(data):

@@ -126,3 +126,143 @@ def test_wrapper_rejects_bad_inputs(case):
     err, *args = _bad_inputs(case)
     with pytest.raises(err):
         sk.stream_select_pairwise(*args)
+
+
+# -- K2: stream_select ----------------------------------------------------------
+
+SELECT_P = 5000  # over 8 tiles: mean 625 pairs per tile, cap 1024 > r
+
+
+def _select_inputs(table_kind: str, cap: int, seed: int):
+    rng = np.random.default_rng(seed)
+    if table_kind == "int8":
+        table = rng.integers(-127, 128, size=(N_PAD, DIM // 128, 128)).astype(np.int8)
+    else:
+        table = rng.standard_normal((N_PAD, DIM // 128, 128), dtype=np.float32)
+    q = rng.standard_normal((QB, DIM), dtype=np.float32)
+    rows = rng.integers(0, N_PAD, size=SELECT_P)
+    qno = rng.integers(0, QB, size=SELECT_P)
+    cand, tile_idx, slot = scoring.build_streamed_layout(rows, qno, N_PAD, QB, r=R, cap=cap)
+    expected = np.einsum(
+        "pd,pd->p", table.reshape(N_PAD, DIM)[rows].astype(np.float32), q[qno]
+    )
+    return table, q, cand.reshape(cand.shape[0], cap // 128, 128), tile_idx, slot, expected
+
+
+@pytest.mark.parametrize("cap", [512, 1024], ids=["cap_le_r", "cap_gt_r"])
+@pytest.mark.parametrize("precision", ["exact", "high", "fast"])
+@pytest.mark.parametrize("table_kind", ["fp32", "int8"])
+def test_k2_plain_matches_pallas_interpret(table_kind, precision, cap):
+    """K2's plain version against ``stream_select(interpret=True)`` on 3D
+    tables, at the tolerances of ``tests/test_stream_kernel.py``: exact
+    atol 1e-3 / rtol 1e-4 (``:37``; rtol 1e-5 for int8, ``:159``), high
+    atol 5e-3 / rtol 1e-3 (``:42``: the TPU's bf16x3 against the port's
+    fp32; for int8 rows a bound scaled by the row magnitudes, below), fast
+    the coarse check of ``:44-50`` (the port rounds operands to bf16; the
+    TPU form's DEFAULT precision is fp32 on the CPU)."""
+    table, q, cand3, tile_idx, slot, expected = _select_inputs(table_kind, cap, seed=8)
+    want = np.asarray(
+        jsk.stream_select(
+            jnp.asarray(table), np.ascontiguousarray(q.T), cand3, tile_idx, r=R,
+            interpret=True, precision=precision,
+        )
+    )
+    before = sk.stream_select.launches
+    got = sk.stream_select(
+        torch.from_numpy(table), torch.from_numpy(q).t(), torch.from_numpy(cand3),
+        torch.from_numpy(tile_idx), r=R, precision=precision,
+    )
+    assert sk.stream_select.launches == before  # CPU: no kernel launch
+    assert got.dtype == torch.float32 and tuple(got.shape) == cand3.shape
+    got = got.numpy()
+    if precision == "exact":
+        np.testing.assert_allclose(got, want, atol=1e-3, rtol=1e-5 if table_kind == "int8" else 1e-4)
+    elif table_kind == "fp32" and precision == "high":
+        np.testing.assert_allclose(got, want, atol=5e-3, rtol=1e-3)
+    elif precision == "high":
+        # int8 rows (|v| <= 127) scale the TPU form's bf16x3 error with them:
+        # its two-part query split keeps ~16 bits, so bound the difference
+        # by 2^-15 * sum |row_k * q_k| per slot
+        absdot = sk.stream_select_plain(
+            torch.from_numpy(np.abs(table)), torch.from_numpy(np.abs(q)).t(),
+            torch.from_numpy(cand3), torch.from_numpy(tile_idx), r=R,
+        ).numpy()
+        assert (np.abs(got - want) <= 2.0**-15 * absdot).all()
+    else:
+        picked, ref = got.reshape(-1)[slot], want.reshape(-1)[slot]
+        assert np.abs(picked - ref).mean() < 0.02 * np.abs(expected).mean()
+        assert np.corrcoef(picked, ref)[0, 1] > 0.999
+    if precision != "fast":  # both fp32 tiers are true fp32 dots
+        np.testing.assert_allclose(got.reshape(-1)[slot], expected, atol=1e-3, rtol=1e-5)
+
+
+@pytest.mark.parametrize(
+    "table_kind, ndim, cap, kernel",
+    [
+        ("int8", 3, 512, "stream_select_pairwise"),
+        ("int8", 3, 1024, "stream_select"),
+        ("fp32", 3, 512, "stream_select"),
+        ("fp32", 2, 1024, "stream_select_pairwise"),
+    ],
+)
+def test_auto_routes_as_jax(monkeypatch, table_kind, ndim, cap, kernel):
+    """``stream_select_auto`` routes as ``fastforward_tpu/ops/stream_kernel.py
+    :242-253``: 2D tables and int8 tables at cap <= r to K1, other 3D tables
+    and int8 tables at cap > r to K2; both give the fp32 dots."""
+    table, q, cand3, tile_idx, slot, expected = _select_inputs(table_kind, cap, seed=9)
+    if ndim == 2:
+        table = table.reshape(N_PAD, DIM)
+    calls = []
+    for name in ("stream_select_pairwise", "stream_select"):
+        real = getattr(sk, name)
+
+        def spy(*args, _real=real, _name=name, **kw):
+            calls.append(_name)
+            return _real(*args, **kw)
+
+        monkeypatch.setattr(sk, name, spy)
+    out = sk.stream_select_auto(
+        torch.from_numpy(table), torch.from_numpy(q).t(), torch.from_numpy(cand3),
+        torch.from_numpy(tile_idx), r=R, precision="high",
+    )
+    assert calls == [kernel]
+    np.testing.assert_allclose(out.numpy().reshape(-1)[slot], expected, atol=1e-3, rtol=1e-5)
+
+
+def test_k2_padding_slots_score_zero():
+    table, q, cand3, tile_idx, slot, _ = _select_inputs("int8", 1024, seed=10)
+    q[QB - 1] = 0.0
+    out = sk.stream_select(
+        torch.from_numpy(table), torch.from_numpy(q).t(), torch.from_numpy(cand3),
+        torch.from_numpy(tile_idx),
+    ).numpy().reshape(-1)
+    mask = np.ones(out.shape[0], dtype=bool)
+    mask[slot] = False
+    assert mask.any()
+    np.testing.assert_array_equal(out[mask], 0.0)
+
+
+@pytest.mark.parametrize(
+    "case", ["tier", "table_fp16", "table_4d", "query_dim", "query_fp64", "cand_lanes", "tile_len"]
+)
+def test_k2_rejects_bad_inputs(case):
+    table, q, cand3, tile_idx, _, _ = _select_inputs("fp32", 512, seed=1)
+    t, qt, c, ti = torch.from_numpy(table), torch.from_numpy(q).t(), torch.from_numpy(cand3), torch.from_numpy(tile_idx)
+    kw = {}
+    err = ValueError
+    if case == "tier":
+        kw["precision"] = "bf16"
+    elif case == "table_fp16":
+        t, err = t.half(), TypeError
+    elif case == "table_4d":
+        t = t.view(N_PAD, 1, DIM // 128, 128)
+    elif case == "query_dim":
+        qt = qt[:128]
+    elif case == "query_fp64":
+        qt = qt.double()
+    elif case == "cand_lanes":
+        c = c.view(c.shape[0], -1, 64)
+    elif case == "tile_len":
+        ti = ti[:-1]
+    with pytest.raises(err):
+        sk.stream_select(t, qt, c, ti, **kw)
