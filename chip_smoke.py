@@ -11,9 +11,11 @@ Phases, each of which must pass (any failure exits non-zero):
    ``fastforward_tpu_torch/ops/csrc`` (one compiler per source, all at once);
 2. K1 (``stream_select_pairwise``) against its plain PyTorch version at a
    small shape, for fp32, bf16 and int8 tables, exact and fast tiers; K2
-   (``stream_select``, fp32/bf16/int8 tables) and K4 (``stream_select_pq``)
-   at ``cap > r``, K3 (``stream_select_pq_pairwise``) at ``cap <= r``, every
-   tier;
+   (``stream_select``, fp32/bf16/int8 tables) at ``cap > r``; K3
+   (``stream_select_pq_pairwise``) at ``cap <= r`` and K4
+   (``stream_select_pq``) at ``cap > r`` at dim 768 for ``PQ(M, Ks)`` with M
+   24, 96 and 384 (the lookup table in chunks) and Ks 16 and 256, on
+   random, one-query, half-padding and 5,000-query layouts, every tier;
 3. re-rank at the flagship shape (N = 2,000,000 passages, dim 768, fp32,
    Q = 512 queries x depth 1000, ``Mode.PASSAGE``, precision ``"high"``):
    one cold and several warm ``index(ranking)`` calls, 32 queries checked
@@ -39,9 +41,11 @@ Phases, each of which must pass (any failure exits non-zero):
    catch a wrong fit or encode);
 10. OPQ with dense tiles: ``OPQ(96, 256)`` on the 262,144 rows and their
     run, checked against float64 ``(q @ R) . decode`` and, like PQ, 4,096
-    of its codes against a CPU encode; must launch K4;
+    of its codes against a CPU encode; must launch K4; then the device
+    memory of one warm serve (peak, and K4's grouping scratch);
 11. K2, K3 and K4 against their plain versions on the layouts of phases 8,
-    9 and 10, timed, with their bounds.
+    9 and 10, timed (every launch of one wrapper call), with their bounds;
+    one traced call of K3 and of K4 splits their time by kernel.
 
 After phases 4 and 7-10, one warm call of each flow runs under
 ``torch.profiler`` (device busy time, idle share, largest device items;
@@ -94,11 +98,19 @@ ENCODE_CHECK_ROWS = 4096  # rows the card's PQ/OPQ codes are checked on against 
 ENCODE_AGREE = 0.999  # least share of those codes that must agree
 FIT_CHECK_N = 1 << 14  # clustered rows of the on-card k-means check (half train, half held out)
 FIT_AGREE = 0.99  # least share of held-out codes the card's and the CPU's fits agree on
-#: how the profiler names the port's kernels (K1-K4)
-PORT_KERNEL_NAMES = tuple(
-    f"void (anonymous namespace)::{k}<"
-    for k in ("pairwise_kernel", "select_kernel", "adc_pairwise_kernel", "adc_kernel")
+#: parts of the names the profiler gives the five kernels each K3 or K4
+#: call launches (adc_lut.cuh), and those of all the port's kernels
+ADC_KERNEL_NAMES = tuple(
+    f"ff::adc::adc_{k}_kernel" for k in ("count", "scan", "scatter", "table", "score")
 )
+PORT_KERNEL_NAMES = (
+    "(anonymous namespace)::pairwise_kernel<",
+    "(anonymous namespace)::select_kernel<",
+    *ADC_KERNEL_NAMES,
+)
+#: (M, Ks) of the small K3/K4 checks at dim 768: 4-byte code loads (M 24),
+#: Ks 16 and 256 at the flagship M, and the LUT in four chunks (M 384)
+PQ_SMALL_SHAPES = ((24, 256), (PQ_M, 16), (PQ_M, PQ_KS), (384, PQ_KS))
 
 #: kernel -> (source, the Pallas call it replaces)
 KERNELS = {
@@ -369,8 +381,9 @@ def profile_flow(fn) -> dict:
     calls once the process has traced before (from ~30 s after its first
     traced window, for some windows and not others; padding the window with
     idle pauses did not stop it).  Every profiled flow launches one of the
-    port's kernels and ends in a device-to-host copy of its result, so a
-    trace that lacks either is incomplete and is taken again, up to
+    port's kernels (K3 and K4 five each, all of which must show) and ends in
+    a device-to-host copy of its result, so a trace that lacks either is
+    incomplete and is taken again, up to
     ``PROFILE_TRIES`` times; ``tries`` says how many it took.  When no try
     gives a complete trace, ``complete`` is false and the card's busy time
     and idle share are ``None`` (not measured): an incomplete trace would
@@ -397,8 +410,13 @@ def profile_flow(fn) -> dict:
                     spans[ev.name] = spans.get(ev.name, 0.0) + ms
             elif ev.device_type == DeviceType.CUDA:
                 by_name[ev.name] = by_name.get(ev.name, 0.0) + ms
-        port_ms = sum(ms for n, ms in by_name.items() if n.startswith(PORT_KERNEL_NAMES))
-        complete = port_ms > 0 and any(n.startswith("Memcpy DtoH") for n in by_name)
+        port_ms = sum(ms for n, ms in by_name.items() if is_port_kernel(n))
+        adc = [part for part in ADC_KERNEL_NAMES if any(part in n for n in by_name)]
+        complete = (
+            port_ms > 0
+            and any(n.startswith("Memcpy DtoH") for n in by_name)
+            and len(adc) in (0, len(ADC_KERNEL_NAMES))  # K3/K4: all five kernels
+        )
         if complete:
             break
     device_ms = sum(by_name.values()) if complete else None
@@ -413,6 +431,49 @@ def profile_flow(fn) -> dict:
         "top_device_ms": [[name[:80], ms] for name, ms in top],
         "host_span_ms": spans,
     }
+
+
+def is_port_kernel(name: str) -> bool:
+    return any(part in name for part in PORT_KERNEL_NAMES)
+
+
+def traced_kernels(fn, n_kernels: int) -> dict:
+    """Device time (ms) of each of the port's kernels in one traced call of
+    ``fn`` (a K3 or K4 call launches five), traced again up to
+    ``PROFILE_TRIES`` times until all ``n_kernels`` show; what the last try
+    kept otherwise (see ``profile_flow``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(PROFILE_TRIES):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        out = {}
+        for ev in prof.events():
+            if ev.device_type == DeviceType.CUDA and is_port_kernel(ev.name):
+                key = next(part for part in PORT_KERNEL_NAMES if part in ev.name)
+                out[key] = out.get(key, 0.0) + ev.time_range.elapsed_us() / 1e3
+        if len(out) == n_kernels:
+            break
+    return out
+
+
+def back_to_back_ms(fn, n: int) -> float:
+    """Device time per call of ``n`` calls issued back to back (CUDA events
+    around all of them): where the card, not the host's launch path, sets a
+    call's time, this matches ``median_ms``."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
 
 
 def vet_profiles(flows: dict, variants: dict) -> None:
@@ -522,18 +583,48 @@ def pq_variants(skpq, kernel, codes, cb, q, cand3, tile_idx, tiers, timed, rates
     ]
 
 
-def small_layout(rng, n_pad, qb, p, r):
-    """A random streamed layout on the card (cap from the pair density)."""
+def small_layout(rng, n_pad, qb, p, r, cap=None):
+    """A random streamed layout on the card (cap from the pair density
+    unless given)."""
     from fastforward_tpu_torch.ops import scoring
 
     rows = rng.integers(0, n_pad, size=p)
     qno = rng.integers(0, qb, size=p)
-    cap = scoring._adaptive_cap(p, n_pad // r)
+    cap = cap or scoring._adaptive_cap(p, n_pad // r)
     cand, tidx, _ = scoring.build_streamed_layout(rows, qno, n_pad, qb, r=r, cap=cap)
     return (
         torch.from_numpy(cand.reshape(cand.shape[0], cap // 128, 128)).cuda(),
         torch.from_numpy(tidx).cuda(),
     )
+
+
+def pq_small_cases(skpq, rng, n_pad, q_s, rates) -> list:
+    """K3 (cap <= r) and K4 (cap > r) against their plain versions at
+    ``n_pad`` rows, dim ``DIM``, every tier, for each ``(M, Ks)`` of
+    ``PQ_SMALL_SHAPES`` and four layouts: random rows and queries; every
+    slot (padding too) on one query (``Qb = 1``); half-full tiles, so that
+    half of the slots pad on query ``Qb - 1`` as in the flagship layouts;
+    random rows over 5,000 queries (the grouping bins them in windows)."""
+    r = skpq.KERNEL_PQ_TILE_ROWS
+    qb = q_s.shape[0]
+    q_many = torch.from_numpy(rng.standard_normal((5000, DIM), dtype=np.float32)).cuda()
+    queries = {"uniform": q_s, "one_query": q_s[:1], "half_padding": q_s, "many_queries": q_many}
+    rows_out = []
+    for m, ks in PQ_SMALL_SHAPES:
+        codes = torch.from_numpy(rng.integers(0, ks, size=(n_pad, m), dtype=np.uint8)).cuda()
+        cb = torch.from_numpy(rng.standard_normal((m, ks, DIM // m), dtype=np.float32)).cuda()
+        for layout, q in queries.items():
+            for kernel, cap, tiers in (("K3", 512, ("exact", "fast")),
+                                       ("K4", 1024, ("exact", "high", "fast"))):
+                if layout == "half_padding":
+                    lay = small_layout(rng, n_pad, qb, n_pad // r * cap // 2, r, cap=cap)
+                else:
+                    lay = small_layout(rng, n_pad, q.shape[0], 3000 if kernel == "K3" else 6000, r)
+                check(lay[0].shape[1] * 128 == cap, f"{kernel}'s small {layout} layout has cap "
+                      f"{lay[0].shape[1] * 128}, want {cap}")
+                rows_out += pq_variants(skpq, kernel, codes, cb, q, *lay, tiers, False, rates,
+                                        f"pq({m},{ks}) {layout}")
+    return rows_out
 
 
 class DecodedRows:
@@ -712,14 +803,10 @@ def main() -> int:
     for label, table in (("fp32", t32), ("bf16", t32.view(n_pad, DIM).to(torch.bfloat16)), ("int8", t8)):
         small += select_variants(sk, table, q_s, cand3, tile_idx, DIM, ("exact", "high", "fast"),
                                  False, rates, label)
-    log(f"[kernel-small] K3 (cap <= r) and K4 (cap > r) vs plain at n_pad 4096, PQ({PQ_M}, {PQ_KS})")
-    codes_s = torch.from_numpy(rng.integers(0, PQ_KS, size=(n_pad, PQ_M), dtype=np.uint8)).cuda()
-    cb_s = torch.from_numpy(rng.standard_normal((PQ_M, PQ_KS, DIM // PQ_M), dtype=np.float32)).cuda()
-    lay3 = small_layout(rng, n_pad, qb, 3000, skpq.KERNEL_PQ_TILE_ROWS)
-    check(lay3[0].shape[1] * 128 <= skpq.KERNEL_PQ_TILE_ROWS, "K3's small layout has cap > r")
-    small += pq_variants(skpq, "K3", codes_s, cb_s, q_s, *lay3, ("exact", "fast"), False, rates, "pq")
-    small += pq_variants(skpq, "K4", codes_s, cb_s, q_s, cand3, tile_idx, ("exact", "high", "fast"),
-                         False, rates, "pq")
+    log(f"[kernel-small] K3 (cap 512) and K4 (cap 1024) vs plain at n_pad 4096, dim {DIM}, "
+        f"PQ(M, Ks) for (M, Ks) in {PQ_SMALL_SHAPES}; uniform, one-query, half-padding and "
+        f"5,000-query layouts")
+    small += pq_small_cases(skpq, rng, n_pad, q_s, rates)
 
     # -- 3. re-rank at the flagship shape ------------------------------------
     t0 = time.perf_counter()
@@ -943,6 +1030,21 @@ def main() -> int:
     k4_plan = opq_index._get_plan(dense_rank)
     k4_inputs = (view.table, view.codebooks, k4_plan["q_dev"][1], *k4_plan["stream_pq"][:2])
     del opq_ref
+    # device memory of one warm OPQ serve, and K4's scratch within it
+    qb_opq = k4_inputs[2].shape[0]
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    opq_index.serve(dense_rank, ALPHA, CUTOFF)
+    torch.cuda.synchronize()
+    memory = {
+        "held_bytes": held,
+        "peak_bytes": torch.cuda.max_memory_allocated(),
+        "k4_grouping_scratch_bytes": 8 * skpq.adc_scratch_words(qb_opq, k4_inputs[3].numel()),
+        "k4_lut_scratch_bytes": 4 * 256 * PQ_M * skpq.adc_table_queries(qb_opq, PQ_M),
+    }
+    flows["opq_dense_serve"]["device_memory"] = memory
+    log(f"[opq memory] one warm serve: {json.dumps(memory)}")
 
     # -- 11. K2, K3, K4 vs plain on the main path's layouts, timed ------------------
     log(f"[kernel-flagship] K2 on the int8 dense-tile layout {tuple(k2_inputs[2].shape)}, "
@@ -953,6 +1055,16 @@ def main() -> int:
                                                         rates, "pq")
     variants["stream_select_pq"] = pq_variants(skpq, "K4", *k4_inputs, ("exact",), True, rates,
                                                "opq")
+    for kname, (codes_m, cb_m, q_m, cand_m, tile_m) in (("stream_select_pq_pairwise", k3_inputs),
+                                                         ("stream_select_pq", k4_inputs)):
+        call = getattr(skpq, kname)
+        q_arg = q_m if kname == "stream_select_pq_pairwise" else q_m.t()
+        fn = lambda: call(codes_m, cb_m, q_arg, cand_m, tile_m)  # noqa: E731
+        row = variants[kname][0]
+        row["traced_ms_by_kernel"] = traced_kernels(fn, len(ADC_KERNEL_NAMES))
+        row["back_to_back_ms"] = back_to_back_ms(fn, TIMED_LAUNCHES)
+        log(f"  {kname}: one call traced {json.dumps(row['traced_ms_by_kernel'])}; "
+            f"{row['back_to_back_ms']:.4f} ms per call back to back")
     small_by_kernel = {"stream_select": "K2", "stream_select_pq_pairwise": "K3",
                        "stream_select_pq": "K4"}
     vet_profiles(flows, variants)

@@ -1,6 +1,7 @@
-// The staging skeleton of the dense-tile kernels K2 (stream_select.cu) and
-// K4 (stream_select_pq.cu): one block of kStagedThreads threads per virtual
-// tile copies, chunk by chunk, the tile's rows that its slots want into
+// The staging skeleton of the dense-tile kernel K2 (stream_select.cu; K4
+// scores query-major through adc_lut.cuh instead): one block of
+// kStagedThreads threads per virtual tile copies, chunk by chunk, the
+// tile's rows that its slots want into
 // shared memory, and its warps score every slot whose row lies in the staged
 // chunk.  Each row leaves device memory once per virtual tile; chunks no
 // slot wants are skipped (a spill tile with a few slots stages only their

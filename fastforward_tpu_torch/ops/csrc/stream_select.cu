@@ -28,7 +28,7 @@
 // its warps score every slot whose row lies in the staged chunk: each row
 // leaves device memory once per virtual tile.  Chunks no slot needs are
 // skipped (a spill tile with a few slots stages only their rows' chunks).  The staging
-// skeleton is staged_tile.cuh, shared with K4.
+// skeleton is staged_tile.cuh.
 //
 // Bound: memory.  The rows are read once (262,144 int8 rows at dim 768 are
 // 0.2 GB, 0.06 ms at 3.35 TB/s); the arithmetic (2 x dim flops per slot) is

@@ -21,7 +21,14 @@ bf16, ``"fast"`` rounds codewords and query.  Padding slots carry
 ``local 0`` and ``qno Qb - 1`` and are computed like any other slot.
 
 Each wrapper launches its hand-written CUDA kernel (``csrc/*.cu``) for CUDA
-tensors and runs its plain PyTorch version only for CPU tensors.
+tensors and runs its plain PyTorch version only for CPU tensors.  On the
+card both kernels are query-major (``csrc/adc_lut.cuh``): one call groups
+the slots by query, cuts each query's slots into work items of at most
+``ADC_ITEM_SLOTS`` slots, builds each query's lookup table once, and scores
+every item from its query's table staged in shared memory.  The wrapper
+sizes the grouping's scratch (:func:`adc_scratch_words`) and the tables'
+(:func:`adc_table_queries`), and bounds the number of items
+(:func:`adc_max_items`).
 """
 
 import ctypes
@@ -39,6 +46,16 @@ PQ_TIERS = ("exact", "high", "fast")
 #: largest codebook size the uint8 codes address
 _MAX_KS = 256
 
+#: slots per work item of the query-major kernels (at most 512 threads x 4)
+ADC_ITEM_SLOTS = 2048
+
+#: most bytes of lookup tables one launch of the table kernel writes (the
+#: queries' tables come in groups of this size)
+ADC_TABLE_BYTES = 64 << 20
+
+#: entries per subspace of a lookup table (any uint8 code addresses one)
+_TABLE_WIDTH = 256
+
 #: slots per step of the plain versions (bounds their gathered temporaries)
 _PLAIN_CHUNK_SLOTS = 1 << 17
 
@@ -50,13 +67,56 @@ def _round_bf16(x: torch.Tensor) -> torch.Tensor:
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 #: argument types of ``ff_stream_select_pq_pairwise``: codes, m, codebooks,
-#: ks, ds, q, cand, tile_idx, out, slots, cap, qb, r, exact, device, stream
-_PAIRWISE_ARGS = (_P, _I, _P, _I, _I, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _P)
+#: ks, ds, q, cand, tile_idx, out, slots, cap, qb, r, exact, scratch, item
+#: slots, max items, table scratch, table queries, device, stream
+_PAIRWISE_ARGS = (
+    _P, _I, _P, _I, _I, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _P, _I, _LL, _P, _I, _I, _P,
+)
 
 #: argument types of ``ff_stream_select_pq``: codes, m, codebooks, ks, ds,
 #: q, q stride along dim, q stride along queries, cand, tile_idx, out,
-#: virtual tiles, cap, qb, r, tier, device, stream
-_SELECT_ARGS = (_P, _I, _P, _I, _I, _P, _LL, _LL, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)
+#: virtual tiles, cap, qb, r, tier, scratch, item slots, max items, table
+#: scratch, table queries, device, stream
+_SELECT_ARGS = (
+    _P, _I, _P, _I, _I, _P, _LL, _LL, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _LL, _P, _I,
+    _I, _P,
+)
+
+
+def adc_scratch_words(qb: int, n_slots: int) -> int:
+    """64-bit words of the query-major kernels' grouping scratch: a cursor
+    per query, the slot and work-item offsets (``qb + 1`` each) and the
+    slots in query order."""
+    return 3 * qb + 2 + n_slots
+
+
+def adc_max_items(qb: int, n_slots: int) -> int:
+    """A bound on the work items of ``n_slots`` slots over ``qb`` queries:
+    a query with ``c`` slots takes ``ceil(c / ADC_ITEM_SLOTS)``, at most
+    ``c // ADC_ITEM_SLOTS + 1`` items, and at most ``min(qb, n_slots)``
+    queries own slots.  The score kernel launches this many blocks; those
+    past the last item leave at once."""
+    return n_slots // ADC_ITEM_SLOTS + min(qb, n_slots)
+
+
+def adc_table_queries(qb: int, m: int) -> int:
+    """Queries whose lookup tables (``m * 256`` fp32 each) one group holds:
+    all ``qb`` where they fit ``ADC_TABLE_BYTES``, else as many as fit (at
+    least one)."""
+    return max(1, min(qb, ADC_TABLE_BYTES // (m * _TABLE_WIDTH * 4)))
+
+
+def _launch_adc(name, argtypes, head, qb, m, n_slots, device, stream) -> None:
+    """Allocate the query-major kernels' scratch (grouping words and lookup
+    tables) and call ``ff_<name>`` with ``(*head, scratch, item slots, item
+    bound, tables, table queries, device, stream)``."""
+    scratch = torch.empty(adc_scratch_words(qb, n_slots), dtype=torch.int64, device=device)
+    groups = adc_table_queries(qb, m)
+    tables = torch.empty(groups * m * _TABLE_WIDTH, dtype=torch.float32, device=device)
+    _build.bind(name, argtypes)(
+        *head, scratch.data_ptr(), ADC_ITEM_SLOTS, adc_max_items(qb, n_slots),
+        tables.data_ptr(), groups, device, stream,
+    )
 
 
 def _check(codes, codebooks, q, cand3, tile_idx, r, transposed) -> int:
@@ -124,11 +184,12 @@ def stream_select_pq_pairwise(
     )
     out = torch.empty(cand3.shape, dtype=torch.float32, device=codes.device)
     m, ks, ds = codebooks.shape
-    _build.bind("stream_select_pq_pairwise", _PAIRWISE_ARGS)(
-        codes.data_ptr(), m, codebooks.data_ptr(), ks, ds, qvecs.data_ptr(),
-        cand3.data_ptr(), tile_idx.data_ptr(), out.data_ptr(), out.numel(),
-        cand3.shape[1] * 128, qb, r, int(exact), device, stream,
+    head = (
+        codes.data_ptr(), m, codebooks.data_ptr(), ks, ds, qvecs.data_ptr(), cand3.data_ptr(),
+        tile_idx.data_ptr(), out.data_ptr(), out.numel(), cand3.shape[1] * 128, qb, r, int(exact),
     )
+    _launch_adc("stream_select_pq_pairwise", _PAIRWISE_ARGS, head, qb, m, out.numel(), device,
+                stream)
     stream_select_pq_pairwise.launches += 1
     return out
 
@@ -171,12 +232,12 @@ def stream_select_pq(
     )
     out = torch.empty(cand3.shape, dtype=torch.float32, device=codes.device)
     m, ks, ds = codebooks.shape
-    _build.bind("stream_select_pq", _SELECT_ARGS)(
+    head = (
         codes.data_ptr(), m, codebooks.data_ptr(), ks, ds, qvecs_t.data_ptr(),
         qvecs_t.stride(0), qvecs_t.stride(1), cand3.data_ptr(), tile_idx.data_ptr(),
-        out.data_ptr(), cand3.shape[0], cand3.shape[1] * 128, qb, r,
-        PQ_TIERS.index(precision), device, stream,
+        out.data_ptr(), cand3.shape[0], cand3.shape[1] * 128, qb, r, PQ_TIERS.index(precision),
     )
+    _launch_adc("stream_select_pq", _SELECT_ARGS, head, qb, m, out.numel(), device, stream)
     stream_select_pq.launches += 1
     return out
 

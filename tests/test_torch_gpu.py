@@ -135,37 +135,91 @@ def test_cuda_k2_matches_plain(cuda, table_kind, precision):
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=atol, rtol=1e-5)
 
 
-def _pq_inputs(cap: int, seed: int, device):
+def _pq_inputs(cap: int, seed: int, device, m=M_PQ, ks=KS, ds=DS, layout="uniform"):
+    """Codes, codebooks, queries and a streamed layout at ``cap``.
+
+    ``layout``: ``"uniform"`` (random rows and queries), ``"one_query"``
+    (``Qb = 1``: every slot, padding too, on one query) or
+    ``"half_padding"`` (half-full tiles: half of the slots pad on query
+    ``Qb - 1``, as in the flagship layouts) or ``"many_queries"`` (``Qb =
+    5000``: the grouping bins the queries in three windows)."""
     rng = np.random.default_rng(seed)
-    codes = rng.integers(0, KS, size=(N_PAD, M_PQ)).astype(np.uint8)
-    cb = rng.standard_normal((M_PQ, KS, DS), dtype=np.float32)
-    q = rng.standard_normal((QB, M_PQ * DS), dtype=np.float32)
-    p = 6000 if cap > 512 else P
+    codes = rng.integers(0, ks, size=(N_PAD, m)).astype(np.uint8)
+    cb = rng.standard_normal((m, ks, ds), dtype=np.float32)
+    qb = {"one_query": 1, "many_queries": 5000}.get(layout, QB)
+    q = rng.standard_normal((qb, m * ds), dtype=np.float32)
+    if layout == "half_padding":
+        p = N_PAD // skpq.KERNEL_PQ_TILE_ROWS * cap // 2
+    else:
+        p = 6000 if cap > 512 else P
     rows = rng.integers(0, N_PAD, size=p)
-    qno = rng.integers(0, QB, size=p)
-    cand, tile_idx, _ = scoring.build_streamed_layout(rows, qno, N_PAD, QB, cap=cap)
+    qno = rng.integers(0, qb, size=p)
+    cand, tile_idx, _ = scoring.build_streamed_layout(rows, qno, N_PAD, qb, cap=cap)
     cand3 = cand.reshape(cand.shape[0], cap // 128, 128)
     return [torch.from_numpy(a).to(device) for a in (codes, cb, q, cand3, tile_idx)]
 
 
+def _assert_within_sum_order(got, want, absdot, dim):
+    """Two fp32 sums of the same products in different orders: the error
+    grows like ``sqrt(dim) * 2^-24 * sum|terms|``, with a factor 8 of
+    headroom (``chip_smoke.sum_order_tol``); and within atol 1e-4, rtol
+    1e-5."""
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=1e-4, rtol=1e-5)
+    tol = 8.0 * dim**0.5 * 2.0**-24 * absdot
+    err = (got - want).abs()
+    assert bool(torch.isfinite(got).all())
+    assert bool((err <= tol).all()), f"max err {err.max().item()}, tol there {tol.flatten()[err.argmax()].item()}"
+
+
+#: (M, Ks, Ds): the first case's dim 256; then dim 768 with Ks 16 and 256,
+#: M = 24 (4-byte code loads), 96 (the flagship, one LUT chunk) and 384
+#: (the LUT in four chunks of 96 subspaces); M = 6 takes single-byte loads
+PQ_SHAPES = [(32, 256, 8), (24, 256, 32), (96, 16, 8), (96, 256, 8), (384, 256, 2), (6, 16, 128)]
+
+
+@pytest.mark.parametrize("layout", ["uniform", "one_query", "half_padding", "many_queries"])
+@pytest.mark.parametrize("shape", PQ_SHAPES, ids=lambda s: "m%d_ks%d" % s[:2])
 @pytest.mark.parametrize("precision", ["exact", "high", "fast"])
-def test_cuda_k3_k4_match_plain(cuda, precision):
-    """K3 (cap <= r) and K4 (cap > r) against their plain versions: atol
-    1e-4, rtol 1e-5 (fp32 sums in another order)."""
-    codes, cb, q, cand3, tile_idx = _pq_inputs(512, 13, cuda)
+def test_cuda_k3_k4_match_plain(cuda, precision, shape, layout):
+    """K3 (cap <= r) and K4 (cap > r) against their plain versions (fp32
+    sums in another order), each call one launch of its wrapper."""
+    m, ks, ds = shape
     exact = precision != "fast"
+    codes, cb, q, cand3, tile_idx = _pq_inputs(512, 13, cuda, m, ks, ds, layout)
     before = skpq.stream_select_pq_pairwise.launches
     got = skpq.stream_select_pq_pairwise(codes, cb, q, cand3, tile_idx, exact=exact)
     assert skpq.stream_select_pq_pairwise.launches == before + 1
     want = skpq.stream_select_pq_pairwise_plain(codes, cb, q, cand3, tile_idx, exact=exact)
-    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=1e-4, rtol=1e-5)
+    absdot = skpq.stream_select_pq_pairwise_plain(codes, cb.abs(), q.abs(), cand3, tile_idx, exact=exact)
+    _assert_within_sum_order(got, want, absdot, m * ds)
 
-    codes, cb, q, cand3, tile_idx = _pq_inputs(1024, 14, cuda)
+    codes, cb, q, cand3, tile_idx = _pq_inputs(1024, 14, cuda, m, ks, ds, layout)
     before = skpq.stream_select_pq.launches
     got = skpq.stream_select_pq(codes, cb, q.t(), cand3, tile_idx, precision=precision)
     assert skpq.stream_select_pq.launches == before + 1
     want = skpq.stream_select_pq_plain(codes, cb, q.t(), cand3, tile_idx, precision=precision)
-    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=1e-4, rtol=1e-5)
+    absdot = skpq.stream_select_pq_plain(codes, cb.abs(), q.abs().t(), cand3, tile_idx, precision=precision)
+    _assert_within_sum_order(got, want, absdot, m * ds)
+
+
+@pytest.mark.parametrize("precision", ["exact", "fast"])
+def test_cuda_k3_k4_table_groups(cuda, monkeypatch, precision):
+    """Lookup tables too large for one group (here 3 queries' worth) are
+    built and consumed group by group, with the same scores."""
+    m, ks, ds = 96, 256, 8
+    monkeypatch.setattr(skpq, "ADC_TABLE_BYTES", 3 * m * 256 * 4)
+    assert skpq.adc_table_queries(QB, m) == 3
+    for cap, seed in ((512, 15), (1024, 16)):
+        codes, cb, q, cand3, tile_idx = _pq_inputs(cap, seed, cuda, m, ks, ds, "half_padding")
+        got = skpq.stream_select_pq(codes, cb, q.t(), cand3, tile_idx, precision=precision)
+        want = skpq.stream_select_pq_plain(codes, cb, q.t(), cand3, tile_idx, precision=precision)
+        absdot = skpq.stream_select_pq_plain(codes, cb.abs(), q.abs().t(), cand3, tile_idx,
+                                             precision=precision)
+        _assert_within_sum_order(got, want, absdot, m * ds)
+        exact = precision == "exact"
+        got = skpq.stream_select_pq_pairwise(codes, cb, q, cand3, tile_idx, exact=exact)
+        want = skpq.stream_select_pq_pairwise_plain(codes, cb, q, cand3, tile_idx, exact=exact)
+        _assert_within_sum_order(got, want, absdot, m * ds)
 
 
 @pytest.mark.parametrize("kind", ["int8", "PQ", "OPQ"])

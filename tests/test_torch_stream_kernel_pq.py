@@ -198,3 +198,64 @@ def test_wrappers_reject_bad_inputs(case):
         skpq.stream_select_pq(codes, cb, q.t(), cand3, tile_idx)
     with pytest.raises(ValueError):
         skpq.stream_select_pq(codes, cb, q.t(), cand3, tile_idx, precision="bf16")
+
+
+def _items_of(cand3: np.ndarray, qb: int) -> np.ndarray:
+    """Work items per query as the card's grouping cuts them."""
+    counts = np.bincount(cand3.reshape(-1) % qb, minlength=qb)
+    return -(-counts // skpq.ADC_ITEM_SLOTS)
+
+
+@pytest.mark.parametrize("layout", ["uniform", "one_query", "half_padding", "flagship"])
+def test_adc_work_items_fit_the_launch(layout):
+    """The query-major kernels launch ``adc_max_items`` blocks and need
+    ``adc_scratch_words`` words of scratch: the bound holds every query's
+    ``ceil(slots / ADC_ITEM_SLOTS)`` items, and the padding query's slots
+    are cut into many items rather than one."""
+    rng = np.random.default_rng(8)
+    if layout == "flagship":
+        # 512 queries x ~1,000 real slots in 1,048,576; the rest pads on 511
+        qb, n = 512, 1 << 20
+        cand3 = np.full((4096, 2, 128), qb - 1, dtype=np.int32)
+        real = rng.integers(0, qb, size=512_000)
+        cand3.reshape(-1)[rng.choice(n, size=real.size, replace=False)] = real
+    else:
+        qb = 1 if layout == "one_query" else QB
+        cap = 1024
+        p = N_PAD // R * cap // 2 if layout == "half_padding" else P
+        rows = rng.integers(0, N_PAD, size=p)
+        qno = rng.integers(0, qb, size=p)
+        cand, _, _ = scoring.build_streamed_layout(rows, qno, N_PAD, qb, r=R, cap=cap)
+        cand3 = cand.reshape(cand.shape[0], cap // 128, 128)
+        n = cand3.size
+    items = _items_of(cand3, qb)
+    assert items.sum() <= skpq.adc_max_items(qb, n)
+    assert skpq.adc_scratch_words(qb, n) == 3 * qb + 2 + n
+    pad_slots = int((cand3 % qb == qb - 1).sum())
+    assert items[qb - 1] == -(-pad_slots // skpq.ADC_ITEM_SLOTS)
+    if layout == "flagship":
+        assert pad_slots > n // 2 and items[qb - 1] > 256
+        assert items.sum() <= 775 and skpq.adc_max_items(qb, n) == 1024
+
+
+def test_adc_max_items_is_tight():
+    """Every query one slot past a whole number of items reaches the bound
+    when ``qb`` < ``ADC_ITEM_SLOTS``."""
+    qb, per = 7, 2 * skpq.ADC_ITEM_SLOTS + 1
+    cand3 = np.repeat(np.arange(qb, dtype=np.int32), per)
+    cand3 = np.concatenate([cand3, np.full(-cand3.size % 128, 0, np.int32)]).reshape(-1, 1, 128)
+    items = _items_of(cand3, qb)
+    assert items.sum() == skpq.adc_max_items(qb, cand3.size)
+
+
+@pytest.mark.parametrize(
+    ("qb", "m", "want"),
+    [(512, 96, 512), (512, 384, 170), (1, 4096, 1), (8, 1 << 20, 1), (4096, 96, 682)],
+)
+def test_adc_table_queries_fit_the_budget(qb, m, want):
+    """Lookup tables (``m * 256`` fp32 per query) come in groups that fit
+    ``ADC_TABLE_BYTES``: the flagship's 512 queries in one, PQ(384, 256) in
+    groups of 170, and never fewer than one query."""
+    got = skpq.adc_table_queries(qb, m)
+    assert got == want
+    assert got == 1 or got * m * 256 * 4 <= skpq.ADC_TABLE_BYTES
