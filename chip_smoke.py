@@ -9,13 +9,14 @@ Phases, each of which must pass (any failure exits non-zero):
 
 1. header: the card's name and power limit; K1-K4 built with ``nvcc`` from
    ``fastforward_tpu_torch/ops/csrc`` (one compiler per source, all at once);
-2. K1 (``stream_select_pairwise``) against its plain PyTorch version at a
-   small shape, for fp32, bf16 and int8 tables, exact and fast tiers; K2
-   (``stream_select``, fp32/bf16/int8 tables) at ``cap > r``; K3
+2. K1 (``stream_select_pairwise``) against its plain PyTorch version at
+   dim 256, for fp32, bf16 and int8 tables, exact and fast tiers; then at
+   dim 768 on random, one-query, half-padding and 5,000-query layouts
+   (``SMALL_LAYOUTS``): K1 at ``cap <= r`` and K2 (``stream_select``) at
+   ``cap > r`` for fp32, bf16 and int8 tables, every tier, and K3
    (``stream_select_pq_pairwise``) at ``cap <= r`` and K4
-   (``stream_select_pq``) at ``cap > r`` at dim 768 for ``PQ(M, Ks)`` with M
-   24, 96 and 384 (the lookup table in chunks) and Ks 16 and 256, on
-   random, one-query, half-padding and 5,000-query layouts, every tier;
+   (``stream_select_pq``) at ``cap > r`` for ``PQ(M, Ks)`` with M 24, 96 and
+   384 (the lookup table in chunks) and Ks 16 and 256, every tier;
 3. re-rank at the flagship shape (N = 2,000,000 passages, dim 768, fp32,
    Q = 512 queries x depth 1000, ``Mode.PASSAGE``, precision ``"high"``):
    one cold and several warm ``index(ranking)`` calls, 32 queries checked
@@ -25,13 +26,17 @@ Phases, each of which must pass (any failure exits non-zero):
    the exact interpolated top-10 of 32 queries;
 5. a sparse ranking (the gather-dot branch) and a bf16 table at
    N = 262,144, checked the same way;
-6. K1 against its plain version on the main path's own inputs, timed;
+6. K1 against its plain version on the main path's own inputs, for fp32,
+   bf16 and int8 tables in both tiers, timed, back to back and in one
+   traced call split by kernel; beside it, the query-major body (K2's
+   entry) on the same fp32 layout, which K1's fp32 branch does not use;
 7. int8 at full width: ``ScalarQuantizer`` fitted on the first 2^16
    vectors of the same corpus, precision ``"high"``: a cold and 5 warm
    re-ranks and the fused serve, checked against float64 dots of the
    decoded rows; must launch K1 and no K2;
 8. int8 with dense tiles: the first 262,144 rows with their own 512 x 1000
-   run (cap 1024 > r = 512); must launch K2 and no K1;
+   run (cap 1024 > r = 512); must launch K2 and no K1; then the device
+   memory of one warm serve (peak, and K2's grouping scratch);
 9. PQ at full width: ``PQ(96, 256)`` fitted on the card on 2^16 vectors,
    precision ``"exact"``, checked against float64 decode-then-dot; must
    launch K3.  Before it, ``PQ(96, 256)`` is fitted on the card and on the
@@ -45,7 +50,8 @@ Phases, each of which must pass (any failure exits non-zero):
     memory of one warm serve (peak, and K4's grouping scratch);
 11. K2, K3 and K4 against their plain versions on the layouts of phases 8,
     9 and 10, timed (every launch of one wrapper call), with their bounds;
-    one traced call of K3 and of K4 splits their time by kernel.
+    one traced call of each splits its time by kernel (memset, grouping,
+    scoring), and each is timed back to back.
 
 After phases 4 and 7-10, one warm call of each flow runs under
 ``torch.profiler`` (device busy time, idle share, largest device items;
@@ -98,16 +104,26 @@ ENCODE_CHECK_ROWS = 4096  # rows the card's PQ/OPQ codes are checked on against 
 ENCODE_AGREE = 0.999  # least share of those codes that must agree
 FIT_CHECK_N = 1 << 14  # clustered rows of the on-card k-means check (half train, half held out)
 FIT_AGREE = 0.99  # least share of held-out codes the card's and the CPU's fits agree on
-#: parts of the names the profiler gives the five kernels each K3 or K4
-#: call launches (adc_lut.cuh), and those of all the port's kernels
-ADC_KERNEL_NAMES = tuple(
-    f"ff::adc::adc_{k}_kernel" for k in ("count", "scan", "scatter", "table", "score")
+#: what one wrapper call launches on the card, as parts of the names the
+#: profiler gives them: K1's fp32 body; the query-major K1 (bf16, int8) and
+#: K2 (a memset, the grouping of query_groups.cuh, the dot of
+#: dense_dot.cuh); K3 and K4 (the grouping, then adc_lut.cuh's table and
+#: score kernels)
+GROUP_KERNEL_NAMES = ("ff::groups::count_kernel", "ff::groups::scatter_kernel")
+CALL_KERNELS = {
+    "pairwise": ("(anonymous namespace)::pairwise_kernel<",),
+    "dense": ("Memset", *GROUP_KERNEL_NAMES, "ff::dense::dot_kernel<"),
+    "adc": ("Memset", *GROUP_KERNEL_NAMES, "ff::adc::adc_table_kernel", "ff::adc::adc_score_kernel"),
+}
+#: the port's own kernels among them
+PORT_KERNEL_NAMES = tuple(
+    {n: None for names in CALL_KERNELS.values() for n in names if n != "Memset"}
 )
-PORT_KERNEL_NAMES = (
-    "(anonymous namespace)::pairwise_kernel<",
-    "(anonymous namespace)::select_kernel<",
-    *ADC_KERNEL_NAMES,
-)
+#: the small checks' layouts: random rows and queries; every slot (padding
+#: too) on one query (Qb = 1); half-full tiles, so that half of the slots pad
+#: on query Qb - 1 as in the flagship layouts; random rows over 5,000 queries
+#: (the grouping bins them in windows of 2,048)
+SMALL_LAYOUTS = ("uniform", "one_query", "half_padding", "many_queries")
 #: (M, Ks) of the small K3/K4 checks at dim 768: 4-byte code loads (M 24),
 #: Ks 16 and 256 at the flagship M, and the LUT in four chunks (M 384)
 PQ_SMALL_SHAPES = ((24, 256), (PQ_M, 16), (PQ_M, PQ_KS), (384, PQ_KS))
@@ -201,50 +217,6 @@ def make_workload(n: int, num_queries: int, depth: int, seed: int):
         run[f"q{q}"] = {f"p{c}": float(depth - i) for i, c in enumerate(cand)}
         queries[f"q{q}"] = f"query {q}"
     return corpus, qvecs, run, queries
-
-
-def kernel_variants(sk, tables, q, cand3, tile_idx, dim, timed: bool, rates):
-    """K1 against its plain version for every table type and tier."""
-    results = []
-    for name, table in tables:
-        for exact in (True, False):
-            out = sk.stream_select_pairwise(table, q, cand3, tile_idx, exact=exact)
-            plain = sk.stream_select_pairwise_plain(table, q, cand3, tile_idx, exact=exact)
-            # sum |row_k * q_k| per slot (bf16 rounding commutes with abs)
-            absdot = sk.stream_select_pairwise_plain(
-                table.abs(), q.abs(), cand3, tile_idx, exact=exact
-            )
-            torch.cuda.synchronize()
-            err = (out - plain).abs()
-            tol = sum_order_tol(absdot, dim)
-            worst = int(err.argmax())
-            check(
-                bool(torch.isfinite(out).all()) and bool((err <= tol).all()),
-                f"K1 {name} exact={exact} disagrees with its plain version: max err "
-                f"{err.max().item()} (tolerance there {tol.view(-1)[worst].item()})",
-            )
-            row = {
-                "table": name,
-                "exact": exact,
-                "shape": [int(s) for s in cand3.shape],
-                "max_abs_err": err.max().item(),
-                "max_rel_to_tol": (err / tol.clamp(min=1e-30)).max().item(),
-            }
-            if timed:
-                row["ms"] = median_ms(
-                    lambda: sk.stream_select_pairwise(table, q, cand3, tile_idx, exact=exact),
-                    TIMED_LAUNCHES,
-                )
-                row["plain_ms"] = median_ms(
-                    lambda: sk.stream_select_pairwise_plain(
-                        table, q, cand3, tile_idx, exact=exact
-                    ),
-                    TIMED_LAUNCHES,
-                )
-                row.update(k1_bound(table, q, cand3, tile_idx, dim, sk.KERNEL_TILE_ROWS, rates))
-            log("  K1", json.dumps(row))
-            results.append(row)
-    return results
 
 
 def k1_bound(table, q, cand3, tile_idx, dim, r, rates) -> dict:
@@ -372,7 +344,7 @@ def timed_calls(fn, n: int) -> tuple[float, list]:
     return float(np.median(times)), out
 
 
-def profile_flow(fn) -> dict:
+def profile_flow(fn, kernels) -> dict:
     """One warm call under ``torch.profiler``: host wall time, the time the
     card spent in kernels and copies, the largest device items, and the
     host phases the index names (``ff.*`` ranges).
@@ -380,10 +352,10 @@ def profile_flow(fn) -> dict:
     On the H100 machine the profiler drops device items of some traced
     calls once the process has traced before (from ~30 s after its first
     traced window, for some windows and not others; padding the window with
-    idle pauses did not stop it).  Every profiled flow launches one of the
-    port's kernels (K3 and K4 five each, all of which must show) and ends in
-    a device-to-host copy of its result, so a trace that lacks either is
-    incomplete and is taken again, up to
+    idle pauses did not stop it).  Every profiled flow launches the kernels
+    of one wrapper call (``kernels``, one of ``CALL_KERNELS``; all of which
+    must show) and ends in a device-to-host copy of its result, so a trace
+    that lacks either is incomplete and is taken again, up to
     ``PROFILE_TRIES`` times; ``tries`` says how many it took.  When no try
     gives a complete trace, ``complete`` is false and the card's busy time
     and idle share are ``None`` (not measured): an incomplete trace would
@@ -411,11 +383,9 @@ def profile_flow(fn) -> dict:
             elif ev.device_type == DeviceType.CUDA:
                 by_name[ev.name] = by_name.get(ev.name, 0.0) + ms
         port_ms = sum(ms for n, ms in by_name.items() if is_port_kernel(n))
-        adc = [part for part in ADC_KERNEL_NAMES if any(part in n for n in by_name)]
         complete = (
-            port_ms > 0
+            all(any(part in n for n in by_name) for part in kernels)
             and any(n.startswith("Memcpy DtoH") for n in by_name)
-            and len(adc) in (0, len(ADC_KERNEL_NAMES))  # K3/K4: all five kernels
         )
         if complete:
             break
@@ -437,11 +407,11 @@ def is_port_kernel(name: str) -> bool:
     return any(part in name for part in PORT_KERNEL_NAMES)
 
 
-def traced_kernels(fn, n_kernels: int) -> dict:
-    """Device time (ms) of each of the port's kernels in one traced call of
-    ``fn`` (a K3 or K4 call launches five), traced again up to
-    ``PROFILE_TRIES`` times until all ``n_kernels`` show; what the last try
-    kept otherwise (see ``profile_flow``)."""
+def traced_kernels(fn, kernels) -> dict:
+    """Device time (ms) of each of ``kernels`` (one of ``CALL_KERNELS``) in
+    one traced call of ``fn``, traced again up to ``PROFILE_TRIES`` times
+    until all show; what the last try kept otherwise (see
+    ``profile_flow``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -452,12 +422,21 @@ def traced_kernels(fn, n_kernels: int) -> dict:
             torch.cuda.synchronize()
         out = {}
         for ev in prof.events():
-            if ev.device_type == DeviceType.CUDA and is_port_kernel(ev.name):
-                key = next(part for part in PORT_KERNEL_NAMES if part in ev.name)
+            key = next((part for part in kernels if part in ev.name), None)
+            if ev.device_type == DeviceType.CUDA and key:
                 out[key] = out.get(key, 0.0) + ev.time_range.elapsed_us() / 1e3
-        if len(out) == n_kernels:
+        if len(out) == len(kernels):
             break
     return out
+
+
+def split_call(row: dict, fn, kernels) -> None:
+    """Add one traced call of ``fn`` split by kernel and its back-to-back
+    time to ``row``."""
+    row["traced_ms_by_kernel"] = traced_kernels(fn, kernels)
+    row["back_to_back_ms"] = back_to_back_ms(fn, TIMED_LAUNCHES)
+    log(f"  {row['variant']}: one call traced {json.dumps(row['traced_ms_by_kernel'])}; "
+        f"{row['back_to_back_ms']:.4f} ms per call back to back")
 
 
 def back_to_back_ms(fn, n: int) -> float:
@@ -557,6 +536,24 @@ def select_variants(sk, table, q, cand3, tile_idx, dim, tiers, timed, rates, lab
     ]
 
 
+def pairwise_variants(sk, table, q, cand3, tile_idx, dim, tiers, timed, rates, label):
+    """K1 against its plain version for each tier (``"exact"`` or
+    ``"fast"``)."""
+    return [
+        hold(
+            f"K1 {label} {t}",
+            lambda t=t: sk.stream_select_pairwise(table, q, cand3, tile_idx, exact=t == "exact"),
+            lambda t=t: sk.stream_select_pairwise_plain(table, q, cand3, tile_idx, exact=t == "exact"),
+            lambda t=t: sk.stream_select_pairwise_plain(table.abs(), q.abs(), cand3, tile_idx,
+                                                        exact=t == "exact"),
+            dim,
+            timed,
+            lambda: k1_bound(table, q, cand3, tile_idx, dim, sk.KERNEL_TILE_ROWS, rates),
+        )
+        for t in tiers
+    ]
+
+
 def pq_variants(skpq, kernel, codes, cb, q, cand3, tile_idx, tiers, timed, rates, label):
     """K3 (``kernel="K3"``) or K4 against its plain version (``q`` row-major;
     K4 takes ``q.t()``)."""
@@ -598,17 +595,52 @@ def small_layout(rng, n_pad, qb, p, r, cap=None):
     )
 
 
-def pq_small_cases(skpq, rng, n_pad, q_s, rates) -> list:
+def small_queries(rng, q_s) -> dict:
+    """The queries of each of ``SMALL_LAYOUTS``."""
+    q_many = torch.from_numpy(rng.standard_normal((5000, DIM), dtype=np.float32)).cuda()
+    return {"uniform": q_s, "one_query": q_s[:1], "half_padding": q_s, "many_queries": q_many}
+
+
+def small_case_layout(rng, n_pad, qb, layout, kernel, cap, r):
+    """One of ``SMALL_LAYOUTS`` for ``kernel`` at ``cap`` (3,000 random pairs
+    at cap <= r, 6,000 above, or half-full tiles); fails unless the layout
+    has that cap."""
+    if layout == "half_padding":
+        lay = small_layout(rng, n_pad, qb, n_pad // r * cap // 2, r, cap=cap)
+    else:
+        lay = small_layout(rng, n_pad, qb, 3000 if cap <= r else 6000, r)
+    check(lay[0].shape[1] * 128 == cap, f"{kernel}'s small {layout} layout has cap "
+          f"{lay[0].shape[1] * 128}, want {cap}")
+    return lay
+
+
+def dense_small_cases(sk, rng, n_pad, queries, rates) -> list:
+    """K1 (cap <= r) and K2 (cap > r) against their plain versions at
+    ``n_pad`` rows, dim ``DIM``, fp32, bf16 and int8 tables, every tier, on
+    each of ``SMALL_LAYOUTS``."""
+    r = sk.KERNEL_TILE_ROWS
+    t32 = torch.from_numpy(rng.standard_normal((n_pad, DIM), dtype=np.float32)).cuda()
+    t8 = torch.from_numpy(rng.integers(-127, 128, size=(n_pad, DIM // 128, 128), dtype=np.int8)).cuda()
+    rows_out = []
+    for layout, q in queries.items():
+        lay1 = small_case_layout(rng, n_pad, q.shape[0], layout, "K1", 512, r)
+        lay2 = small_case_layout(rng, n_pad, q.shape[0], layout, "K2", 1024, r)
+        # K1 takes 2D float tables; K2 is routed 3D ones
+        for name, t1, t2 in (("fp32", t32, t32.view(n_pad, DIM // 128, 128)),
+                             ("bf16", t32.to(torch.bfloat16), t32.to(torch.bfloat16)),
+                             ("int8", t8, t8)):
+            rows_out += pairwise_variants(sk, t1, q, *lay1, DIM, ("exact", "fast"), False, rates,
+                                          f"{name} {layout}")
+            rows_out += select_variants(sk, t2, q, *lay2, DIM, ("exact", "high", "fast"), False,
+                                        rates, f"{name} {layout}")
+    return rows_out
+
+
+def pq_small_cases(skpq, rng, n_pad, queries, rates) -> list:
     """K3 (cap <= r) and K4 (cap > r) against their plain versions at
     ``n_pad`` rows, dim ``DIM``, every tier, for each ``(M, Ks)`` of
-    ``PQ_SMALL_SHAPES`` and four layouts: random rows and queries; every
-    slot (padding too) on one query (``Qb = 1``); half-full tiles, so that
-    half of the slots pad on query ``Qb - 1`` as in the flagship layouts;
-    random rows over 5,000 queries (the grouping bins them in windows)."""
+    ``PQ_SMALL_SHAPES`` and each of ``SMALL_LAYOUTS``."""
     r = skpq.KERNEL_PQ_TILE_ROWS
-    qb = q_s.shape[0]
-    q_many = torch.from_numpy(rng.standard_normal((5000, DIM), dtype=np.float32)).cuda()
-    queries = {"uniform": q_s, "one_query": q_s[:1], "half_padding": q_s, "many_queries": q_many}
     rows_out = []
     for m, ks in PQ_SMALL_SHAPES:
         codes = torch.from_numpy(rng.integers(0, ks, size=(n_pad, m), dtype=np.uint8)).cuda()
@@ -616,12 +648,7 @@ def pq_small_cases(skpq, rng, n_pad, q_s, rates) -> list:
         for layout, q in queries.items():
             for kernel, cap, tiers in (("K3", 512, ("exact", "fast")),
                                        ("K4", 1024, ("exact", "high", "fast"))):
-                if layout == "half_padding":
-                    lay = small_layout(rng, n_pad, qb, n_pad // r * cap // 2, r, cap=cap)
-                else:
-                    lay = small_layout(rng, n_pad, q.shape[0], 3000 if kernel == "K3" else 6000, r)
-                check(lay[0].shape[1] * 128 == cap, f"{kernel}'s small {layout} layout has cap "
-                      f"{lay[0].shape[1] * 128}, want {cap}")
+                lay = small_case_layout(rng, n_pad, q.shape[0], layout, kernel, cap, r)
                 rows_out += pq_variants(skpq, kernel, codes, cb, q, *lay, tiers, False, rates,
                                         f"pq({m},{ks}) {layout}")
     return rows_out
@@ -698,10 +725,12 @@ def add_in_chunks(index, vectors: np.ndarray, psg_ids: list, chunk: int = 1 << 1
         index.add(part, psg_ids=psg_ids[lo : lo + part.shape[0]])
 
 
-def quantized_phase(label, index, ranking, run, rows_ref, q_ref, q_index, wrappers, want, forbid):
+def quantized_phase(label, index, ranking, run, rows_ref, q_ref, q_index, wrappers, want, forbid,
+                    kernels):
     """Cold + warm re-ranks and the fused serve of a quantized index, each
     checked against float64; the phase must launch ``want`` and no
-    ``forbid``.  Returns (flows, launches)."""
+    ``forbid``, and a profile counts only with all of ``kernels`` (one of
+    ``CALL_KERNELS``).  Returns (flows, launches)."""
     reset_counts(wrappers)
     t0 = time.perf_counter()
     cold = index(ranking)
@@ -732,9 +761,20 @@ def quantized_phase(label, index, ranking, run, rows_ref, q_ref, q_index, wrappe
         (f"{label}_rerank", lambda: index(ranking)),
         (f"{label}_serve", lambda: index.serve(ranking, ALPHA, CUTOFF)),
     ):
-        flows[key]["profile"] = profile_flow(fn)
+        flows[key]["profile"] = profile_flow(fn, kernels)
         log(f"[profile {key}]", json.dumps(flows[key]["profile"]))
     return flows, launches
+
+
+def serve_memory(index, ranking, scratch: dict) -> dict:
+    """Device memory of one warm serve of ``index``: what the index and its
+    plan hold, the peak, and the kernel scratch of ``scratch`` (bytes)."""
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    index.serve(ranking, ALPHA, CUTOFF)
+    torch.cuda.synchronize()
+    return {"held_bytes": held, "peak_bytes": torch.cuda.max_memory_allocated(), **scratch}
 
 
 def main() -> int:
@@ -744,7 +784,7 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     from fastforward_tpu_torch import InMemoryIndex, Mode, Ranking
     from fastforward_tpu_torch.encoder import LambdaEncoder
-    from fastforward_tpu_torch.ops import _build, scoring
+    from fastforward_tpu_torch.ops import _build, query_groups, scoring
     from fastforward_tpu_torch.ops import stream_kernel as sk
     from fastforward_tpu_torch.ops import stream_kernel_pq as skpq
     from fastforward_tpu_torch.quantizer import OPQ, PQ, ScalarQuantizer
@@ -789,24 +829,19 @@ def main() -> int:
     q_s = torch.from_numpy(rng.standard_normal((qb, dim_s), dtype=np.float32)).cuda()
     t32 = torch.from_numpy(rng.standard_normal((n_pad, dim_s), dtype=np.float32)).cuda()
     t8 = torch.from_numpy(rng.integers(-127, 128, size=(n_pad, dim_s // 128, 128), dtype=np.int8)).cuda()
-    tables = [("fp32", t32), ("bf16", t32.to(torch.bfloat16)), ("int8", t8)]
-    kernel_variants(sk, tables, q_s, cand3, tile_idx, dim_s, False, rates)
-
-    log("[kernel-small] K2 vs plain at n_pad 4096, dim 768, Qb 64, 6000 pairs (cap > r)")
-    n_pad = 4096
-    cand3, tile_idx = small_layout(rng, n_pad, qb, 6000, sk.KERNEL_TILE_ROWS)
-    check(cand3.shape[1] * 128 > sk.KERNEL_TILE_ROWS, "K2's small layout has cap <= r")
-    q_s = torch.from_numpy(rng.standard_normal((qb, DIM), dtype=np.float32)).cuda()
-    t32 = torch.from_numpy(rng.standard_normal((n_pad, DIM // 128, 128), dtype=np.float32)).cuda()
-    t8 = torch.from_numpy(rng.integers(-127, 128, size=(n_pad, DIM // 128, 128), dtype=np.int8)).cuda()
     small = []
-    for label, table in (("fp32", t32), ("bf16", t32.view(n_pad, DIM).to(torch.bfloat16)), ("int8", t8)):
-        small += select_variants(sk, table, q_s, cand3, tile_idx, DIM, ("exact", "high", "fast"),
-                                 False, rates, label)
-    log(f"[kernel-small] K3 (cap 512) and K4 (cap 1024) vs plain at n_pad 4096, dim {DIM}, "
-        f"PQ(M, Ks) for (M, Ks) in {PQ_SMALL_SHAPES}; uniform, one-query, half-padding and "
-        f"5,000-query layouts")
-    small += pq_small_cases(skpq, rng, n_pad, q_s, rates)
+    for label, table in (("fp32", t32), ("bf16", t32.to(torch.bfloat16)), ("int8", t8)):
+        small += pairwise_variants(sk, table, q_s, cand3, tile_idx, dim_s, ("exact", "fast"), False,
+                                   rates, f"{label} dim {dim_s}")
+
+    n_pad = 4096
+    queries_s = small_queries(rng, torch.from_numpy(rng.standard_normal((qb, DIM), dtype=np.float32)).cuda())
+    log(f"[kernel-small] K1 (cap 512) and K2 (cap 1024) vs plain at n_pad {n_pad}, dim {DIM}, "
+        f"fp32/bf16/int8 tables; layouts {SMALL_LAYOUTS}")
+    small += dense_small_cases(sk, rng, n_pad, queries_s, rates)
+    log(f"[kernel-small] K3 (cap 512) and K4 (cap 1024) vs plain at n_pad {n_pad}, dim {DIM}, "
+        f"PQ(M, Ks) for (M, Ks) in {PQ_SMALL_SHAPES}; layouts {SMALL_LAYOUTS}")
+    small += pq_small_cases(skpq, rng, n_pad, queries_s, rates)
 
     # -- 3. re-rank at the flagship shape ------------------------------------
     t0 = time.perf_counter()
@@ -875,7 +910,7 @@ def main() -> int:
         ("serve_refine", lambda: index.serve(ranking, ALPHA, CUTOFF, refine=REFINE)),
         ("serve", lambda: index.serve(ranking, ALPHA, CUTOFF)),
     ):
-        flows[label]["profile"] = profile_flow(fn)
+        flows[label]["profile"] = profile_flow(fn, CALL_KERNELS["pairwise"])
         log(f"[profile {label}]", json.dumps(flows[label]["profile"]))
 
     # -- 5. sparse ranking and a bf16 table ----------------------------------
@@ -915,10 +950,24 @@ def main() -> int:
     log(f"[kernel-flagship] K1 vs plain on the re-rank's own layout {tuple(cand3.shape)}")
     t8 = torch.randint(-127, 128, (table.shape[0], DIM // 128, 128), dtype=torch.int8,
                        device="cuda", generator=torch.Generator("cuda").manual_seed(SEED))
-    tables = [("fp32", table), ("bf16", table.to(torch.bfloat16)), ("int8", t8)]
-    variants = {"stream_select_pairwise": kernel_variants(sk, tables, q_dev, cand3, tile_idx, DIM,
-                                                          True, rates)}
-    del index, table, tables, t8, corpus_dev, main_inputs, cand3, tile_idx, q_dev, plan
+    variants = {"stream_select_pairwise": []}
+    for label, tab in (("fp32", table), ("bf16", table.to(torch.bfloat16)), ("int8", t8)):
+        rows_k1 = pairwise_variants(sk, tab, q_dev, cand3, tile_idx, DIM, ("exact", "fast"), True,
+                                    rates, label)
+        for row in rows_k1:
+            row.update(table=label, exact=row["variant"].endswith("exact"))
+            split_call(row, lambda t=tab, e=row["exact"]: sk.stream_select_pairwise(
+                t, q_dev, cand3, tile_idx, exact=e), CALL_KERNELS["pairwise" if label == "fp32" else "dense"])
+        variants["stream_select_pairwise"] += rows_k1
+    # the query-major body on the same fp32 layout, through K2's entry (3D
+    # fp32 tables go to K2), to hold against K1's fp32 body in this run
+    log("[kernel-flagship] the query-major body (K2's entry) on the fp32 layout, beside K1's fp32 body")
+    table3 = table.view(table.shape[0], DIM // 128, 128)
+    fp32_query_major = select_variants(sk, table3, q_dev, cand3, tile_idx, DIM, ("exact",), True,
+                                       rates, "fp32 on K1's layout")[0]
+    split_call(fp32_query_major, lambda: sk.stream_select(table3, q_dev.t(), cand3, tile_idx),
+               CALL_KERNELS["dense"])
+    del index, table, table3, t8, corpus_dev, main_inputs, cand3, tile_idx, q_dev, plan
     torch.cuda.empty_cache()
 
     # -- 7. int8 at full width (K1) ------------------------------------------
@@ -937,7 +986,7 @@ def main() -> int:
     log(f"[setup] int8 index of {N} rows built in {time.perf_counter() - t0:.1f} s")
     phase, launches["int8"] = quantized_phase(
         "int8", int8_index, ranking, run, int8_rows, qvecs_dev, q_index, wrappers,
-        want="stream_select_pairwise", forbid=("stream_select",),
+        want="stream_select_pairwise", forbid=("stream_select",), kernels=CALL_KERNELS["dense"],
     )
     flows.update(phase)
     del int8_index, int8_rows
@@ -966,11 +1015,18 @@ def main() -> int:
     phase, launches["int8_dense"] = quantized_phase(
         "int8_dense", dense_int8, dense_rank, dense_run, dense_int8_rows, qvecs_dev, q_index,
         wrappers, want="stream_select", forbid=("stream_select_pairwise",),
+        kernels=CALL_KERNELS["dense"],
     )
     flows.update(phase)
     k2_plan = dense_int8._get_plan(dense_rank)
     k2_inputs = (dense_int8._device_view().table, k2_plan["q_dev"][1], *k2_plan["stream"][:2])
     del dense_int8_rows
+    # device memory of one warm int8 dense serve, and K2's grouping scratch within it
+    scratch = 8 * query_groups.scratch_words(k2_inputs[1].shape[0], k2_inputs[2].numel())
+    memory = serve_memory(dense_int8, dense_rank, {"k2_grouping_scratch_bytes": scratch})
+    flows["int8_dense_serve"]["device_memory"] = memory
+    log(f"[int8 dense memory] one warm serve: {json.dumps(memory)}")
+    del dense_int8
 
     # -- 9. PQ at full width (K3) ----------------------------------------------
     t0 = time.perf_counter()
@@ -994,7 +1050,7 @@ def main() -> int:
     check_encode("PQ", pq, pq_index._store[:N], corpus)
     phase, launches["pq"] = quantized_phase(
         "pq", pq_index, ranking, run, pq_ref, qvecs_dev, q_index, wrappers,
-        want="stream_select_pq_pairwise", forbid=("stream_select_pq",),
+        want="stream_select_pq_pairwise", forbid=("stream_select_pq",), kernels=CALL_KERNELS["adc"],
     )
     flows.update(phase)
     view = pq_index._device_view()
@@ -1023,7 +1079,7 @@ def main() -> int:
     check_encode("OPQ", opq, opq_index._store[:DENSE_N], dense_corpus)
     phase, launches["opq_dense"] = quantized_phase(
         "opq_dense", opq_index, dense_rank, dense_run, opq_ref, rotated_dev, q_index, wrappers,
-        want="stream_select_pq", forbid=("stream_select_pq_pairwise",),
+        want="stream_select_pq", forbid=("stream_select_pq_pairwise",), kernels=CALL_KERNELS["adc"],
     )
     flows.update(phase)
     view = opq_index._device_view()
@@ -1032,17 +1088,10 @@ def main() -> int:
     del opq_ref
     # device memory of one warm OPQ serve, and K4's scratch within it
     qb_opq = k4_inputs[2].shape[0]
-    torch.cuda.synchronize()
-    held = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    opq_index.serve(dense_rank, ALPHA, CUTOFF)
-    torch.cuda.synchronize()
-    memory = {
-        "held_bytes": held,
-        "peak_bytes": torch.cuda.max_memory_allocated(),
+    memory = serve_memory(opq_index, dense_rank, {
         "k4_grouping_scratch_bytes": 8 * skpq.adc_scratch_words(qb_opq, k4_inputs[3].numel()),
         "k4_lut_scratch_bytes": 4 * 256 * PQ_M * skpq.adc_table_queries(qb_opq, PQ_M),
-    }
+    })
     flows["opq_dense_serve"]["device_memory"] = memory
     log(f"[opq memory] one warm serve: {json.dumps(memory)}")
 
@@ -1050,23 +1099,24 @@ def main() -> int:
     log(f"[kernel-flagship] K2 on the int8 dense-tile layout {tuple(k2_inputs[2].shape)}, "
         f"K3 on the PQ layout {tuple(k3_inputs[3].shape)}, "
         f"K4 on the OPQ layout {tuple(k4_inputs[3].shape)}")
-    variants["stream_select"] = select_variants(sk, *k2_inputs, DIM, ("high",), True, rates, "int8")
+    variants["stream_select"] = select_variants(sk, *k2_inputs, DIM, ("high", "fast"), True, rates,
+                                                "int8")
     variants["stream_select_pq_pairwise"] = pq_variants(skpq, "K3", *k3_inputs, ("exact",), True,
                                                         rates, "pq")
     variants["stream_select_pq"] = pq_variants(skpq, "K4", *k4_inputs, ("exact",), True, rates,
                                                "opq")
+    table_k2, q_k2, cand_k2, tile_k2 = k2_inputs
+    for row, tier in zip(variants["stream_select"], ("high", "fast")):
+        split_call(row, lambda p=tier: sk.stream_select(table_k2, q_k2.t(), cand_k2, tile_k2, precision=p),
+                   CALL_KERNELS["dense"])
     for kname, (codes_m, cb_m, q_m, cand_m, tile_m) in (("stream_select_pq_pairwise", k3_inputs),
                                                          ("stream_select_pq", k4_inputs)):
         call = getattr(skpq, kname)
         q_arg = q_m if kname == "stream_select_pq_pairwise" else q_m.t()
-        fn = lambda: call(codes_m, cb_m, q_arg, cand_m, tile_m)  # noqa: E731
-        row = variants[kname][0]
-        row["traced_ms_by_kernel"] = traced_kernels(fn, len(ADC_KERNEL_NAMES))
-        row["back_to_back_ms"] = back_to_back_ms(fn, TIMED_LAUNCHES)
-        log(f"  {kname}: one call traced {json.dumps(row['traced_ms_by_kernel'])}; "
-            f"{row['back_to_back_ms']:.4f} ms per call back to back")
-    small_by_kernel = {"stream_select": "K2", "stream_select_pq_pairwise": "K3",
-                       "stream_select_pq": "K4"}
+        split_call(variants[kname][0], lambda: call(codes_m, cb_m, q_arg, cand_m, tile_m),
+                   CALL_KERNELS["adc"])
+    small_by_kernel = {"stream_select_pairwise": "K1", "stream_select": "K2",
+                       "stream_select_pq_pairwise": "K3", "stream_select_pq": "K4"}
     vet_profiles(flows, variants)
 
     summary = []
@@ -1093,6 +1143,7 @@ def main() -> int:
             "launches_by_phase": {ph: counts[kname] for ph, counts in launches.items()},
             "variants": rows_k,
         })
+    summary[0]["fp32_query_major_body"] = fp32_query_major
     forbidden = [m for m in sys.modules if m == "jax" or m.startswith(("jax.", "fastforward_tpu."))
                  or m == "fastforward_tpu"]
     check(not forbidden, f"JAX or the JAX package was imported: {forbidden[:5]}")

@@ -21,32 +21,18 @@
 // card, each query's table is built once, and a block scores up to
 // item_slots slots of one query from its table in shared memory.
 //
-// The launch sequence (adc_lut_launch), all on the caller's stream:
-//   1. zero the per-query counters (cudaMemsetAsync);
-//   2. adc_count_kernel: a histogram of qno over the slots, binned per block
-//      in shared memory and added to device memory bin by bin;
-//   3. adc_scan_kernel (one block): exclusive scans of the counts and of
-//      each query's work items, ceil(count / item_slots);
-//   4. adc_scatter_kernel: each slot's index into its query's list, ranked
-//      per block in shared memory, one range reserved per bin;
-//   then, for each group of lut_queries queries (one group at Qb = 512):
+// The launch sequence (adc_lut_launch), all on the caller's stream: the
+// grouping of query_groups.cuh (a memset and the count and scatter
+// kernels: each query's slots listed and cut into work items of item_slots
+// slots, the padding query Qb - 1, which owns over half of the flagship
+// slots, into many), then, for each group of lut_queries queries (one
+// group at Qb = 512):
 //   5. adc_table_kernel: the group's LUTs into the scratch table, one block
 //      per (subspace, 8 queries), each thread one codeword dotted with 8
 //      queries, so the codebooks leave L2 once per 8 queries;
 //   6. adc_score_kernel: one block per work item of the group copies its
 //      query's LUT into shared memory and scores the item's slots.
-// The grouping is recomputed per call (the layout's plan caches only cand
-// and tile_idx), so its time is part of every call's time.
-//
-// The padding query.  Every padding slot carries qno = qb - 1; at the
-// flagship sizes that query owns over half of the slots (~536k of
-// 1,048,576).  The count and scatter kernels bin a block's 4,096 slots in
-// shared memory (one shared atomic per group of equal queries in a warp
-// step) and add each bin to device memory with one atomic, so the padding
-// query's counter takes one atomic per block, not one per slot; the
-// work-item split cuts its list into pieces of item_slots slots, so ~260
-// blocks score it instead of one.  Padding slots are scored like any other
-// slot, as the contract says.
+// Padding slots are scored like any other slot, as the contract says.
 //
 // The tables.  Each subspace's table is kKsMax = 256 entries wide whatever
 // Ks (entries k >= Ks are zero, so any uint8 code stays inside it).  The
@@ -84,6 +70,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "query_groups.cuh"
+
 namespace ff {
 
 constexpr int kAdcThreads = 256;
@@ -95,15 +83,7 @@ constexpr int kAdcMaxItemSlots = kScoreThreads * kSlotsPerThread;
 constexpr int kKsMax = 256;
 constexpr int kLutSubspaces = 96;  // 96 KB of fp32 table per block
 constexpr int kTableQueries = 8;  // queries per thread of the table kernel
-constexpr int kScanThreads = 1024;
-// the grouping kernels: slots per thread and per block, and queries binned
-// in shared memory at a time
-constexpr int kGroupSlotsPerThread = 16;
-constexpr int kGroupSlots = kAdcThreads * kGroupSlotsPerThread;
-constexpr int kBins = 2048;
 static_assert(kAdcThreads == kKsMax, "a table thread owns one codeword");
-
-typedef unsigned long long u64;
 
 struct AdcArgs {
   const uint8_t* codes;  // (N_pad, m) uint8
@@ -117,9 +97,7 @@ struct AdcArgs {
   float* out;           // (n_slots,)
   long long n_slots;
   int cap, qb, r;
-  // scratch, qb * 3 + 2 + n_slots words: cursor[qb] | slot_off[qb + 1] |
-  // item_off[qb + 1] | order[n_slots]
-  u64* scratch;
+  u64* scratch;         // the grouping's, 3 * qb + 2 + n_slots words
   int item_slots;       // slots per work item, <= kAdcMaxItemSlots
   long long max_items;  // a bound on the work items of the whole call
   float* lut;           // lut_queries * m * kKsMax fp32
@@ -130,145 +108,6 @@ namespace adc {
 
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-__device__ __forceinline__ long long group_slot(int i) {
-  return static_cast<long long>(blockIdx.x) * kGroupSlots + i * kAdcThreads +
-         threadIdx.x;
-}
-
-// The queries of a grouping block's slots (-1 past the end).
-__device__ __forceinline__ void load_keys(const int* cand, long long n, int qb,
-                                          int* keys) {
-#pragma unroll
-  for (int i = 0; i < kGroupSlotsPerThread; ++i) {
-    const long long s = group_slot(i);
-    keys[i] = s < n ? __ldg(cand + s) % qb : -1;
-  }
-}
-
-// Add one warp step's slots of the window [w0, w0 + kBins) to the block's
-// bins, one shared atomic per group of equal queries; returns the slot's
-// rank among its bin's slots of the block (unspecified outside the window).
-__device__ __forceinline__ unsigned bin_slot(int key, int w0, int width,
-                                             unsigned* bins) {
-  const int k = key >= w0 && key < w0 + width ? key - w0 : -1;
-  const unsigned peers = __match_any_sync(0xffffffffu, k);
-  const int lane = threadIdx.x & 31, leader = __ffs(peers) - 1;
-  unsigned base = 0;
-  if (k >= 0 && lane == leader) base = atomicAdd(bins + k, __popc(peers));
-  return __shfl_sync(0xffffffffu, base, leader) +
-         __popc(peers & ((1u << lane) - 1));
-}
-
-// 2. counts[qno] += the block's slots of qno: the block's kGroupSlots slots
-// are binned in shared memory, kBins queries at a time, and each non-empty
-// bin goes to device memory with one atomic.
-__global__ void __launch_bounds__(kAdcThreads)
-    adc_count_kernel(const int* __restrict__ cand, long long n, int qb,
-                     u64* __restrict__ counts) {
-  __shared__ unsigned bins[kBins];
-  int keys[kGroupSlotsPerThread];
-  load_keys(cand, n, qb, keys);
-  for (int w0 = 0; w0 < qb; w0 += kBins) {
-    const int width = min(kBins, qb - w0);
-    for (int b = threadIdx.x; b < width; b += kAdcThreads) bins[b] = 0;
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < kGroupSlotsPerThread; ++i) bin_slot(keys[i], w0, width, bins);
-    __syncthreads();
-    for (int b = threadIdx.x; b < width; b += kAdcThreads) {
-      if (bins[b]) atomicAdd(counts + w0 + b, static_cast<u64>(bins[b]));
-    }
-    __syncthreads();  // the next window clears the bins
-  }
-}
-
-// 3. One block: slot_off and item_off, the exclusive scans of counts and of
-// ceil(counts / item_slots), each qb + 1 long; cursor (the counts' storage)
-// becomes slot_off[0..qb).
-__global__ void __launch_bounds__(kScanThreads)
-    adc_scan_kernel(u64* __restrict__ cursor, u64* __restrict__ slot_off,
-                    u64* __restrict__ item_off, int qb, int item_slots) {
-  __shared__ u64 warp_slots[kScanThreads / 32], warp_items[kScanThreads / 32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int per = (qb + kScanThreads - 1) / kScanThreads;
-  const int lo = min(qb, static_cast<int>(threadIdx.x) * per);
-  const int hi = min(qb, lo + per);
-  u64 slots = 0, items = 0;
-  for (int i = lo; i < hi; ++i) {
-    const u64 c = cursor[i];
-    slots += c;
-    items += (c + item_slots - 1) / item_slots;
-  }
-  // inclusive scan over the warp, then over the warps' totals
-  u64 inc_s = slots, inc_i = items;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const u64 s = __shfl_up_sync(0xffffffffu, inc_s, off);
-    const u64 t = __shfl_up_sync(0xffffffffu, inc_i, off);
-    if (lane >= off) {
-      inc_s += s;
-      inc_i += t;
-    }
-  }
-  if (lane == 31) {
-    warp_slots[warp] = inc_s;
-    warp_items[warp] = inc_i;
-  }
-  __syncthreads();
-  u64 run_s = inc_s - slots, run_i = inc_i - items;
-  for (int w = 0; w < warp; ++w) {
-    run_s += warp_slots[w];
-    run_i += warp_items[w];
-  }
-  for (int i = lo; i < hi; ++i) {
-    const u64 c = cursor[i];
-    slot_off[i] = run_s;
-    item_off[i] = run_i;
-    cursor[i] = run_s;
-    run_s += c;
-    run_i += (c + item_slots - 1) / item_slots;
-  }
-  if (threadIdx.x == kScanThreads - 1) {  // its run ends at the totals
-    slot_off[qb] = run_s;
-    item_off[qb] = run_i;
-  }
-}
-
-// 4. order[cursor[qno]++] = s: the block ranks its slots within their
-// bins in shared memory, reserves each non-empty bin's range of its query's
-// list with one atomic, and writes its slots there.  The order within a
-// query's list varies from run to run; no slot's score depends on it.
-__global__ void __launch_bounds__(kAdcThreads)
-    adc_scatter_kernel(const int* __restrict__ cand, long long n, int qb,
-                       u64* __restrict__ cursor, u64* __restrict__ order) {
-  __shared__ unsigned bins[kBins];
-  __shared__ u64 base[kBins];
-  int keys[kGroupSlotsPerThread];
-  unsigned rank[kGroupSlotsPerThread];
-  load_keys(cand, n, qb, keys);
-  for (int w0 = 0; w0 < qb; w0 += kBins) {
-    const int width = min(kBins, qb - w0);
-    for (int b = threadIdx.x; b < width; b += kAdcThreads) bins[b] = 0;
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < kGroupSlotsPerThread; ++i) {
-      rank[i] = bin_slot(keys[i], w0, width, bins);
-    }
-    __syncthreads();
-    for (int b = threadIdx.x; b < width; b += kAdcThreads) {
-      if (bins[b]) base[b] = atomicAdd(cursor + w0 + b, static_cast<u64>(bins[b]));
-    }
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < kGroupSlotsPerThread; ++i) {
-      if (keys[i] >= w0 && keys[i] < w0 + width) {
-        order[base[keys[i] - w0] + rank[i]] = static_cast<u64>(group_slot(i));
-      }
-    }
-    __syncthreads();  // the next window clears the bins
-  }
 }
 
 // 5. lut[(q - g0) * m + sub][k] for the queries [g0, g1) of one group: block
@@ -384,24 +223,13 @@ __device__ __forceinline__ void add_rows(const uint8_t* const* rows, int m0,
 // Blocks past the group's last item leave.
 template <int kVec>
 __global__ void __launch_bounds__(kScoreThreads)
-    adc_score_kernel(AdcArgs a, const u64* __restrict__ slot_off,
-                     const u64* __restrict__ item_off,
-                     const u64* __restrict__ order, int g0, int g1, int mc) {
+    adc_score_kernel(AdcArgs a, groups::Lists l, int g0, int g1, int mc) {
   extern __shared__ __align__(16) float lut[];  // mc * kKsMax
-  const long long item = static_cast<long long>(item_off[g0]) + blockIdx.x;
-  if (item >= static_cast<long long>(item_off[g1])) return;
-  // the query whose items hold this one: item_off[lo] <= item < item_off[lo+1]
-  int lo = g0, hi = g1;
-  while (hi - lo > 1) {
-    const int mid = (lo + hi) >> 1;
-    if (static_cast<long long>(item_off[mid]) <= item) lo = mid; else hi = mid;
+  groups::Item it;
+  if (!groups::find_item(l.slot_off, l.item_off, g0, g1, blockIdx.x,
+                         a.item_slots, &it)) {
+    return;
   }
-  const long long first = static_cast<long long>(slot_off[lo]) +
-                          (item - static_cast<long long>(item_off[lo])) *
-                              a.item_slots;
-  const int n = static_cast<int>(
-      min(static_cast<long long>(a.item_slots),
-          static_cast<long long>(slot_off[lo + 1]) - first));
 
   // each thread's slots; a thread short of slots scores code row 0 for
   // nothing and writes no result
@@ -414,9 +242,10 @@ __global__ void __launch_bounds__(kScoreThreads)
     rows[i] = a.codes;
     slot[i] = -1;
     const int j = threadIdx.x + i * kScoreThreads;
-    if (j < n) {
-      const long long s = static_cast<long long>(order[first + j]);
-      const int c = __ldg(a.cand + s);
+    if (j < it.n) {
+      const u64 e = l.order[it.first + j];
+      const long long s = groups::entry_slot(e);
+      const int c = groups::entry_cand(e);
       const long long row =
           static_cast<long long>(__ldg(a.tile_idx + s / a.cap)) * a.r + c / a.qb;
       rows[i] = a.codes + row * a.m;
@@ -425,7 +254,7 @@ __global__ void __launch_bounds__(kScoreThreads)
   }
 
   const float4* table = reinterpret_cast<const float4*>(
-      a.lut + static_cast<long long>(lo - g0) * a.m * kKsMax);
+      a.lut + static_cast<long long>(it.q - g0) * a.m * kKsMax);
   float4* staged = reinterpret_cast<float4*>(lut);
   constexpr int kCopy = 4;  // float4 loads in flight per thread
   for (int m0 = 0; m0 < a.m; m0 += mc) {
@@ -454,8 +283,7 @@ __global__ void __launch_bounds__(kScoreThreads)
 }
 
 template <int kVec>
-cudaError_t launch_score(const AdcArgs& a, const u64* slot_off,
-                         const u64* item_off, const u64* order, int g0,
+cudaError_t launch_score(const AdcArgs& a, const groups::Lists& l, int g0,
                          int g1, int mc, cudaStream_t stream) {
   const int smem = mc * kKsMax * static_cast<int>(sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(
@@ -464,7 +292,7 @@ cudaError_t launch_score(const AdcArgs& a, const u64* slot_off,
   if (err != cudaSuccess) return err;
   adc_score_kernel<kVec>
       <<<static_cast<unsigned>(a.max_items), kScoreThreads, smem, stream>>>(
-          a, slot_off, item_off, order, g0, g1, mc);
+          a, l, g0, g1, mc);
   return cudaGetLastError();
 }
 
@@ -480,25 +308,10 @@ cudaError_t adc_lut_launch(const AdcArgs& a, cudaStream_t stream) {
       a.max_items > 0x7fffffffLL || a.lut_queries <= 0) {
     return cudaErrorInvalidValue;
   }
-  u64* cursor = a.scratch;
-  u64* slot_off = cursor + a.qb;
-  u64* item_off = slot_off + a.qb + 1;
-  u64* order = item_off + a.qb + 1;
-  const unsigned grid =
-      static_cast<unsigned>((a.n_slots + kGroupSlots - 1) / kGroupSlots);
-
-  cudaError_t err = cudaMemsetAsync(cursor, 0, sizeof(u64) * a.qb, stream);
+  const groups::Lists l = groups::lists(a.scratch, a.qb);
+  cudaError_t err =
+      group_slots(a.cand, a.n_slots, a.qb, a.item_slots, l, stream);
   if (err != cudaSuccess) return err;
-  adc::adc_count_kernel<<<grid, kAdcThreads, 0, stream>>>(a.cand, a.n_slots,
-                                                          a.qb, cursor);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  adc::adc_scan_kernel<<<1, kScanThreads, 0, stream>>>(cursor, slot_off,
-                                                       item_off, a.qb,
-                                                       a.item_slots);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  adc::adc_scatter_kernel<<<grid, kAdcThreads, 0, stream>>>(
-      a.cand, a.n_slots, a.qb, cursor, order);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
   // subspaces per staged chunk: all of them, or kLutSubspaces (a multiple of
   // 16, so every chunk starts on a 16-byte boundary of the code row)
@@ -513,9 +326,9 @@ cudaError_t adc_lut_launch(const AdcArgs& a, cudaStream_t stream) {
     adc::adc_table_kernel<kRoundCodewords, kRoundQuery>
         <<<tables, kAdcThreads, 0, stream>>>(a, g0, g1);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    err = vec == 16 ? adc::launch_score<16>(a, slot_off, item_off, order, g0, g1, mc, stream)
-          : vec == 4 ? adc::launch_score<4>(a, slot_off, item_off, order, g0, g1, mc, stream)
-                     : adc::launch_score<1>(a, slot_off, item_off, order, g0, g1, mc, stream);
+    err = vec == 16 ? adc::launch_score<16>(a, l, g0, g1, mc, stream)
+          : vec == 4 ? adc::launch_score<4>(a, l, g0, g1, mc, stream)
+                     : adc::launch_score<1>(a, l, g0, g1, mc, stream);
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;

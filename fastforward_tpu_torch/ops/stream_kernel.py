@@ -17,14 +17,21 @@ transposed query block and a ``precision`` tier: ``"exact"`` and
 carry ``local 0`` and ``qno Qb - 1`` and are computed like any other slot.
 
 Each wrapper launches its hand-written CUDA kernel (``csrc/*.cu``) for CUDA
-tensors and runs its plain PyTorch version only for CPU tensors.
+tensors and runs its plain PyTorch version only for CPU tensors.  On the
+card K2, and K1 for bf16 and int8 tables, are query-major
+(``csrc/dense_dot.cuh``): one call groups the slots by query
+(``csrc/query_groups.cuh``, shared with K3 and K4), cuts each query's slots
+into work items of at most ``DENSE_ITEM_SLOTS`` slots, and a block holds
+one item's query while it dots the item's rows.  The wrapper allocates the
+grouping's scratch and bounds the number of items (:func:`dense_max_items`).
+K1 scores fp32 tables one warp per slot, which measured faster there.
 """
 
 import ctypes
 
 import torch
 
-from fastforward_tpu_torch.ops import _build
+from fastforward_tpu_torch.ops import _build, query_groups
 
 #: rows per table tile (the layout's tile granularity)
 KERNEL_TILE_ROWS = 512
@@ -35,6 +42,15 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 #: slots per step of the plain version (bounds its gathered temporaries)
 _PLAIN_CHUNK_SLOTS = 1 << 17
+
+#: slots per work item of the query-major kernels
+DENSE_ITEM_SLOTS = 1024
+
+
+def dense_max_items(qb: int, n_slots: int) -> int:
+    """A bound on the work items of ``n_slots`` slots over ``qb`` queries
+    at ``DENSE_ITEM_SLOTS`` slots an item (:func:`query_groups.max_items`)."""
+    return query_groups.max_items(qb, n_slots, DENSE_ITEM_SLOTS)
 
 
 #: argument types of ``ff_stream_select_pairwise``
@@ -51,6 +67,9 @@ _PAIRWISE_ARGS = (
     ctypes.c_int,  # r
     ctypes.c_int,  # dim
     ctypes.c_int,  # exact
+    ctypes.c_void_p,  # grouping scratch
+    ctypes.c_int,  # slots per work item
+    ctypes.c_longlong,  # work-item bound
     ctypes.c_int,  # device
     ctypes.c_void_p,  # stream
 )
@@ -121,7 +140,10 @@ def stream_select_pairwise(
     )
     if table.data_ptr() % 16 or qvecs.data_ptr() % 16:
         raise ValueError("table and qvecs must be 16-byte aligned")
-    out = torch.empty(cand3.shape, dtype=torch.float32, device=table.device)
+    out = torch.empty_like(cand3, dtype=torch.float32)
+    # fp32 tables are scored slot by slot, without grouping (csrc/stream_select_pairwise.cu)
+    grouped = table.dtype != torch.float32
+    scratch = query_groups.scratch(qvecs.shape[0], out.numel(), table.device) if grouped else None
     _build.bind("stream_select_pairwise", _PAIRWISE_ARGS)(
         table.data_ptr(),
         _DTYPE_CODE[table.dtype],
@@ -135,6 +157,9 @@ def stream_select_pairwise(
         r,
         dim,
         int(exact),
+        scratch.data_ptr() if grouped else None,
+        DENSE_ITEM_SLOTS,
+        dense_max_items(qvecs.shape[0], out.numel()),
         device,
         stream,
     )
@@ -182,9 +207,6 @@ def stream_select_pairwise_plain(
 #: precision tiers of K2 (``"exact"`` and ``"high"`` are both true fp32 dots)
 SELECT_TIERS = ("exact", "high", "fast")
 
-#: shared-memory bytes K2 stages per chunk of rows (one row must fit)
-_SELECT_CHUNK_BYTES = 48 * 1024
-
 
 #: argument types of ``ff_stream_select``
 _SELECT_ARGS = (
@@ -202,6 +224,9 @@ _SELECT_ARGS = (
     ctypes.c_int,  # r
     ctypes.c_int,  # dim
     ctypes.c_int,  # fast
+    ctypes.c_void_p,  # grouping scratch
+    ctypes.c_int,  # slots per work item
+    ctypes.c_longlong,  # work-item bound
     ctypes.c_int,  # device
     ctypes.c_void_p,  # stream
 )
@@ -273,9 +298,8 @@ def stream_select(
     )
     if table.data_ptr() % 16:
         raise ValueError("table must be 16-byte aligned")
-    if dim * table.element_size() > _SELECT_CHUNK_BYTES:
-        raise ValueError(f"rows of {dim * table.element_size()} bytes do not fit K2's staging")
-    out = torch.empty(cand3.shape, dtype=torch.float32, device=table.device)
+    out = torch.empty_like(cand3, dtype=torch.float32)
+    scratch = query_groups.scratch(qvecs_t.shape[1], out.numel(), table.device)
     _build.bind("stream_select", _SELECT_ARGS)(
         table.data_ptr(),
         _DTYPE_CODE[table.dtype],
@@ -291,6 +315,9 @@ def stream_select(
         r,
         dim,
         int(precision == "fast"),
+        scratch.data_ptr(),
+        DENSE_ITEM_SLOTS,
+        dense_max_items(qvecs_t.shape[1], out.numel()),
         device,
         stream,
     )

@@ -23,10 +23,11 @@ bf16, ``"fast"`` rounds codewords and query.  Padding slots carry
 Each wrapper launches its hand-written CUDA kernel (``csrc/*.cu``) for CUDA
 tensors and runs its plain PyTorch version only for CPU tensors.  On the
 card both kernels are query-major (``csrc/adc_lut.cuh``): one call groups
-the slots by query, cuts each query's slots into work items of at most
-``ADC_ITEM_SLOTS`` slots, builds each query's lookup table once, and scores
-every item from its query's table staged in shared memory.  The wrapper
-sizes the grouping's scratch (:func:`adc_scratch_words`) and the tables'
+the slots by query (``csrc/query_groups.cuh``, shared with K1 and K2),
+cuts each query's slots into work items of at most ``ADC_ITEM_SLOTS``
+slots, builds each query's lookup table once, and scores every item from
+its query's table staged in shared memory.  The wrapper sizes the
+grouping's scratch (:func:`adc_scratch_words`) and the tables'
 (:func:`adc_table_queries`), and bounds the number of items
 (:func:`adc_max_items`).
 """
@@ -35,7 +36,7 @@ import ctypes
 
 import torch
 
-from fastforward_tpu_torch.ops import _build
+from fastforward_tpu_torch.ops import _build, query_groups
 
 #: rows per code tile (the layout's tile granularity)
 KERNEL_PQ_TILE_ROWS = 512
@@ -83,20 +84,14 @@ _SELECT_ARGS = (
 )
 
 
-def adc_scratch_words(qb: int, n_slots: int) -> int:
-    """64-bit words of the query-major kernels' grouping scratch: a cursor
-    per query, the slot and work-item offsets (``qb + 1`` each) and the
-    slots in query order."""
-    return 3 * qb + 2 + n_slots
+#: 64-bit words of the grouping scratch (:func:`query_groups.scratch_words`)
+adc_scratch_words = query_groups.scratch_words
 
 
 def adc_max_items(qb: int, n_slots: int) -> int:
-    """A bound on the work items of ``n_slots`` slots over ``qb`` queries:
-    a query with ``c`` slots takes ``ceil(c / ADC_ITEM_SLOTS)``, at most
-    ``c // ADC_ITEM_SLOTS + 1`` items, and at most ``min(qb, n_slots)``
-    queries own slots.  The score kernel launches this many blocks; those
-    past the last item leave at once."""
-    return n_slots // ADC_ITEM_SLOTS + min(qb, n_slots)
+    """A bound on the work items of ``n_slots`` slots over ``qb`` queries
+    at ``ADC_ITEM_SLOTS`` slots an item (:func:`query_groups.max_items`)."""
+    return query_groups.max_items(qb, n_slots, ADC_ITEM_SLOTS)
 
 
 def adc_table_queries(qb: int, m: int) -> int:
@@ -110,7 +105,7 @@ def _launch_adc(name, argtypes, head, qb, m, n_slots, device, stream) -> None:
     """Allocate the query-major kernels' scratch (grouping words and lookup
     tables) and call ``ff_<name>`` with ``(*head, scratch, item slots, item
     bound, tables, table queries, device, stream)``."""
-    scratch = torch.empty(adc_scratch_words(qb, n_slots), dtype=torch.int64, device=device)
+    scratch = query_groups.scratch(qb, n_slots, device)
     groups = adc_table_queries(qb, m)
     tables = torch.empty(groups * m * _TABLE_WIDTH, dtype=torch.float32, device=device)
     _build.bind(name, argtypes)(
@@ -182,7 +177,7 @@ def stream_select_pq_pairwise(
         (("codes", codes), ("codebooks", codebooks), ("qvecs", qvecs), ("cand3", cand3),
          ("tile_idx", tile_idx))
     )
-    out = torch.empty(cand3.shape, dtype=torch.float32, device=codes.device)
+    out = torch.empty_like(cand3, dtype=torch.float32)
     m, ks, ds = codebooks.shape
     head = (
         codes.data_ptr(), m, codebooks.data_ptr(), ks, ds, qvecs.data_ptr(), cand3.data_ptr(),
@@ -230,7 +225,7 @@ def stream_select_pq(
     device, stream = _build.cuda_target(
         (("codes", codes), ("codebooks", codebooks), ("cand3", cand3), ("tile_idx", tile_idx))
     )
-    out = torch.empty(cand3.shape, dtype=torch.float32, device=codes.device)
+    out = torch.empty_like(cand3, dtype=torch.float32)
     m, ks, ds = codebooks.shape
     head = (
         codes.data_ptr(), m, codebooks.data_ptr(), ks, ds, qvecs_t.data_ptr(),

@@ -32,7 +32,29 @@ def cuda():
     return torch.device("cuda")
 
 
-def _kernel_inputs(table_kind: str, seed: int, device):
+#: streamed layouts of the query-major kernels' card tests: random rows and
+#: queries; every slot (padding too) on one query (``Qb = 1``); half-full
+#: tiles, so that half of the slots pad on query ``Qb - 1`` as in the
+#: flagship layouts; random rows over 5,000 queries (the grouping bins them
+#: in three windows)
+LAYOUTS = ["uniform", "one_query", "half_padding", "many_queries"]
+
+
+def _layout(rng, layout: str, cap: int):
+    """``(qb, cand3, tile_idx)`` of a streamed layout at ``cap`` (numpy)."""
+    qb = {"one_query": 1, "many_queries": 5000}.get(layout, QB)
+    if layout == "half_padding":
+        p = N_PAD // sk.KERNEL_TILE_ROWS * cap // 2
+    else:
+        p = 6000 if cap > 512 else P
+    rows = rng.integers(0, N_PAD, size=p)
+    qno = rng.integers(0, qb, size=p)
+    cand, tile_idx, _ = scoring.build_streamed_layout(rows, qno, N_PAD, qb, cap=cap)
+    return qb, cand.reshape(cand.shape[0], cap // 128, 128), tile_idx
+
+
+def _kernel_inputs(table_kind: str, seed: int, device, layout="uniform", cap=512):
+    """Table, queries and a streamed layout for K1 (``cap <= r``) or K2."""
     rng = np.random.default_rng(seed)
     if table_kind == "int8":
         table = torch.from_numpy(rng.integers(-127, 128, size=(N_PAD, DIM // 128, 128)).astype(np.int8))
@@ -40,28 +62,29 @@ def _kernel_inputs(table_kind: str, seed: int, device):
         table = torch.from_numpy(rng.standard_normal((N_PAD, DIM), dtype=np.float32))
         if table_kind == "bf16":
             table = table.to(torch.bfloat16)
-    q = torch.from_numpy(rng.standard_normal((QB, DIM), dtype=np.float32))
-    rows = rng.integers(0, N_PAD, size=P)
-    qno = rng.integers(0, QB, size=P)
-    cap = scoring._adaptive_cap(P, N_PAD // sk.KERNEL_TILE_ROWS)
-    cand, tile_idx, _ = scoring.build_streamed_layout(rows, qno, N_PAD, QB, cap=cap)
-    cand3 = torch.from_numpy(cand.reshape(cand.shape[0], cap // 128, 128))
-    return [t.to(device) for t in (table, q, cand3, torch.from_numpy(tile_idx))]
+    qb, cand3, tile_idx = _layout(rng, layout, cap)
+    q = torch.from_numpy(rng.standard_normal((qb, DIM), dtype=np.float32))
+    return [t.to(device) for t in (table, q, torch.from_numpy(cand3), torch.from_numpy(tile_idx))]
 
 
+@pytest.mark.parametrize("layout", LAYOUTS)
 @pytest.mark.parametrize("exact", [True, False], ids=["exact", "fast"])
 @pytest.mark.parametrize("table_kind", ["fp32", "bf16", "int8"])
-def test_cuda_kernel_matches_plain(cuda, table_kind, exact):
+def test_cuda_kernel_matches_plain(cuda, table_kind, exact, layout):
     """The CUDA kernel against the plain version on the same card tensors:
     the same products summed in another fp32 order (atol 1e-4, rtol 1e-5;
-    atol 1e-3 for int8, as ``tests/test_stream_kernel.py:84,159``)."""
-    args = _kernel_inputs(table_kind, 11, cuda)
+    atol 1e-3 for int8, as ``tests/test_stream_kernel.py:84,159``; and
+    within the sum-order tolerance)."""
+    args = _kernel_inputs(table_kind, 11, cuda, layout)
     before = sk.stream_select_pairwise.launches
     got = sk.stream_select_pairwise(*args, exact=exact)
     assert sk.stream_select_pairwise.launches == before + 1
     want = sk.stream_select_pairwise_plain(*args, exact=exact)
     atol = 1e-3 if table_kind == "int8" else 1e-4
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=atol, rtol=1e-5)
+    table, q, cand3, tile_idx = args
+    absdot = sk.stream_select_pairwise_plain(table.abs(), q.abs(), cand3, tile_idx, exact=exact)
+    _assert_within_sum_order(got, want, absdot, DIM, atol=atol)
 
 
 def test_cuda_wrapper_rejects_strided_tables(cuda):
@@ -114,57 +137,56 @@ def test_cuda_index_matches_cpu_index(cuda, precision):
 M_PQ, KS, DS = 32, 256, 8
 
 
+@pytest.mark.parametrize("layout", LAYOUTS)
 @pytest.mark.parametrize("precision", ["exact", "high", "fast"])
 @pytest.mark.parametrize("table_kind", ["fp32", "bf16", "int8"])
-def test_cuda_k2_matches_plain(cuda, table_kind, precision):
+def test_cuda_k2_matches_plain(cuda, table_kind, precision, layout):
     """K2 against its plain version at cap > r (1024 slots per 512-row
     tile): the same products summed in another fp32 order (atol 1e-4,
-    rtol 1e-5; atol 1e-3 for int8)."""
-    rng = np.random.default_rng(12)
-    table, q, _, _ = _kernel_inputs(table_kind, 12, cuda)
-    rows = rng.integers(0, N_PAD, size=6000)
-    qno = rng.integers(0, QB, size=6000)
-    cand, tile_idx, _ = scoring.build_streamed_layout(rows, qno, N_PAD, QB, cap=1024)
-    cand3 = torch.from_numpy(cand.reshape(cand.shape[0], 8, 128)).to(cuda)
-    tile_idx = torch.from_numpy(tile_idx).to(cuda)
+    rtol 1e-5; atol 1e-3 for int8; and within the sum-order tolerance)."""
+    table, q, cand3, tile_idx = _kernel_inputs(table_kind, 12, cuda, layout, cap=1024)
     before = sk.stream_select.launches
     got = sk.stream_select(table, q.t(), cand3, tile_idx, precision=precision)
     assert sk.stream_select.launches == before + 1
     want = sk.stream_select_plain(table, q.t(), cand3, tile_idx, precision=precision)
     atol = 1e-3 if table_kind == "int8" else 1e-4
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=atol, rtol=1e-5)
+    absdot = sk.stream_select_plain(table.abs(), q.abs().t(), cand3, tile_idx, precision=precision)
+    _assert_within_sum_order(got, want, absdot, DIM, atol=atol)
+
+
+def test_cuda_k2_takes_wide_rows(cuda):
+    """K2 holds only its query in shared memory, so rows of any width run:
+    here fp32 rows of 16 KB (dim 4096)."""
+    rng = np.random.default_rng(17)
+    dim = 4096
+    table = torch.from_numpy(rng.standard_normal((N_PAD, dim // 128, 128), dtype=np.float32)).to(cuda)
+    qb, cand3, tile_idx = _layout(rng, "half_padding", 1024)
+    q = torch.from_numpy(rng.standard_normal((qb, dim), dtype=np.float32)).to(cuda)
+    cand3, tile_idx = torch.from_numpy(cand3).to(cuda), torch.from_numpy(tile_idx).to(cuda)
+    got = sk.stream_select(table, q.t(), cand3, tile_idx)
+    want = sk.stream_select_plain(table, q.t(), cand3, tile_idx)
+    absdot = sk.stream_select_plain(table.abs(), q.abs().t(), cand3, tile_idx)
+    _assert_within_sum_order(got, want, absdot, dim, atol=1e-3)
 
 
 def _pq_inputs(cap: int, seed: int, device, m=M_PQ, ks=KS, ds=DS, layout="uniform"):
-    """Codes, codebooks, queries and a streamed layout at ``cap``.
-
-    ``layout``: ``"uniform"`` (random rows and queries), ``"one_query"``
-    (``Qb = 1``: every slot, padding too, on one query) or
-    ``"half_padding"`` (half-full tiles: half of the slots pad on query
-    ``Qb - 1``, as in the flagship layouts) or ``"many_queries"`` (``Qb =
-    5000``: the grouping bins the queries in three windows)."""
+    """Codes, codebooks, queries and a streamed layout (one of ``LAYOUTS``)
+    at ``cap``."""
     rng = np.random.default_rng(seed)
     codes = rng.integers(0, ks, size=(N_PAD, m)).astype(np.uint8)
     cb = rng.standard_normal((m, ks, ds), dtype=np.float32)
-    qb = {"one_query": 1, "many_queries": 5000}.get(layout, QB)
+    qb, cand3, tile_idx = _layout(rng, layout, cap)
     q = rng.standard_normal((qb, m * ds), dtype=np.float32)
-    if layout == "half_padding":
-        p = N_PAD // skpq.KERNEL_PQ_TILE_ROWS * cap // 2
-    else:
-        p = 6000 if cap > 512 else P
-    rows = rng.integers(0, N_PAD, size=p)
-    qno = rng.integers(0, qb, size=p)
-    cand, tile_idx, _ = scoring.build_streamed_layout(rows, qno, N_PAD, qb, cap=cap)
-    cand3 = cand.reshape(cand.shape[0], cap // 128, 128)
     return [torch.from_numpy(a).to(device) for a in (codes, cb, q, cand3, tile_idx)]
 
 
-def _assert_within_sum_order(got, want, absdot, dim):
+def _assert_within_sum_order(got, want, absdot, dim, atol=1e-4):
     """Two fp32 sums of the same products in different orders: the error
     grows like ``sqrt(dim) * 2^-24 * sum|terms|``, with a factor 8 of
-    headroom (``chip_smoke.sum_order_tol``); and within atol 1e-4, rtol
+    headroom (``chip_smoke.sum_order_tol``); and within ``atol``, rtol
     1e-5."""
-    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=1e-4, rtol=1e-5)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=atol, rtol=1e-5)
     tol = 8.0 * dim**0.5 * 2.0**-24 * absdot
     err = (got - want).abs()
     assert bool(torch.isfinite(got).all())
@@ -177,7 +199,7 @@ def _assert_within_sum_order(got, want, absdot, dim):
 PQ_SHAPES = [(32, 256, 8), (24, 256, 32), (96, 16, 8), (96, 256, 8), (384, 256, 2), (6, 16, 128)]
 
 
-@pytest.mark.parametrize("layout", ["uniform", "one_query", "half_padding", "many_queries"])
+@pytest.mark.parametrize("layout", LAYOUTS)
 @pytest.mark.parametrize("shape", PQ_SHAPES, ids=lambda s: "m%d_ks%d" % s[:2])
 @pytest.mark.parametrize("precision", ["exact", "high", "fast"])
 def test_cuda_k3_k4_match_plain(cuda, precision, shape, layout):

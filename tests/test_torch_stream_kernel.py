@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from fastforward_tpu.ops import stream_kernel as jsk
-from fastforward_tpu_torch.ops import scoring
+from fastforward_tpu_torch.ops import query_groups, scoring
 from fastforward_tpu_torch.ops import stream_kernel as sk
 
 N_PAD, DIM, QB, P = 4096, 256, 16, 3000
@@ -266,3 +266,51 @@ def test_k2_rejects_bad_inputs(case):
         ti = ti[:-1]
     with pytest.raises(err):
         sk.stream_select(t, qt, c, ti, **kw)
+
+
+# -- the query-major kernels' sizing on K1's and K2's layouts -------------------
+
+
+def _random_slots(rng, shape, qb: int, depth: int) -> np.ndarray:
+    """``shape`` slots padding on ``qb - 1``, ``depth`` of them for each
+    query at random places (the flagship runs' 1,000 pairs a query)."""
+    cand3 = np.full(shape, qb - 1, dtype=np.int32)
+    real = np.repeat(np.arange(qb, dtype=np.int32), depth)
+    cand3.reshape(-1)[rng.choice(cand3.size, size=real.size, replace=False)] = real
+    return cand3
+
+
+@pytest.mark.parametrize("layout", ["flagship", "dense_tiles", "one_query", "half_padding", "many_queries"])
+def test_dense_work_items_fit_the_launch(layout):
+    """K1's and K2's query-major kernels launch ``dense_max_items`` blocks
+    and need ``query_groups.scratch_words`` words of scratch: the bound holds
+    every query's ``ceil(slots / DENSE_ITEM_SLOTS)`` items, the padding
+    query's slots are cut into many items rather than one, and a call's
+    slots fit the grouping's 32-bit slot indices."""
+    rng = np.random.default_rng(8)
+    if layout == "flagship":  # K1 at N = 2M: 4096 x 256 slots, 512 x 1000 pairs
+        qb, cand3 = 512, _random_slots(rng, (4096, 2, 128), 512, 1000)
+    elif layout == "dense_tiles":  # K2 at N = 262,144: 1024 x 1024 slots
+        qb, cand3 = 512, _random_slots(rng, (1024, 8, 128), 512, 1000)
+    else:
+        qb = {"one_query": 1, "many_queries": 5000}.get(layout, QB)
+        cap = 1024
+        p = N_PAD // R * cap // 2 if layout == "half_padding" else SELECT_P
+        rows = rng.integers(0, N_PAD, size=p)
+        qno = rng.integers(0, qb, size=p)
+        cand, _, _ = scoring.build_streamed_layout(rows, qno, N_PAD, qb, r=R, cap=cap)
+        cand3 = cand.reshape(cand.shape[0], cap // 128, 128)
+    n = cand3.size
+    counts = np.bincount(cand3.reshape(-1) % qb, minlength=qb)
+    items = -(-counts // sk.DENSE_ITEM_SLOTS)
+    assert items.sum() <= sk.dense_max_items(qb, n) < 2**31
+    assert query_groups.scratch_words(qb, n) == 3 * qb + 2 + n
+    assert n < 2**32
+    pad_slots = int((cand3 % qb == qb - 1).sum())
+    assert items[qb - 1] == -(-pad_slots // sk.DENSE_ITEM_SLOTS)
+    if layout in ("flagship", "dense_tiles"):
+        # over half the slots pad, cut into ~524 items; the 512 real
+        # queries' ~1,000 slots take one item each
+        assert pad_slots > n // 2 and items[qb - 1] > 256
+        assert items[: qb - 1].max() == 1
+        assert items.sum() <= 1100 and sk.dense_max_items(qb, n) == 1536
