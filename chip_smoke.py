@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""GPU smoke run of fastforward_tpu_torch: kernels, re-rank and fused serve.
+"""GPU smoke run of fastforward_tpu_torch: kernels, re-rank, fused serve,
+document ranking and early stopping.
 
 Run from the repository root on a machine with one NVIDIA GPU::
 
@@ -20,20 +21,44 @@ Phases, each of which must pass (any failure exits non-zero):
 3. re-rank at the flagship shape (N = 2,000,000 passages, dim 768, fp32,
    Q = 512 queries x depth 1000, ``Mode.PASSAGE``, precision ``"high"``):
    one cold and several warm ``index(ranking)`` calls, 32 queries checked
-   against float64 dots;
+   against float64 dots.  The index also holds doc ids: runs of 1-7
+   passages a document drawn from the seed (about 500,000 documents);
 4. fused serve at the same shape: ``serve(ranking, 0.2, 10, refine=22)``
    and ``serve(ranking, 0.2, 10)``, top-10 ids and scores checked against
    the exact interpolated top-10 of 32 queries;
 5. a sparse ranking (the gather-dot branch) and a bf16 table at
    N = 262,144, checked the same way;
+12. document modes on the same index: Q = 512 x depth 1000 documents
+    (512,000 pairs, K = 8, ~2.05M real rows in ~4.1M slots at cap 1024):
+    ``Mode.MAXP`` one cold and 5 warm re-ranks, ``serve(ranking, 0.2,
+    10)`` and ``serve(..., refine=22)`` (refine is inactive for K > 1);
+    ``Mode.AVEP`` and ``Mode.FIRSTP`` a cold and 5 warm re-ranks each; 32
+    queries checked against the float64 max, mean or first of each
+    document's passages; must launch K1 and no other kernel; then the
+    device memory of one warm MAXP serve;
+14. early stopping on the passage index and run: ``index(ranking,
+    early_stopping=10, early_stopping_alpha=0.2,
+    early_stopping_depths=(200, 1000, 5000))`` cold (a fresh ranking per
+    call) and warm (the same ranking, served from its cached scores),
+    ``serve(ranking, 0.2, 10, early_stopping_depths=(200, 1000))``, and the
+    alpha sweep (Q = 64 x depth 5000, depths (500, 5000), alphas
+    0.1-0.9, timed after one warm-up pass); every returned score checked
+    against float64, and the 32 checked queries' result against the
+    port's on a ``device="cpu"`` index of only their candidates' rows (a
+    query whose rows differ is printed with its stop margin and fails
+    above the tolerance); must launch K1;
 6. K1 against its plain version on the main path's own inputs, for fp32,
    bf16 and int8 tables in both tiers, timed, back to back and in one
    traced call split by kernel; beside it, the query-major body (K2's
    entry) on the same fp32 layout, which K1's fp32 branch does not use;
+   and K1 fp32 on phase 12's MAXP layout, and on its pairs' real rows
+   without the K-padding;
 7. int8 at full width: ``ScalarQuantizer`` fitted on the first 2^16
    vectors of the same corpus, precision ``"high"``: a cold and 5 warm
    re-ranks and the fused serve, checked against float64 dots of the
-   decoded rows; must launch K1 and no K2;
+   decoded rows; must launch K1 and no K2; then phase 13 for int8: the
+   same in ``Mode.MAXP`` on phase 12's run, checked against float64 of
+   the decoded rows; must launch K2 (cap 1024 > r) and no K1;
 8. int8 with dense tiles: the first 262,144 rows with their own 512 x 1000
    run (cap 1024 > r = 512); must launch K2 and no K1; then the device
    memory of one warm serve (peak, and K2's grouping scratch);
@@ -43,17 +68,22 @@ Phases, each of which must pass (any failure exits non-zero):
    CPU on clustered data and their codes compared, and after the encode
    4,096 of the card's codes are compared with a CPU encode (the float64
    references are built from the card's codes, so they alone would not
-   catch a wrong fit or encode);
+   catch a wrong fit or encode); then phase 13 for PQ: ``Mode.MAXP`` on
+   phase 12's run, checked the same way; must launch K4 (cap 1024 > r);
 10. OPQ with dense tiles: ``OPQ(96, 256)`` on the 262,144 rows and their
     run, checked against float64 ``(q @ R) . decode`` and, like PQ, 4,096
     of its codes against a CPU encode; must launch K4; then the device
     memory of one warm serve (peak, and K4's grouping scratch);
 11. K2, K3 and K4 against their plain versions on the layouts of phases 8,
-    9 and 10, timed (every launch of one wrapper call), with their bounds;
-    one traced call of each splits its time by kernel (memset, grouping,
-    scoring), and each is timed back to back.
+    9, 10 and 13 (K2 int8 and K4 PQ in ``Mode.MAXP``), timed (every launch
+    of one wrapper call), with their bounds; one traced call of each
+    splits its time by kernel (memset, grouping, scoring), and each is
+    timed back to back.
 
-After phases 4 and 7-10, one warm call of each flow runs under
+The phases run in the order 1-5, 12, 14, 6-11 (phase 13 inside 7 and 9,
+while their indexes exist).  After phases 12 (for 4 and 12 together),
+14 and 7-10, one warm call of each flow (and one cold early-stopping call)
+runs under
 ``torch.profiler`` (device busy time, idle share, largest device items;
 ``None`` where no complete trace was taken, or where the traced kernel took
 under half its CUDA-event time of phases 6 and 11); those launches are
@@ -87,6 +117,16 @@ WARM_CALLS = 5
 TIMED_LAUNCHES = 25
 BF16_N = 262_144
 SPARSE_QUERIES, SPARSE_DEPTH = 32, 100  # 3,200 pairs: n_pairs * 500 <= N
+DOC_MAX_PSGS = 7  # passages per document: 1..7 (bench.py config #2)
+#: early stopping on the flagship run (bench.py:1061-1099) and its alpha
+#: sweep (bench.py:833-880): Q x depth, depths, alphas
+ES_KWARGS = {"early_stopping": CUTOFF, "early_stopping_alpha": ALPHA,
+             "early_stopping_depths": (200, 1000, 5000)}
+ES_SERVE_DEPTHS = (200, 1000)
+ES_COLD_CALLS = 3
+SWEEP_QUERIES, SWEEP_DEPTH, SWEEP_DEPTHS = 64, 5000, (500, 5000)
+SWEEP_ALPHAS = (0.1, 0.3, 0.5, 0.7, 0.9)
+SWEEP_PASSES = 3
 
 #: published H100 rates by part (NVIDIA data sheets): memory bytes/s and
 #: fp32 (non-tensor) flop/s
@@ -219,6 +259,30 @@ def make_workload(n: int, num_queries: int, depth: int, seed: int):
     return corpus, qvecs, run, queries
 
 
+def make_doc_ids(n: int, seed: int):
+    """Document ids for ``n`` passages: runs of 1-7 passages a document
+    drawn from the seed, as ``bench.py:make_doc_workload`` draws them, the
+    last run cut to fit.  Returns ``(counts, starts, doc_ids)``."""
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(1, DOC_MAX_PSGS + 1, size=n)
+    counts = counts[: int(np.searchsorted(np.cumsum(counts), n)) + 1]
+    counts[-1] -= counts.sum() - n
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    doc_ids = [f"d{d}" for d, c in enumerate(counts.tolist()) for _ in range(c)]
+    return counts, starts, doc_ids
+
+
+def make_run(n_ids: int, prefix: str, num_queries: int, depth: int, seed: int) -> dict:
+    """A TREC-style run: ``depth`` ids (``<prefix><n>``, drawn without
+    replacement from ``n_ids``) per query, lexical scores ``depth - rank``."""
+    rng = np.random.default_rng(seed)
+    return {
+        f"q{q}": {f"{prefix}{c}": float(depth - i)
+                  for i, c in enumerate(rng.choice(n_ids, size=depth, replace=False))}
+        for q in range(num_queries)
+    }
+
+
 def k1_bound(table, q, cand3, tile_idx, dim, r, rates) -> dict:
     """Least time for K1's (or K2's) work on these inputs: the rows the
     slots need, the queries, slots, tile indices and outputs each moved
@@ -275,31 +339,78 @@ def stream_bound(row_bytes, extra_bytes, q, cand3, tile_idx, r, flops_of, rates)
     }
 
 
-def check_rerank(result, corpus_dev, qvecs_dev, q_index, dim, what):
-    """Scores of ``CHECK_QUERIES`` queries against float64 dots on the card."""
+def passage_exact(rows_ref, qvecs_dev, q_index, dim):
+    """``exact(q, ids) -> (float64 scores, tolerances)`` of passage ids
+    (``p<row>``) against query ``q``: the dots of ``rows_ref`` rows (a card
+    tensor, or decoded quantized rows) and the sum-order tolerance."""
+
+    def exact(q, ids):
+        rows = torch.from_numpy(np.array([int(p[1:]) for p in ids], dtype=np.int64)).cuda()
+        prods = rows_ref[rows].double() * qvecs_dev[q_index[q]].double()
+        return prods.sum(-1), sum_order_tol(prods.abs().sum(-1), dim)
+
+    return exact
+
+
+def doc_exact(rows_ref, qvecs_dev, q_index, counts, starts, op, dim):
+    """The same for document ids (``d<doc>``): the float64 max, mean or
+    first of the dots of each document's passages (documents are runs of
+    ``counts`` rows from ``starts``).  The tolerance is the largest
+    passage's sum-order tolerance for max, the first's for first, and for a
+    mean of k fp32 scores their mean tolerance plus the fp32 sum and
+    division, ``2 (k + 1) 2^-24 mean|score|``."""
+
+    def exact(q, ids):
+        docs = np.array([int(d[1:]) for d in ids], dtype=np.int64)
+        cnt = np.ones_like(docs) if op == "first" else counts[docs]
+        seg = np.repeat(np.arange(docs.shape[0]), cnt)
+        rows = np.repeat(starts[docs], cnt) + (np.arange(seg.shape[0]) - np.repeat(np.cumsum(cnt) - cnt, cnt))
+        prods = rows_ref[torch.from_numpy(rows).cuda()].double() * qvecs_dev[q_index[q]].double()
+        dots, tol_row = prods.sum(-1), sum_order_tol(prods.abs().sum(-1), dim)
+        seg_t = torch.from_numpy(seg).cuda()
+        n = docs.shape[0]
+        if op == "max":
+            ref = torch.full((n,), -torch.inf, dtype=torch.float64, device="cuda")
+            ref = ref.scatter_reduce(0, seg_t, dots, "amax")
+            tol = torch.zeros(n, dtype=torch.float64, device="cuda").scatter_reduce(0, seg_t, tol_row, "amax")
+            return ref, tol
+        if op == "first":
+            return dots, tol_row
+        k = torch.from_numpy(cnt).cuda().double()
+        total = torch.zeros(n, dtype=torch.float64, device="cuda")
+        mean = total.index_add(0, seg_t, dots) / k
+        tol = total.index_add(0, seg_t, tol_row) / k
+        tol = tol + 2.0 * (k + 1) * 2.0**-24 * total.index_add(0, seg_t, dots.abs()) / k
+        return mean, tol
+
+    return exact
+
+
+def check_rerank(result, exact, what, queries=CHECK_QUERIES):
+    """Every score of the first ``queries`` queries (``q0``, ``q1``, ...)
+    against ``exact`` (``passage_exact`` / ``doc_exact``)."""
     df = result._df
     check(len(df) > 0, f"{what}: empty result")
     scores = df["score"].to_numpy(dtype=np.float64)
     check(bool(np.isfinite(scores).all()), f"{what}: non-finite scores")
     qid = df["q_id"].astype(str).to_numpy()
     ids = df["id"].astype(str).to_numpy()
-    sel = np.isin(qid, [f"q{i}" for i in range(CHECK_QUERIES)])
-    rows = torch.from_numpy(np.array([int(p[1:]) for p in ids[sel]])).cuda()
-    qn = torch.from_numpy(np.array([q_index[q] for q in qid[sel]])).cuda()
-    a = corpus_dev[rows].double()
-    b = qvecs_dev[qn].double()
-    ref = (a * b).sum(-1)
-    tol = sum_order_tol((a * b).abs().sum(-1), dim)
-    got = torch.from_numpy(scores[sel]).cuda()
-    err = (got - ref).abs()
-    check(bool((err <= tol).all()), f"{what}: max err {err.max().item()} vs float64 dots")
-    log(f"  {what}: {int(sel.sum())} pairs of {CHECK_QUERIES} queries match float64 dots "
-        f"(max err {err.max().item():.3e})")
+    worst, n_pairs = 0.0, 0
+    for qi in range(queries):
+        sel = qid == f"q{qi}"
+        if not sel.any():
+            continue
+        ref, tol = exact(f"q{qi}", ids[sel])
+        err = (torch.from_numpy(scores[sel]).cuda() - ref).abs()
+        check(bool((err <= tol).all()), f"{what}: q{qi} max err {err.max().item()} vs float64")
+        worst, n_pairs = max(worst, err.max().item()), n_pairs + int(sel.sum())
+    log(f"  {what}: {n_pairs} pairs of {queries} queries match float64 (max err {worst:.3e})")
 
 
-def check_serve(result, rows_dev, qvecs_dev, q_index, run, dim, what):
-    """Top-``CUTOFF`` ids and exact fp32 scores, for the first
-    ``CHECK_QUERIES`` queries of ``run``, against float64 interpolation."""
+def check_serve(result, run, exact, what):
+    """Top-``CUTOFF`` ids and scores, for the first ``CHECK_QUERIES``
+    queries of ``run``, against the float64 interpolation of ``exact``'s
+    scores."""
     df = result._df
     want_rows = sum(min(CUTOFF, len(c)) for c in run.values())
     check(len(df) == want_rows, f"{what}: {len(df)} rows, want {want_rows}")
@@ -309,28 +420,95 @@ def check_serve(result, rows_dev, qvecs_dev, q_index, run, dim, what):
     worst = 0.0
     for q in list(run)[:CHECK_QUERIES]:
         cand = list(run[q].items())
-        rows = torch.tensor([int(p[1:]) for p, _ in cand], device="cuda")
+        sem, sem_tol = exact(q, [p for p, _ in cand])
         lex = torch.tensor([s for _, s in cand], device="cuda", dtype=torch.float64)
-        prods = rows_dev[rows].double() * qvecs_dev[q_index[q]].double()
-        interp = ALPHA * lex + (1 - ALPHA) * prods.sum(-1)
-        # the dot's reordering error, plus the fp32 interpolation's rounding
-        tol = (1 - ALPHA) * sum_order_tol(prods.abs().sum(-1), dim) + interp.abs() * 2.0**-22
-        exact = dict(zip((p for p, _ in cand), interp.tolist()))
+        interp = ALPHA * lex + (1 - ALPHA) * sem
+        # the semantic score's error, plus the fp32 interpolation's rounding
+        tol = (1 - ALPHA) * sem_tol + interp.abs() * 2.0**-22
+        exact_of = dict(zip((p for p, _ in cand), interp.tolist()))
         tol_of = dict(zip((p for p, _ in cand), tol.tolist()))
         got = by_q.get(q, [])
         check(len(got) == min(CUTOFF, len(cand)), f"{what}: {q} has {len(got)} results")
         for pid, score in got:
-            worst = max(worst, abs(score - exact[pid]))
-            check(abs(score - exact[pid]) <= tol_of[pid],
-                  f"{what}: {q} {pid} score {score} vs exact {exact[pid]}")
-        want = sorted(exact, key=exact.get, reverse=True)[:CUTOFF]
-        floor = min(exact[p] for p, _ in got)
+            worst = max(worst, abs(score - exact_of[pid]))
+            check(abs(score - exact_of[pid]) <= tol_of[pid],
+                  f"{what}: {q} {pid} score {score} vs exact {exact_of[pid]}")
+        want = sorted(exact_of, key=exact_of.get, reverse=True)[:CUTOFF]
+        floor = min(exact_of[p] for p, _ in got)
         for pid in set(want) - {p for p, _ in got}:
             # a miss is allowed only within rounding of the cut
-            check(exact[pid] - floor <= 2 * tol_of[pid],
+            check(exact_of[pid] - floor <= 2 * tol_of[pid],
                   f"{what}: {q} lost true top-{CUTOFF} candidate {pid}")
     log(f"  {what}: top-{CUTOFF} of {min(CHECK_QUERIES, len(run))} queries match the "
         f"exact ranking (max score err {worst:.3e})")
+
+
+def es_stop_margin(lex, sem, cutoff, alpha, depths) -> float:
+    """The least ``|bound - kth|`` over the stop decisions the early-stopping
+    loop takes for one query (``Index._early_stopping``), in float64 on
+    exact scores: how far its decisions were from flipping."""
+    interp = alpha * lex + (1 - alpha) * sem
+    n, a, best, margin = lex.shape[0], 0, -np.inf, np.inf
+    for b in sorted(depths):
+        if b < cutoff:
+            continue
+        if a:
+            scored = min(a, n)
+            kth = np.sort(interp[:scored])[::-1][min(scored, cutoff) - 1]
+            bound = alpha * lex[scored - 1] + (1 - alpha) * best
+            margin = min(margin, abs(bound - kth))
+            if not kth < bound:
+                break
+        if min(b, n) <= a:
+            break
+        best = max(best, sem[a : min(b, n)].max())
+        a = b
+    return margin
+
+
+def check_es_against_cpu(result, corpus, by_text, run, queries, exact, es_kwargs, what,
+                         serve_args=None):
+    """The early-stopping result of the first ``CHECK_QUERIES`` queries
+    against the port's own on a ``device="cpu"`` index holding only their
+    candidates' rows (re-rank, or ``serve(*serve_args)``).  Rows and scores
+    must agree; a query whose rows differ is printed with its stop margin,
+    and fails when that margin is over twice its largest interpolated score
+    tolerance (only a decision closer than the scores' error may flip)."""
+    from fastforward_tpu_torch import InMemoryIndex, Mode, Ranking
+    from fastforward_tpu_torch.encoder import LambdaEncoder
+
+    sub = {q: run[q] for q in list(run)[:CHECK_QUERIES]}
+    rows = np.unique([int(p[1:]) for cands in sub.values() for p in cands])
+    cpu = InMemoryIndex(query_encoder=LambdaEncoder(by_text.__getitem__), mode=Mode.PASSAGE,
+                        precision="high", device="cpu")
+    cpu.add(corpus[rows], psg_ids=[f"p{r}" for r in rows])
+    ranking = Ranking.from_run(sub, queries={q: queries[q] for q in sub})
+    want = cpu.serve(ranking, *serve_args) if serve_args else cpu(ranking, **es_kwargs)
+    alpha, cutoff = es_kwargs["early_stopping_alpha"], es_kwargs["early_stopping"]
+    depths = es_kwargs["early_stopping_depths"]
+    got_df, want_df = result._df, want._df
+    differ = 0
+    for q in sub:
+        g = dict(zip(got_df.loc[got_df["q_id"] == q, "id"].astype(str), got_df.loc[got_df["q_id"] == q, "score"]))
+        w = dict(zip(want_df.loc[want_df["q_id"] == q, "id"].astype(str), want_df.loc[want_df["q_id"] == q, "score"]))
+        cand = list(sub[q].items())
+        sem, sem_tol = exact(q, [p for p, _ in cand])
+        lex = np.array([s for _, s in cand])
+        interp_tol = ((1 - alpha) * sem_tol.cpu().numpy()
+                      + np.abs(alpha * lex + (1 - alpha) * sem.cpu().numpy()) * 2.0**-22)
+        if set(g) != set(w):
+            differ += 1
+            margin = es_stop_margin(lex, sem.cpu().numpy(), cutoff, alpha, depths)
+            log(f"  {what}: {q} rows differ from the CPU's ({len(g)} vs {len(w)}); stop margin "
+                f"{margin:.3e}, tolerance {2 * interp_tol.max():.3e}")
+            check(margin <= 2 * interp_tol.max(), f"{what}: {q} differs from the CPU with margin {margin}")
+            continue
+        # the card's and the CPU's scores each lie within tolerance of float64
+        score_tol = interp_tol if serve_args else sem_tol.cpu().numpy()
+        tol_of = dict(zip((p for p, _ in cand), 2 * score_tol))
+        for pid, score in g.items():
+            check(abs(score - w[pid]) <= tol_of[pid], f"{what}: {q} {pid} {score} vs CPU {w[pid]}")
+    log(f"  {what}: {len(sub) - differ} of {len(sub)} queries equal the CPU index's result")
 
 
 def timed_calls(fn, n: int) -> tuple[float, list]:
@@ -344,7 +522,7 @@ def timed_calls(fn, n: int) -> tuple[float, list]:
     return float(np.median(times)), out
 
 
-def profile_flow(fn, kernels) -> dict:
+def profile_flow(fn, kernels, needs_copy: bool = True) -> dict:
     """One warm call under ``torch.profiler``: host wall time, the time the
     card spent in kernels and copies, the largest device items, and the
     host phases the index names (``ff.*`` ranges).
@@ -354,8 +532,10 @@ def profile_flow(fn, kernels) -> dict:
     traced window, for some windows and not others; padding the window with
     idle pauses did not stop it).  Every profiled flow launches the kernels
     of one wrapper call (``kernels``, one of ``CALL_KERNELS``; all of which
-    must show) and ends in a device-to-host copy of its result, so a trace
-    that lacks either is incomplete and is taken again, up to
+    must show) and ends in a device-to-host copy of its result
+    (``needs_copy``; a warm early-stopping call, served from its cached
+    scores, launches nothing and copies nothing), so a trace that lacks
+    either is incomplete and is taken again, up to
     ``PROFILE_TRIES`` times; ``tries`` says how many it took.  When no try
     gives a complete trace, ``complete`` is false and the card's busy time
     and idle share are ``None`` (not measured): an incomplete trace would
@@ -385,7 +565,7 @@ def profile_flow(fn, kernels) -> dict:
         port_ms = sum(ms for n, ms in by_name.items() if is_port_kernel(n))
         complete = (
             all(any(part in n for n in by_name) for part in kernels)
-            and any(n.startswith("Memcpy DtoH") for n in by_name)
+            and (not needs_copy or any(n.startswith("Memcpy DtoH") for n in by_name))
         )
         if complete:
             break
@@ -455,24 +635,39 @@ def back_to_back_ms(fn, n: int) -> float:
     return start.elapsed_time(end) / n
 
 
+#: the kernel variant (phases 6 and 11) whose CUDA-event time vets each
+#: profiled flow's trace
+FLOW_VARIANTS = {
+    "rerank": "K1 fp32 exact",
+    "serve_refine": "K1 fp32 fast",
+    "serve": "K1 fp32 exact",
+    "int8_rerank": "K1 int8 exact",
+    "int8_serve": "K1 int8 exact",
+    "int8_dense_rerank": "K2 int8 high",
+    "int8_dense_serve": "K2 int8 high",
+    "pq_rerank": "K3 pq exact",
+    "pq_serve": "K3 pq exact",
+    "opq_dense_rerank": "K4 opq exact",
+    "opq_dense_serve": "K4 opq exact",
+    "doc_maxp_rerank": "K1 fp32 doc exact",
+    "doc_maxp_serve": "K1 fp32 doc exact",
+    "int8_doc_maxp_rerank": "K2 int8 doc high",
+    "int8_doc_maxp_serve": "K2 int8 doc high",
+    "pq_doc_maxp_rerank": "K4 pq doc exact",
+    "pq_doc_maxp_serve": "K4 pq doc exact",
+}
+
+
 def vet_profiles(flows: dict, variants: dict) -> None:
     """Hold each complete trace's port-kernel time against the CUDA-event
     time of the same kernel, tier and layout (phases 6 and 11).  The
     profiler has kept a kernel item with a fraction of its time; a trace
     whose port kernel took under half the event time is marked incomplete,
-    and its busy time and idle share become ``None``."""
-    k1 = {(v["table"], v["exact"]): v["ms"] for v in variants["stream_select_pairwise"]}
-    event_ms = {
-        "rerank": k1["fp32", True],
-        "serve_refine": k1["fp32", False],
-        "serve": k1["fp32", True],
-        "int8_rerank": k1["int8", True],
-        "int8_serve": k1["int8", True],
-    }
-    for label, kname in (("int8_dense", "stream_select"), ("pq", "stream_select_pq_pairwise"),
-                         ("opq_dense", "stream_select_pq")):
-        event_ms[f"{label}_rerank"] = event_ms[f"{label}_serve"] = variants[kname][0]["ms"]
-    for flow, ms in event_ms.items():
+    and its busy time and idle share become ``None``.  The early-stopping
+    flows score layouts of their own each round and are not vetted."""
+    event = {row["variant"]: row["ms"] for rows in variants.values() for row in rows}
+    for flow, variant in FLOW_VARIANTS.items():
+        ms = event[variant]
         prof = flows[flow]["profile"]
         prof["kernel_event_ms"] = ms
         if prof["complete"] and prof["port_kernel_ms"] < 0.5 * ms:
@@ -718,19 +913,20 @@ def check_fit(cls, m: int, ks: int) -> float:
     return agree
 
 
-def add_in_chunks(index, vectors: np.ndarray, psg_ids: list, chunk: int = 1 << 18) -> None:
+def add_in_chunks(index, vectors: np.ndarray, psg_ids: list, doc_ids: "list | None" = None,
+                  chunk: int = 1 << 18) -> None:
     """Add (and so encode) the vectors in chunks, bounding the temporaries."""
     for lo in range(0, vectors.shape[0], chunk):
         part = vectors[lo : lo + chunk]
-        index.add(part, psg_ids=psg_ids[lo : lo + part.shape[0]])
+        hi = lo + part.shape[0]
+        index.add(part, psg_ids=psg_ids[lo:hi], doc_ids=None if doc_ids is None else doc_ids[lo:hi])
 
 
-def quantized_phase(label, index, ranking, run, rows_ref, q_ref, q_index, wrappers, want, forbid,
-                    kernels):
-    """Cold + warm re-ranks and the fused serve of a quantized index, each
-    checked against float64; the phase must launch ``want`` and no
-    ``forbid``, and a profile counts only with all of ``kernels`` (one of
-    ``CALL_KERNELS``).  Returns (flows, launches)."""
+def index_phase(label, index, ranking, wrappers, want, forbid, kernels, exact, run):
+    """Cold + warm re-ranks and the fused serve of ``index`` on ``ranking``,
+    each checked against float64 (``exact``, over ``run``); the phase must
+    launch ``want`` and no ``forbid``, and a profile counts only with all of
+    ``kernels`` (one of ``CALL_KERNELS``).  Returns (flows, launches)."""
     reset_counts(wrappers)
     t0 = time.perf_counter()
     cold = index(ranking)
@@ -738,7 +934,7 @@ def quantized_phase(label, index, ranking, run, rows_ref, q_ref, q_index, wrappe
     cold_ms = (time.perf_counter() - t0) * 1e3
     warm_ms, warm = timed_calls(lambda: index(ranking), WARM_CALLS)
     check(len(warm._df) == len(ranking._df), f"{label} re-rank lost pairs")
-    check_rerank(warm, rows_ref, q_ref, q_index, DIM, f"{label} re-rank")
+    check_rerank(warm, exact, f"{label} re-rank")
     check(cold == warm, f"{label}: cold and warm re-rank disagree")
     t0 = time.perf_counter()
     index.serve(ranking, ALPHA, CUTOFF)
@@ -746,7 +942,7 @@ def quantized_phase(label, index, ranking, run, rows_ref, q_ref, q_index, wrappe
     first_ms = (time.perf_counter() - t0) * 1e3
     serve_ms, served = timed_calls(lambda: index.serve(ranking, ALPHA, CUTOFF), WARM_CALLS)
     launches = read_counts(wrappers)
-    check_serve(served, rows_ref, q_ref, q_index, run, DIM, f"{label} serve")
+    check_serve(served, run, exact, f"{label} serve")
     check(launches[want] == 2 * (1 + WARM_CALLS),
           f"{label} launched {want} {launches[want]} times: {launches}")
     for name in forbid:
@@ -846,20 +1042,25 @@ def main() -> int:
     # -- 3. re-rank at the flagship shape ------------------------------------
     t0 = time.perf_counter()
     corpus, qvecs, run, queries = make_workload(N, QUERIES, DEPTH, SEED)
+    doc_counts, doc_starts, doc_ids = make_doc_ids(N, SEED + 3)
+    doc_run = make_run(doc_counts.shape[0], "d", QUERIES, DEPTH, SEED + 4)
     by_text = {f"query {i}": qvecs[i] for i in range(QUERIES)}
     q_index = {f"q{i}": i for i in range(QUERIES)}
     psg_ids = [f"p{i}" for i in range(N)]
     ranking = Ranking.from_run(run, queries=queries)
+    doc_rank = Ranking.from_run(doc_run, queries=queries)
     index = InMemoryIndex(
         query_encoder=LambdaEncoder(by_text.__getitem__),
         mode=Mode.PASSAGE,
         precision="high",
     )
-    index.add(corpus, psg_ids=psg_ids)
-    log(f"[setup] corpus {corpus.shape} fp32 + {len(ranking._df)} pairs built in "
-        f"{time.perf_counter() - t0:.1f} s")
+    index.add(corpus, doc_ids=doc_ids, psg_ids=psg_ids)
+    log(f"[setup] corpus {corpus.shape} fp32 in {doc_counts.shape[0]} documents of 1-"
+        f"{DOC_MAX_PSGS} passages + {len(ranking._df)} passage and {len(doc_rank._df)} document "
+        f"pairs built in {time.perf_counter() - t0:.1f} s")
     corpus_dev = torch.from_numpy(corpus).cuda()
     qvecs_dev = torch.from_numpy(qvecs).cuda()
+    exact_p = passage_exact(corpus_dev, qvecs_dev, q_index, DIM)
     launches = {}
 
     def k1_phase_launches(phase: str) -> int:
@@ -878,7 +1079,7 @@ def main() -> int:
     n_k1 = k1_phase_launches("rerank")
     check(n_k1 == 1 + WARM_CALLS, f"re-rank ran K1 {n_k1} times")
     check(len(warm._df) == len(ranking._df), "re-rank lost pairs")
-    check_rerank(warm, corpus_dev, qvecs_dev, q_index, DIM, "re-rank")
+    check_rerank(warm, exact_p, "re-rank")
     check(cold == warm, "cold and warm re-rank disagree")
     flows = {
         "rerank": {"cold_ms": cold_ms, "warm_ms": warm_ms, "qps": QUERIES / warm_ms * 1e3}
@@ -900,18 +1101,10 @@ def main() -> int:
         )
         n_k1 = k1_phase_launches(label)
         check(n_k1 == 1 + WARM_CALLS, f"{label} ran K1 {n_k1} times")
-        check_serve(served, corpus_dev, qvecs_dev, q_index, run, DIM, label)
+        check_serve(served, run, exact_p, label)
         flows[label] = {"first_ms": first_ms, "warm_ms": ms, "qps": QUERIES / ms * 1e3}
         log(f"[{label}] first {first_ms:.1f} ms, warm median {ms:.2f} ms, "
             f"{flows[label]['qps']:.1f} QPS, K1 launches {n_k1}")
-
-    for label, fn in (
-        ("rerank", lambda: index(ranking)),
-        ("serve_refine", lambda: index.serve(ranking, ALPHA, CUTOFF, refine=REFINE)),
-        ("serve", lambda: index.serve(ranking, ALPHA, CUTOFF)),
-    ):
-        flows[label]["profile"] = profile_flow(fn, CALL_KERNELS["pairwise"])
-        log(f"[profile {label}]", json.dumps(flows[label]["profile"]))
 
     # -- 5. sparse ranking and a bf16 table ----------------------------------
     sparse_run = {f"q{i}": dict(list(run[f"q{i}"].items())[:SPARSE_DEPTH]) for i in range(SPARSE_QUERIES)}
@@ -919,7 +1112,7 @@ def main() -> int:
     check(len(sparse._df) * scoring.STREAM_DENSITY <= index._device_view().table.shape[0],
           "the sparse ranking would stream")
     reset_counts(wrappers)
-    check_rerank(index(sparse), corpus_dev, qvecs_dev, q_index, DIM, "sparse re-rank")
+    check_rerank(index(sparse), exact_p, "sparse re-rank")
     check(k1_phase_launches("sparse") == 0, "the sparse ranking ran K1")
 
     bf16_corpus = corpus[:BF16_N]
@@ -935,14 +1128,171 @@ def main() -> int:
     bf16_index.add(bf16_corpus, psg_ids=psg_ids[:BF16_N])
     # the table holds bf16-rounded rows: check against those
     bf16_rows = torch.from_numpy(bf16_corpus).cuda().to(torch.bfloat16).float()
+    exact_bf16 = passage_exact(bf16_rows, qvecs_dev, q_index, DIM)
     reset_counts(wrappers)
-    check_rerank(bf16_index(bf16_rank), bf16_rows, qvecs_dev, q_index, DIM, "bf16 re-rank")
+    check_rerank(bf16_index(bf16_rank), exact_bf16, "bf16 re-rank")
     check(k1_phase_launches("bf16_rerank") >= 1, "bf16 re-rank ran no K1 launch")
     reset_counts(wrappers)
     bf16_served = bf16_index.serve(bf16_rank, ALPHA, CUTOFF, refine=REFINE)
     check(k1_phase_launches("bf16_serve_refine") == 1, "bf16 serve ran no K1 launch")
-    check_serve(bf16_served, bf16_rows, qvecs_dev, q_index, bf16_run, DIM, "bf16 serve_refine")
-    del bf16_index, bf16_rows
+    check_serve(bf16_served, bf16_run, exact_bf16, "bf16 serve_refine")
+    del bf16_index, bf16_rows, exact_bf16
+
+    # -- 12. document modes at full width (K1 fp32, cap 1024) ---------------------
+    doc_ops = {"MAXP": "max", "AVEP": "mean", "FIRSTP": "first"}
+    exact_doc = {
+        mode: doc_exact(corpus_dev, qvecs_dev, q_index, doc_counts, doc_starts, op, DIM)
+        for mode, op in doc_ops.items()
+    }
+    reset_counts(wrappers)
+    index.mode = Mode.MAXP
+    t0 = time.perf_counter()
+    cold = index(doc_rank)
+    torch.cuda.synchronize()
+    cold_ms = (time.perf_counter() - t0) * 1e3
+    warm_ms, warm = timed_calls(lambda: index(doc_rank), WARM_CALLS)
+    check(len(warm._df) == len(doc_rank._df), "MAXP re-rank lost pairs")
+    check(cold == warm, "cold and warm MAXP re-rank disagree")
+    check_rerank(warm, exact_doc["MAXP"], "MAXP re-rank")
+    flows["doc_maxp_rerank"] = {"cold_ms": cold_ms, "warm_ms": warm_ms, "qps": QUERIES / warm_ms * 1e3}
+    doc_plan = index._get_plan(doc_rank)
+    doc_k = doc_plan["k"]
+    doc_inputs = (doc_plan["stream"][0], doc_plan["stream"][1], doc_plan["q_dev"][1])
+    # the same rows without the K-padding: each pair's real rows only
+    valid = np.arange(doc_k)[None, :] < doc_plan["counts_pp"][:, None]
+    real_rows = doc_plan["rows_mat"][valid].astype(np.int64)
+    real_qno = np.repeat(doc_plan["pair_qno"], doc_plan["counts_pp"])
+    log(f"[doc] MAXP: {len(doc_rank._df)} pairs, K {doc_k}, {real_rows.shape[0]} real rows "
+        f"({np.unique(real_rows).shape[0]} distinct), {doc_plan['rows_mat'].size} slots; "
+        f"layout {tuple(doc_inputs[0].shape)}; re-rank cold {cold_ms:.1f} ms, warm median "
+        f"{warm_ms:.2f} ms")
+    for label, refine in (("doc_maxp_serve", None), ("doc_maxp_serve_refine", REFINE)):
+        t0 = time.perf_counter()
+        index.serve(doc_rank, ALPHA, CUTOFF, refine=refine)
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        ms, served = timed_calls(
+            lambda: index.serve(doc_rank, ALPHA, CUTOFF, refine=refine), WARM_CALLS
+        )
+        check_serve(served, doc_run, exact_doc["MAXP"], label)
+        flows[label] = {"first_ms": first_ms, "warm_ms": ms, "qps": QUERIES / ms * 1e3}
+        log(f"[{label}] first {first_ms:.1f} ms, warm median {ms:.2f} ms")
+    n_k1 = k1_phase_launches("doc_maxp")
+    check(n_k1 == 3 * (1 + WARM_CALLS), f"MAXP ran K1 {n_k1} times")
+    # the profiles of phases 4 and 12 together: the profiler keeps a call's
+    # device items most reliably within the first seconds after its first
+    # traced window (profile_flow)
+    for label, mode, fn in (
+        ("rerank", Mode.PASSAGE, lambda: index(ranking)),
+        ("serve_refine", Mode.PASSAGE, lambda: index.serve(ranking, ALPHA, CUTOFF, refine=REFINE)),
+        ("serve", Mode.PASSAGE, lambda: index.serve(ranking, ALPHA, CUTOFF)),
+        ("doc_maxp_rerank", Mode.MAXP, lambda: index(doc_rank)),
+        ("doc_maxp_serve", Mode.MAXP, lambda: index.serve(doc_rank, ALPHA, CUTOFF)),
+    ):
+        index.mode = mode
+        flows[label]["profile"] = profile_flow(fn, CALL_KERNELS["pairwise"])
+        log(f"[profile {label}]", json.dumps(flows[label]["profile"]))
+    flows["doc_maxp_serve"]["device_memory"] = serve_memory(index, doc_rank, {})
+    log(f"[doc memory] one warm MAXP serve: {json.dumps(flows['doc_maxp_serve']['device_memory'])}")
+    reset_counts(wrappers)
+    for mode in ("AVEP", "FIRSTP"):
+        index.mode = Mode[mode]
+        label = f"doc_{mode.lower()}_rerank"
+        t0 = time.perf_counter()
+        cold = index(doc_rank)
+        torch.cuda.synchronize()
+        cold_ms = (time.perf_counter() - t0) * 1e3
+        warm_ms, warm = timed_calls(lambda: index(doc_rank), WARM_CALLS)
+        check(cold == warm, f"cold and warm {mode} re-rank disagree")
+        check_rerank(warm, exact_doc[mode], f"{mode} re-rank")
+        flows[label] = {"cold_ms": cold_ms, "warm_ms": warm_ms, "qps": QUERIES / warm_ms * 1e3}
+        log(f"[{label}] cold {cold_ms:.1f} ms, warm median {warm_ms:.2f} ms")
+    n_k1 = k1_phase_launches("doc_avep_firstp")
+    check(n_k1 == 2 * (1 + WARM_CALLS), f"AVEP and FIRSTP ran K1 {n_k1} times")
+    index.mode = Mode.PASSAGE
+
+    # -- 14. early stopping on the flagship passage index and run (K1) ------------
+    es_rankings = [Ranking.from_run(run, queries=queries) for _ in range(ES_COLD_CALLS + 2)]
+    reset_counts(wrappers)
+    t0 = time.perf_counter()
+    es_first = index(es_rankings[0], **ES_KWARGS)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    cold_times = []
+    for r in es_rankings[1 : 1 + ES_COLD_CALLS]:  # a fresh ranking per call
+        t0 = time.perf_counter()
+        es_cold = index(r, **ES_KWARGS)
+        torch.cuda.synchronize()
+        cold_times.append((time.perf_counter() - t0) * 1e3)
+    es_warm_rank = es_rankings[0]
+    index(es_warm_rank, **ES_KWARGS)  # builds the plan's categorical columns
+    es_warm_ms, es_warm = timed_calls(lambda: index(es_warm_rank, **ES_KWARGS), WARM_CALLS)
+    check(es_first == es_cold == es_warm, "early stopping: cold and warm results disagree")
+    check_rerank(es_warm, exact_p, "early stopping re-rank", queries=QUERIES)
+    check_es_against_cpu(es_warm, corpus, by_text, run, queries, exact_p, ES_KWARGS,
+                         "early stopping re-rank")
+    t0 = time.perf_counter()
+    index.serve(es_rankings[-1], ALPHA, CUTOFF, early_stopping_depths=ES_SERVE_DEPTHS)
+    torch.cuda.synchronize()
+    serve_first_ms = (time.perf_counter() - t0) * 1e3
+    es_serve_ms, es_served = timed_calls(
+        lambda: index.serve(es_rankings[-1], ALPHA, CUTOFF, early_stopping_depths=ES_SERVE_DEPTHS),
+        WARM_CALLS,
+    )
+    es_serve_kwargs = dict(ES_KWARGS, early_stopping_depths=ES_SERVE_DEPTHS)
+    check_es_against_cpu(es_served, corpus, by_text, run, queries, exact_p, es_serve_kwargs,
+                         "early stopping serve", serve_args=(ALPHA, CUTOFF, ES_SERVE_DEPTHS))
+    n_es_rows = len(es_warm._df)
+    cold_ms = float(np.median(cold_times))
+    flows["es_cold"] = {"first_ms": first_ms, "cold_ms": cold_ms, "qps": QUERIES / cold_ms * 1e3,
+                        "rows_scored": n_es_rows}
+    flows["es_warm"] = {"warm_ms": es_warm_ms, "qps": QUERIES / es_warm_ms * 1e3}
+    flows["es_serve"] = {"first_ms": serve_first_ms, "warm_ms": es_serve_ms,
+                         "qps": QUERIES / es_serve_ms * 1e3}
+    log(f"[early stopping] {n_es_rows} of {len(ranking._df)} pairs scored; first {first_ms:.1f} ms, "
+        f"cold median {cold_ms:.1f} ms ({flows['es_cold']['qps']:.1f} QPS), warm median "
+        f"{es_warm_ms:.2f} ms; serve first {serve_first_ms:.1f} ms, warm median {es_serve_ms:.2f} ms")
+
+    # the alpha sweep: one warm-up pass, then timed passes
+    sweep_run = make_run(N, "p", SWEEP_QUERIES, SWEEP_DEPTH, SEED + 5)
+    sweep_queries = {q: queries[q] for q in sweep_run}
+    sweep_rank = Ranking.from_run(sweep_run, queries=sweep_queries)
+
+    def sweep():
+        return {
+            alpha: index(sweep_rank, **dict(ES_KWARGS, early_stopping_alpha=alpha,
+                                            early_stopping_depths=SWEEP_DEPTHS))
+            for alpha in SWEEP_ALPHAS
+        }
+
+    t0 = time.perf_counter()
+    sweep()
+    torch.cuda.synchronize()
+    sweep_first_ms = (time.perf_counter() - t0) * 1e3
+    sweep_ms, swept = timed_calls(sweep, SWEEP_PASSES)
+    check_rerank(swept[0.5], exact_p, "alpha sweep (alpha 0.5)")
+    n_sweep = len(sweep_rank._df)
+    flows["alpha_sweep"] = {
+        "first_pass_ms": sweep_first_ms, "pass_ms": sweep_ms,
+        "qps": SWEEP_QUERIES * len(SWEEP_ALPHAS) / sweep_ms * 1e3,
+        "rows_scored": {str(a): len(r._df) for a, r in swept.items()}, "pairs": n_sweep,
+    }
+    n_k1 = k1_phase_launches("early_stopping")
+    check(n_k1 >= 1, "early stopping ran no K1 launch")
+    log(f"[alpha sweep] {SWEEP_QUERIES} x {SWEEP_DEPTH}, depths {SWEEP_DEPTHS}: first pass "
+        f"{sweep_first_ms:.1f} ms, median pass {sweep_ms:.2f} ms "
+        f"({flows['alpha_sweep']['qps']:.1f} QPS); K1 launches in phase 14: {n_k1}")
+    # fresh rankings for the cold call's traces (a retried trace after the
+    # last of them is a warm call, which launches nothing and stays incomplete)
+    fresh = iter([Ranking.from_run(run, queries=queries) for _ in range(3)])
+    for label, fn, kernels, copy in (
+        ("es_cold", lambda: index(next(fresh, es_warm_rank), **ES_KWARGS),
+         CALL_KERNELS["pairwise"], True),
+        ("es_warm", lambda: index(es_warm_rank, **ES_KWARGS), (), False),
+    ):
+        flows[label]["profile"] = profile_flow(fn, kernels, needs_copy=copy)
+        log(f"[profile {label}]", json.dumps(flows[label]["profile"]))
+    del es_rankings, es_first, es_cold, es_warm, es_served, sweep_rank, swept, fresh
 
     # -- 6. K1 vs plain on the main path's inputs, timed ---------------------
     cand3, tile_idx, q_dev = main_inputs
@@ -967,10 +1317,29 @@ def main() -> int:
                                        rates, "fp32 on K1's layout")[0]
     split_call(fp32_query_major, lambda: sk.stream_select(table3, q_dev.t(), cand3, tile_idx),
                CALL_KERNELS["dense"])
+    # K1 fp32 on the MAXP layout (cap 1024 > r), and on the same pairs' real
+    # rows without the K-padding, to show what the padding costs
+    cand_d, tile_d, q_d = doc_inputs
+    log(f"[kernel-flagship] K1 fp32 on the MAXP layout {tuple(cand_d.shape)}")
+    doc_row = pairwise_variants(sk, table, q_d, cand_d, tile_d, DIM, ("exact",), True, rates,
+                                "fp32 doc")[0]
+    doc_row.update(table="fp32", exact=True)
+    split_call(doc_row, lambda: sk.stream_select_pairwise(table, q_d, cand_d, tile_d),
+               CALL_KERNELS["pairwise"])
+    real_plan = {}
+    real_layout = scoring._cached_layout("stream", table.shape[0], doc_plan["q_dev"][0], real_rows,
+                                         real_qno, sk.KERNEL_TILE_ROWS, real_plan, table.device)
+    unpadded = pairwise_variants(sk, table, q_d, *real_layout[:2], DIM, ("exact",), True, rates,
+                                 "fp32 doc unpadded")[0]
+    unpadded.update(table="fp32", exact=True)
+    variants["stream_select_pairwise"] += [doc_row, unpadded]
+    log(f"  K-padding: {doc_row['ms']:.4f} ms padded ({cand_d.numel()} slots) against "
+        f"{unpadded['ms']:.4f} ms for the real rows alone ({real_layout[0].numel()} slots)")
     del index, table, table3, t8, corpus_dev, main_inputs, cand3, tile_idx, q_dev, plan
+    del doc_plan, doc_inputs, cand_d, tile_d, q_d, real_layout, real_plan, exact_p, exact_doc
     torch.cuda.empty_cache()
 
-    # -- 7. int8 at full width (K1) ------------------------------------------
+    # -- 7. int8 at full width (K1); 13. int8 MAXP (K2) ---------------------------
     t0 = time.perf_counter()
     sq = ScalarQuantizer()
     sq.fit(corpus[:QUANT_FIT])
@@ -981,25 +1350,33 @@ def main() -> int:
         precision="high",
         init_size=N,
     )
-    add_in_chunks(int8_index, corpus, psg_ids)
+    add_in_chunks(int8_index, corpus, psg_ids, doc_ids)
     int8_rows = scalar_rows(int8_index._store[:N], sq.scales)
     log(f"[setup] int8 index of {N} rows built in {time.perf_counter() - t0:.1f} s")
-    phase, launches["int8"] = quantized_phase(
-        "int8", int8_index, ranking, run, int8_rows, qvecs_dev, q_index, wrappers,
-        want="stream_select_pairwise", forbid=("stream_select",), kernels=CALL_KERNELS["dense"],
+    phase, launches["int8"] = index_phase(
+        "int8", int8_index, ranking, wrappers, want="stream_select_pairwise",
+        forbid=("stream_select",), kernels=CALL_KERNELS["dense"],
+        exact=passage_exact(int8_rows, qvecs_dev, q_index, DIM), run=run,
     )
     flows.update(phase)
-    del int8_index, int8_rows
+    int8_index.mode = Mode.MAXP
+    phase, launches["int8_doc_maxp"] = index_phase(
+        "int8_doc_maxp", int8_index, doc_rank, wrappers, want="stream_select",
+        forbid=("stream_select_pairwise",), kernels=CALL_KERNELS["dense"],
+        exact=doc_exact(int8_rows, qvecs_dev, q_index, doc_counts, doc_starts, "max", DIM),
+        run=doc_run,
+    )
+    flows.update(phase)
+    log(f"[int8 doc] MAXP launched K2 {launches['int8_doc_maxp']['stream_select']} times")
+    k2_doc_plan = int8_index._get_plan(doc_rank)
+    k2_doc_inputs = (int8_index._device_view().table, k2_doc_plan["q_dev"][1],
+                     *k2_doc_plan["stream"][:2])
+    del int8_index, int8_rows, k2_doc_plan
 
     # -- 8. int8 with dense tiles (K2) ----------------------------------------
     t0 = time.perf_counter()
     dense_corpus = corpus[:DENSE_N]
-    drng = np.random.default_rng(SEED + 1)
-    dense_run = {
-        f"q{q}": {f"p{c}": float(DEPTH - i)
-                  for i, c in enumerate(drng.choice(DENSE_N, size=DEPTH, replace=False))}
-        for q in range(QUERIES)
-    }
+    dense_run = make_run(DENSE_N, "p", QUERIES, DEPTH, SEED + 1)
     dense_rank = Ranking.from_run(dense_run, queries=queries)
     dense_int8 = InMemoryIndex(
         query_encoder=LambdaEncoder(by_text.__getitem__),
@@ -1012,10 +1389,10 @@ def main() -> int:
     dense_int8_rows = scalar_rows(dense_int8._store[:DENSE_N], sq.scales)
     log(f"[setup] dense-tile run and int8 index of {DENSE_N} rows in "
         f"{time.perf_counter() - t0:.1f} s")
-    phase, launches["int8_dense"] = quantized_phase(
-        "int8_dense", dense_int8, dense_rank, dense_run, dense_int8_rows, qvecs_dev, q_index,
-        wrappers, want="stream_select", forbid=("stream_select_pairwise",),
-        kernels=CALL_KERNELS["dense"],
+    phase, launches["int8_dense"] = index_phase(
+        "int8_dense", dense_int8, dense_rank, wrappers, want="stream_select",
+        forbid=("stream_select_pairwise",), kernels=CALL_KERNELS["dense"],
+        exact=passage_exact(dense_int8_rows, qvecs_dev, q_index, DIM), run=dense_run,
     )
     flows.update(phase)
     k2_plan = dense_int8._get_plan(dense_rank)
@@ -1028,7 +1405,7 @@ def main() -> int:
     log(f"[int8 dense memory] one warm serve: {json.dumps(memory)}")
     del dense_int8
 
-    # -- 9. PQ at full width (K3) ----------------------------------------------
+    # -- 9. PQ at full width (K3); 13. PQ MAXP (K4) ---------------------------------
     t0 = time.perf_counter()
     check_fit(PQ, PQ_M, PQ_KS)
     log(f"[fit-check] in {time.perf_counter() - t0:.1f} s")
@@ -1043,20 +1420,33 @@ def main() -> int:
         precision="exact",
         init_size=N,
     )
-    add_in_chunks(pq_index, corpus, psg_ids)
+    add_in_chunks(pq_index, corpus, psg_ids, doc_ids)
     pq_ref = pq_rows(pq_index._store[:N], pq.codewords)
     log(f"[setup] PQ({PQ_M}, {PQ_KS}) fitted on the card in {fit_s:.1f} s; {N} rows encoded "
         f"in {time.perf_counter() - t0 - fit_s:.1f} s")
     check_encode("PQ", pq, pq_index._store[:N], corpus)
-    phase, launches["pq"] = quantized_phase(
-        "pq", pq_index, ranking, run, pq_ref, qvecs_dev, q_index, wrappers,
-        want="stream_select_pq_pairwise", forbid=("stream_select_pq",), kernels=CALL_KERNELS["adc"],
+    phase, launches["pq"] = index_phase(
+        "pq", pq_index, ranking, wrappers, want="stream_select_pq_pairwise",
+        forbid=("stream_select_pq",), kernels=CALL_KERNELS["adc"],
+        exact=passage_exact(pq_ref, qvecs_dev, q_index, DIM), run=run,
     )
     flows.update(phase)
     view = pq_index._device_view()
     k3_plan = pq_index._get_plan(ranking)
     k3_inputs = (view.table, view.codebooks, k3_plan["q_dev"][1], *k3_plan["stream_pq"][:2])
-    del pq_ref
+    pq_index.mode = Mode.MAXP
+    phase, launches["pq_doc_maxp"] = index_phase(
+        "pq_doc_maxp", pq_index, doc_rank, wrappers, want="stream_select_pq",
+        forbid=("stream_select_pq_pairwise",), kernels=CALL_KERNELS["adc"],
+        exact=doc_exact(pq_ref, qvecs_dev, q_index, doc_counts, doc_starts, "max", DIM),
+        run=doc_run,
+    )
+    flows.update(phase)
+    log(f"[pq doc] MAXP launched K4 {launches['pq_doc_maxp']['stream_select_pq']} times")
+    k4_doc_plan = pq_index._get_plan(doc_rank)
+    k4_doc_inputs = (view.table, view.codebooks, k4_doc_plan["q_dev"][1],
+                     *k4_doc_plan["stream_pq"][:2])
+    del pq_ref, k4_doc_plan
 
     # -- 10. OPQ with dense tiles (K4) -----------------------------------------
     t0 = time.perf_counter()
@@ -1077,9 +1467,10 @@ def main() -> int:
     log(f"[setup] OPQ({PQ_M}, {PQ_KS}, {opq._opq_iters} iterations) fitted in {fit_s:.1f} s; "
         f"{DENSE_N} rows encoded in {time.perf_counter() - t0 - fit_s:.1f} s")
     check_encode("OPQ", opq, opq_index._store[:DENSE_N], dense_corpus)
-    phase, launches["opq_dense"] = quantized_phase(
-        "opq_dense", opq_index, dense_rank, dense_run, opq_ref, rotated_dev, q_index, wrappers,
-        want="stream_select_pq", forbid=("stream_select_pq_pairwise",), kernels=CALL_KERNELS["adc"],
+    phase, launches["opq_dense"] = index_phase(
+        "opq_dense", opq_index, dense_rank, wrappers, want="stream_select_pq",
+        forbid=("stream_select_pq_pairwise",), kernels=CALL_KERNELS["adc"],
+        exact=passage_exact(opq_ref, rotated_dev, q_index, DIM), run=dense_run,
     )
     flows.update(phase)
     view = opq_index._device_view()
@@ -1096,25 +1487,34 @@ def main() -> int:
     log(f"[opq memory] one warm serve: {json.dumps(memory)}")
 
     # -- 11. K2, K3, K4 vs plain on the main path's layouts, timed ------------------
-    log(f"[kernel-flagship] K2 on the int8 dense-tile layout {tuple(k2_inputs[2].shape)}, "
-        f"K3 on the PQ layout {tuple(k3_inputs[3].shape)}, "
-        f"K4 on the OPQ layout {tuple(k4_inputs[3].shape)}")
-    variants["stream_select"] = select_variants(sk, *k2_inputs, DIM, ("high", "fast"), True, rates,
-                                                "int8")
+    log(f"[kernel-flagship] K2 on the int8 dense-tile layout {tuple(k2_inputs[2].shape)} and the "
+        f"int8 MAXP layout {tuple(k2_doc_inputs[2].shape)}, K3 on the PQ layout "
+        f"{tuple(k3_inputs[3].shape)}, K4 on the OPQ layout {tuple(k4_inputs[3].shape)} and the "
+        f"PQ MAXP layout {tuple(k4_doc_inputs[3].shape)}")
+    variants["stream_select"] = (
+        select_variants(sk, *k2_inputs, DIM, ("high", "fast"), True, rates, "int8")
+        + select_variants(sk, *k2_doc_inputs, DIM, ("high",), True, rates, "int8 doc")
+    )
     variants["stream_select_pq_pairwise"] = pq_variants(skpq, "K3", *k3_inputs, ("exact",), True,
                                                         rates, "pq")
-    variants["stream_select_pq"] = pq_variants(skpq, "K4", *k4_inputs, ("exact",), True, rates,
-                                               "opq")
-    table_k2, q_k2, cand_k2, tile_k2 = k2_inputs
-    for row, tier in zip(variants["stream_select"], ("high", "fast")):
-        split_call(row, lambda p=tier: sk.stream_select(table_k2, q_k2.t(), cand_k2, tile_k2, precision=p),
-                   CALL_KERNELS["dense"])
-    for kname, (codes_m, cb_m, q_m, cand_m, tile_m) in (("stream_select_pq_pairwise", k3_inputs),
-                                                         ("stream_select_pq", k4_inputs)):
+    variants["stream_select_pq"] = (
+        pq_variants(skpq, "K4", *k4_inputs, ("exact",), True, rates, "opq")
+        + pq_variants(skpq, "K4", *k4_doc_inputs, ("exact",), True, rates, "pq doc")
+    )
+    for row, (table_k2, q_k2, cand_k2, tile_k2), tier in zip(
+        variants["stream_select"], (k2_inputs, k2_inputs, k2_doc_inputs), ("high", "fast", "high")
+    ):
+        split_call(row, lambda t=table_k2, q=q_k2, c=cand_k2, ti=tile_k2, p=tier: sk.stream_select(
+            t, q.t(), c, ti, precision=p), CALL_KERNELS["dense"])
+    for kname, row, (codes_m, cb_m, q_m, cand_m, tile_m) in (
+        ("stream_select_pq_pairwise", variants["stream_select_pq_pairwise"][0], k3_inputs),
+        ("stream_select_pq", variants["stream_select_pq"][0], k4_inputs),
+        ("stream_select_pq", variants["stream_select_pq"][1], k4_doc_inputs),
+    ):
         call = getattr(skpq, kname)
         q_arg = q_m if kname == "stream_select_pq_pairwise" else q_m.t()
-        split_call(variants[kname][0], lambda: call(codes_m, cb_m, q_arg, cand_m, tile_m),
-                   CALL_KERNELS["adc"])
+        split_call(row, lambda call=call, c=codes_m, cb=cb_m, q=q_arg, cd=cand_m, t=tile_m: call(
+            c, cb, q, cd, t), CALL_KERNELS["adc"])
     small_by_kernel = {"stream_select_pairwise": "K1", "stream_select": "K2",
                        "stream_select_pq_pairwise": "K3", "stream_select_pq": "K4"}
     vet_profiles(flows, variants)

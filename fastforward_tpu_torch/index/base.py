@@ -1,18 +1,22 @@
 """The index layer: vector store + scoring engine on one device.
 
-The port of the ``fastforward_tpu/index/base.py`` subset on the main path:
-re-rank (``__call__``, ``submit``) and fused serve (``serve``,
-``submit_serve``) for one-row-per-pair modes (``Mode.PASSAGE``,
-``Mode.FIRSTP``) against a device table of fp32/bf16 vectors, int8 codes
+The port of the ``fastforward_tpu/index/base.py`` single-device paths:
+re-rank (``__call__``, ``submit``, with ``batch_size`` and early stopping)
+and fused serve (``serve``, ``submit_serve``, with early stopping) in every
+ranking mode (``Mode.PASSAGE``, ``Mode.FIRSTP``, ``Mode.MAXP``,
+``Mode.AVEP``) against a device table of fp32/bf16 vectors, int8 codes
 (``ScalarQuantizer``) or PQ codes (``PQ``/``OPQ``).  The host resolves
-string IDs to int rows (natively), dense candidate sets stream through the
-kernels (K1/K2 for vectors and int8 codes, K3/K4 for PQ codes) and sparse
-ones take a gather-dot; results are ordered on the host with the native
+string IDs to int rows (natively) into a ``(pairs, K)`` layout (K rows per
+pair, a power of two up to 64); dense candidate sets stream through the
+kernels (K1/K2 for vectors and int8 codes, K3/K4 for PQ codes) with the
+mode's K-reduce on the device, sparse or ungrouped ones take a gather-dot,
+and documents with more than 64 passages (or more than 2^22 queries) take
+the flat segment path.  Results are ordered on the host with the native
 segmented sort while the score copy is still in flight.
 
 Everything runs on the device of the index's table: the card by default,
 the CPU when the caller asks for it (the plain versions of the kernels
-then run).  Features outside this slice raise ``NotImplementedError``
+then run).  Features outside the port so far raise ``NotImplementedError``
 naming the ROADMAP item that brings them.
 """
 
@@ -32,7 +36,8 @@ import torch
 
 from fastforward_tpu_torch import ops
 from fastforward_tpu_torch.encoder.base import Encoder
-from fastforward_tpu_torch.index.mode import Mode
+from fastforward_tpu_torch.index.mode import GROUPED_OP, REDUCE_OP, Mode
+from fastforward_tpu_torch.index.util import expand_pairs, expand_pairs_grouped
 from fastforward_tpu_torch.ops.scoring import _cached_q_upload
 from fastforward_tpu_torch.quantizer import OPQ, Quantizer
 from fastforward_tpu_torch.ranking import Ranking
@@ -41,6 +46,10 @@ from fastforward_tpu_torch.utils.tracing import annotate
 LOGGER = logging.getLogger(__name__)
 
 IDSequence = Sequence[str | None]
+
+#: the grouped gather packs a query number into 22 bits (``qno << 8 |
+#: count``); more queries than this take the flat segment path
+_MAX_PACKED_QUERIES = 1 << 22
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:
@@ -123,10 +132,11 @@ def _overlap_fetch_sort(
     runs under the still-in-flight later chunks.
 
     Returns ``(scores, take, materialized)`` — ``materialized`` reports
-    that every sink row was written — or ``None`` when the native
-    segmented sort is unavailable (the caller then runs the one-shot path).
+    that every sink row was written — or ``None`` when the scores are not
+    an fp32 tensor or the native segmented sort is unavailable (the caller
+    then runs the one-shot path).
     """
-    if scores_dev.dtype != torch.float32:
+    if not isinstance(scores_dev, torch.Tensor) or scores_dev.dtype != torch.float32:
         return None
     from fastforward_tpu_torch.runtime.idmap import segmented_rank_argsort_into
 
@@ -189,6 +199,25 @@ def _overlap_fetch_sort(
                 dst[region] = src[sl]
         materialized = True
     return buf[:n_pairs], take, materialized
+
+
+def _numbered_frame(ranking: Ranking) -> "tuple[pd.DataFrame, list, pd.Index]":
+    """A copy of the ranking's frame with dense query numbers ``q_no``
+    (``pd.factorize`` numbers queries by first appearance), the query
+    strings in that order and the unique ``q_id`` values."""
+    df = ranking._df.copy()
+    q_codes, q_uniques = pd.factorize(df["q_id"], sort=False)
+    df["q_no"] = q_codes
+    queries = df.loc[~df["q_id"].duplicated(), "query"].tolist()
+    return df, queries, q_uniques
+
+
+def _query_ranks(q_uniques) -> np.ndarray:
+    """Each query's rank in the result order (``q_id`` descending), uint64."""
+    n_q = len(q_uniques)
+    ranks = np.empty(n_q, dtype=np.uint64)
+    ranks[np.argsort(np.asarray(q_uniques, dtype=object))[::-1]] = np.arange(n_q, dtype=np.uint64)
+    return ranks
 
 
 def _desc_rank_order(qhi: np.ndarray, scores: np.ndarray) -> np.ndarray:
@@ -262,8 +291,7 @@ class Index(abc.ABC):
         :param query_encoder: The query encoder to use.
         :param quantizer: The quantizer to use (attached to the empty
             index; vectors are encoded as they are added).
-        :param mode: The ranking mode (scoring supports ``Mode.PASSAGE`` and
-            ``Mode.FIRSTP``).
+        :param mode: The ranking mode.
         :param encoder_batch_size: The query-encoder batch size.
         :param score_transport: Must be ``"f32"`` (``"u16"`` is not ported
             yet).
@@ -479,23 +507,35 @@ class Index(abc.ABC):
         fetch: bool = True,
         plan: dict | None = None,
     ) -> "np.ndarray | torch.Tensor":
-        """Score the ``(pairs, K)`` candidate layout on the device (K == 1).
+        """Score the ``(pairs, K)`` candidate layout on the device, reduced
+        along K by the mode (max / mean / first).
 
         Dense candidate sets stream through the kernels: vectors and int8
-        codes (2D with ``dim % 128 == 0``, or 3D) when ``n_pairs * 500 > N``,
-        PQ codes when ``n_pairs * 200 > N``.  Sparse ones take a gather-dot
-        (the bounded gather for vectors and int8 codes, the grouped LUT
-        gather for PQ codes).  With ``fetch=False`` the device tensor is
-        returned (its length may carry bucket padding past ``n_pairs``).
-        ``plan`` optionally caches the candidate-dependent device arrays
-        across calls.
+        codes (2D with ``dim % 128 == 0``, or 3D) when ``n_pairs * K * 500 >
+        N``, PQ codes when ``n_pairs * K * 200 > N``; the K-reduce runs on the
+        device, so only one score per pair is fetched.  Sparse ones take a
+        gather-dot: the bounded gather (one row per pair, pairs grouped by
+        query, vectors and int8 codes) or the grouped gather (any K, any pair
+        order).  More than 2^22 queries take the flat segment path (the
+        grouped gather packs the query number into 22 bits).  With
+        ``fetch=False`` the device tensor is returned (its length may carry
+        bucket padding past ``n_pairs``).  ``plan`` optionally caches the
+        candidate-dependent device arrays across calls.
         """
+        op = GROUPED_OP[self.mode]
         n_pairs = rows_mat.shape[0]
         q_pad = self._pad_queries(query_vectors, view)
-        if q_pad.shape[0] > (1 << 22):
-            raise not_ported("scoring more than 2^22 queries in one call", "4")
-        if k != 1:
-            raise not_ported("grouped scoring of several rows per pair", "4")
+        if q_pad.shape[0] > _MAX_PACKED_QUERIES:
+            valid = np.arange(k)[None, :] < counts_pp[:, None]
+            rows, qno, seg = expand_pairs(
+                np.arange(n_pairs, dtype=np.int64),
+                pair_qno,
+                rows_mat[valid].astype(np.int64),
+                counts_pp,
+            )
+            return self._device_score_flat(
+                view, query_vectors, rows, qno, seg, n_pairs, fetch=fetch
+            )
         table = view.table
         streamable_dense = (
             view.kind in ("dense", "scalar")
@@ -506,16 +546,34 @@ class Index(abc.ABC):
             view.kind == "pq" and n_pairs * k * ops.STREAM_DENSITY_PQ > table.shape[0]
         )
         if (streamable_dense or streamable_pq) and table.shape[0] % ops.KERNEL_TILE_ROWS == 0:
-            rows_flat = rows_mat[:, 0].astype(np.int64)
+            layout_key = "stream_pq" if streamable_pq else "stream"
+            reduce = None
+            if plan is not None and layout_key in plan:
+                # the plan holds the layout: the flat candidate arrays are
+                # not needed again
+                rows_flat = qno_flat = None
+            elif k == 1:
+                rows_flat, qno_flat = rows_mat[:, 0].astype(np.int64), pair_qno
+            else:
+                rows_flat = rows_mat.reshape(-1).astype(np.int64)
+                qno_flat = np.repeat(pair_qno, k)
+            if k > 1:
+                counts_dev = plan.get("counts_dev") if plan is not None else None
+                if counts_dev is None:
+                    counts_dev = torch.from_numpy(counts_pp.astype(np.int32)).to(table.device)
+                    if plan is not None:
+                        plan["counts_dev"] = counts_dev
+                reduce = (op, k, counts_dev)
             if streamable_pq:
                 row_scores = ops.streamed_scores_pq(
                     table,
                     view.codebooks,
                     q_pad,
                     rows_flat,
-                    pair_qno,
+                    qno_flat,
                     precision=view.precision,
                     plan=plan,
+                    reduce=reduce,
                     fetch=fetch,
                 )
             else:
@@ -523,17 +581,51 @@ class Index(abc.ABC):
                     table,
                     q_pad,
                     rows_flat,
-                    pair_qno,
+                    qno_flat,
                     precision=view.precision,
                     plan=plan,
+                    reduce=reduce,
                     fetch=fetch,
                 )
             if row_scores is not None:
-                return row_scores
+                if k == 1 or row_scores.shape[0] == n_pairs:
+                    # k == 1, or the K-reduce already ran on the device
+                    return row_scores
+                # a scorer that returned one score per row: reduce on the host
+                return ops.masked_reduce_host(
+                    ops.fetch_np(row_scores).reshape(n_pairs, k), counts_pp, op
+                )
 
-        if view.kind == "pq":
-            # gather-ADC: one stacked transfer of the row column and the
-            # packed (qno, count) row; pairs need not be grouped by query
+        if (
+            k == 1
+            and view.kind in ("dense", "scalar")
+            and (n_pairs == 0 or (np.diff(pair_qno) >= 0).all())
+        ):
+            # single row per pair, pairs grouped by query: send only the row
+            # array; the device recovers qno from per-query boundaries
+            cached = plan.get("bounded") if plan is not None else None
+            if cached is None:
+                rows_p = np.zeros(ops.bucket(n_pairs), dtype=np.int32)
+                rows_p[:n_pairs] = rows_mat[:, 0]
+                # cumulative end of each query's pair run (padding pairs fall
+                # past the last bound, clipping to the padding query)
+                bounds = np.searchsorted(
+                    pair_qno, np.arange(q_pad.shape[0]), side="right"
+                ).astype(np.int32)
+                cached = (
+                    torch.from_numpy(rows_p).to(table.device),
+                    torch.from_numpy(bounds).to(table.device),
+                )
+                if plan is not None:
+                    plan["bounded"] = cached
+            q_dev = _cached_q_upload(q_pad, plan, "q_dev", table.device)
+            scores = ops.score_pairs_bounded(
+                table, q_dev, cached[0], cached[1], precision=view.precision
+            )
+        else:
+            # the grouped gather: one stacked transfer of the K row columns
+            # and the packed (qno, count) row; pairs need not be grouped by
+            # query
             idx_dev = plan.get("grouped_idx") if plan is not None else None
             if idx_dev is None:
                 idx = np.zeros((k + 1, ops.bucket(n_pairs)), dtype=np.int32)
@@ -543,55 +635,109 @@ class Index(abc.ABC):
                 if plan is not None:
                     plan["grouped_idx"] = idx_dev
             q_dev = _cached_q_upload(q_pad, plan, "q_dev", table.device)
-            scores = ops.score_pairs_grouped_pq(table, view.codebooks, q_dev, idx_dev, "first")
-            if not fetch:
-                return scores
-            return ops.fetch_np(scores)[:n_pairs]
-
-        if n_pairs and not (np.diff(pair_qno) >= 0).all():
-            raise not_ported("scoring pairs that are not grouped by query", "4")
-        # single row per pair, pairs grouped by query: send only the row
-        # array; the device recovers qno from per-query boundaries
-        cached = plan.get("bounded") if plan is not None else None
-        if cached is None:
-            rows_p = np.zeros(ops.bucket(n_pairs), dtype=np.int32)
-            rows_p[:n_pairs] = rows_mat[:, 0]
-            # cumulative end of each query's pair run (padding pairs fall
-            # past the last bound, clipping to the padding query)
-            bounds = np.searchsorted(
-                pair_qno, np.arange(q_pad.shape[0]), side="right"
-            ).astype(np.int32)
-            cached = (
-                torch.from_numpy(rows_p).to(table.device),
-                torch.from_numpy(bounds).to(table.device),
-            )
-            if plan is not None:
-                plan["bounded"] = cached
-        q_dev = _cached_q_upload(q_pad, plan, "q_dev", table.device)
-        scores = ops.score_pairs_bounded(
-            table, q_dev, cached[0], cached[1], precision=view.precision
-        )
+            if view.kind == "pq":
+                scores = ops.score_pairs_grouped_pq(table, view.codebooks, q_dev, idx_dev, op)
+            else:
+                scores = ops.score_pairs_grouped(
+                    table, q_dev, idx_dev, op, precision=view.precision
+                )
         if not fetch:
             return scores
         return ops.fetch_np(scores)[:n_pairs]
 
-    def _candidate_arrays(
-        self, df: pd.DataFrame
-    ) -> "tuple[DeviceView, np.ndarray, np.ndarray, int]":
-        """Resolve every row of ``df`` to the grouped candidate arrays
-        ``(view, rows_mat, counts_pp, k)`` (K == 1: one row per pair).
+    def _device_score_flat(
+        self,
+        view: DeviceView,
+        query_vectors: np.ndarray,
+        rows: np.ndarray,
+        qno: np.ndarray,
+        seg: np.ndarray,
+        n_pairs: int,
+        fetch: bool = True,
+    ) -> "np.ndarray | torch.Tensor":
+        """Score the flat per-row layout ``(rows, qno, seg)`` on the device and
+        reduce each pair's rows with the mode's segment op: the path for
+        documents with more than ``_MAX_GROUP_K`` passages and for more
+        queries than the grouped packing holds.  With ``fetch=False`` the
+        device tensor is returned (with bucket padding past ``n_pairs``)."""
+        op = REDUCE_OP[self.mode]
+        s_bucket = ops.bucket(n_pairs)
+        idx = np.zeros((3, ops.bucket(rows.shape[0])), dtype=np.int32)
+        idx[0, : rows.shape[0]] = rows
+        idx[1, : qno.shape[0]] = qno
+        idx[2] = s_bucket  # segment sentinel for padding
+        idx[2, : seg.shape[0]] = seg
+        device = view.table.device
+        idx_dev = torch.from_numpy(idx).to(device)
+        q_dev = torch.from_numpy(self._pad_queries(query_vectors, view)).to(device)
+        if view.kind == "pq":
+            scores = ops.score_pairs_pq(view.table, view.codebooks, q_dev, idx_dev, s_bucket, op)
+        else:
+            scores = ops.score_pairs_dense(
+                view.table, q_dev, idx_dev, s_bucket, op, precision=view.precision
+            )
+        if not fetch:
+            return scores
+        return ops.fetch_np(scores)[:n_pairs]
+
+    # documents with more passages than this take the flat segment path
+    # (grouped K-padding would waste too much gather bandwidth)
+    _MAX_GROUP_K = 64
+
+    def _gather_view(self, ids) -> "tuple[DeviceView, np.ndarray, np.ndarray]":
+        """Return ``(device view, per-ID row indices, per-ID row counts)``:
+        the index's device table and its host ID map.
 
         :raises IndexError: When an ID is missing from the index.
         """
-        if self.mode not in (Mode.PASSAGE, Mode.FIRSTP):
-            raise not_ported(f"scoring in {self.mode}", "4")
-        # exactly one row per pair: resolve the whole id column directly
-        # (zero-copy from the arrow buffers)
-        rows, _ = self._ids.resolve(df["id"], self.mode)
+        rows, counts = self._ids.resolve(ids, self.mode)
         view = self._device_view()
         if view is None:
-            raise RuntimeError("the index holds no vectors")
-        return view, rows[:, None], np.ones(len(df), dtype=np.int32), 1
+            raise not_ported("scoring an index that has no device table", "7")
+        return view, rows, counts
+
+    def _candidate_arrays(
+        self, df: pd.DataFrame
+    ) -> "tuple[DeviceView, np.ndarray, np.ndarray, int] | None":
+        """Resolve every row of ``df`` to the grouped candidate arrays
+        ``(view, rows_mat, counts_pp, k)`` — the ``(pairs, K)`` layout of
+        :meth:`_device_score_grouped`, K a power of two — or ``None`` when a
+        document has more than ``_MAX_GROUP_K`` passages.
+
+        :raises IndexError: When an ID is missing from the index.
+        """
+        if self.mode in (Mode.PASSAGE, Mode.FIRSTP):
+            # exactly one row per pair: resolve the whole id column directly
+            # (zero-copy from the arrow buffers)
+            view, rows, _ = self._gather_view(df["id"])
+            return view, rows[:, None], np.ones(len(df), dtype=np.int32), 1
+        pair_id_pos, ids_unique = pd.factorize(df["id"], sort=False)
+        view, rows_concat, counts = self._gather_view(ids_unique)
+        k_max = int(counts.max()) if counts.size else 1
+        if k_max > self._MAX_GROUP_K:
+            return None
+        k = max(1, 1 << (k_max - 1).bit_length())
+        rows_mat, counts_pp = expand_pairs_grouped(
+            pair_id_pos.astype(np.int64), rows_concat, counts, k
+        )
+        return view, rows_mat, counts_pp, k
+
+    def _compute_scores(self, data: pd.DataFrame, query_vectors: np.ndarray) -> np.ndarray:
+        """Semantic scores for the (query, ID) pairs of ``data`` (columns
+        ``id`` and ``q_no``; ``query_vectors`` is indexed by ``q_no``), one
+        per row in row order: the grouped layout when every document has at
+        most ``_MAX_GROUP_K`` passages, the flat segment path otherwise."""
+        if len(data) == 0:
+            return np.zeros((0,), dtype=np.float32)
+        pair_qno = data["q_no"].to_numpy(dtype=np.int64)
+        prep = self._candidate_arrays(data)
+        if prep is not None:
+            view, rows_mat, counts_pp, k = prep
+            return self._device_score_grouped(view, query_vectors, rows_mat, pair_qno, counts_pp, k)
+        pair_id_pos, ids_unique = pd.factorize(data["id"], sort=False)
+        view, rows_concat, counts = self._gather_view(ids_unique)
+        rows, qno, seg = expand_pairs(pair_id_pos.astype(np.int64), pair_qno, rows_concat, counts)
+        return self._device_score_flat(view, query_vectors, rows, qno, seg, len(data))
 
     def _score_and_sort(
         self,
@@ -601,12 +747,14 @@ class Index(abc.ABC):
         score_dtype,
         plan: dict | None = None,
         defer: bool = False,
-    ) -> "Ranking | Callable[[], Ranking]":
+    ) -> "Ranking | Callable[[], Ranking] | None":
         """Fused fast path: device scoring + host result ordering.
 
-        With a *ready* ``plan`` (a previous call on the same ranking
-        succeeded), ``df`` may be ``None`` — every candidate-derived
-        artifact comes from the plan and only queries are live.
+        Returns ``None`` when the candidates need the flat segment path
+        (documents with more than ``_MAX_GROUP_K`` passages).  With a
+        *ready* ``plan`` (a previous call on the same ranking succeeded),
+        ``df`` may be ``None`` — every candidate-derived artifact comes from
+        the plan and only queries are live.
 
         With ``defer=True`` the device work is launched now but the zero-arg
         *finish* callable is returned instead of the ranking: the score
@@ -625,7 +773,10 @@ class Index(abc.ABC):
         else:
             n_pairs = len(df)
             pair_qno = df["q_no"].to_numpy(dtype=np.int64)
-            view, rows_mat, counts_pp, k = self._candidate_arrays(df)
+            prep = self._candidate_arrays(df)
+            if prep is None:
+                return None
+            view, rows_mat, counts_pp, k = prep
         with annotate("ff.score"):
             scores_dev = self._device_score_grouped(
                 view,
@@ -678,10 +829,7 @@ class Index(abc.ABC):
             qid_arr, id_arr, query_arr = plan["out_arrays"]
         else:
             n_q = len(q_uniques)
-            q_rank = np.empty(n_q, dtype=np.uint64)
-            q_rank[np.argsort(np.asarray(q_uniques, dtype=object))[::-1]] = np.arange(
-                n_q, dtype=np.uint64
-            )
+            q_rank = _query_ranks(q_uniques)
             if plan is not None:
                 # categorical columns: reordering is then a take on int
                 # codes instead of on string arrays; the dictionary build
@@ -781,6 +929,221 @@ class Index(abc.ABC):
             q_ids = q_ids.copy()  # rankings must not share the mutable set
         return Ranking._from_trusted_frame(out, "fast-forward", q_ids=q_ids)
 
+    def _early_stopping(
+        self,
+        df: pd.DataFrame,
+        query_vectors: np.ndarray,
+        cutoff: int,
+        alpha: float,
+        depths: Iterable[int],
+        plan: dict | None = None,
+    ) -> tuple[np.ndarray, np.ndarray]:
+        """Score progressively deeper chunks, dropping queries that stopped.
+
+        Returns ``(take, ff)``: positional indices of the scored rows of
+        ``df`` (in depth-round order) and their semantic scores; callers
+        assemble the result frame.
+
+        A query stops once its ``cutoff``-th best interpolated score can no
+        longer be beaten by unscored candidates (lexical bound = last scored
+        lexical score, semantic bound = best semantic score seen); only
+        scored rows are returned.  The frame is (q_id, score)-sorted, so
+        each query's rows form one contiguous run: depth chunks are integer
+        ranges over its run offsets, and each round scores only the rows not
+        scored before on the device (one-row-per-pair modes resolve their
+        IDs per round, so stopped queries never resolve deep candidates).
+
+        ``plan`` keeps the per-ranking ES state across calls: candidate
+        resolution, run offsets and the alpha-independent semantic scores
+        (an alpha sweep re-scores nothing it scored before), checked against
+        the query vectors' content, so a changed encoder output rescores.
+        """
+        n = len(df)
+        if n == 0:
+            return np.empty(0, dtype=np.int64), np.empty(0, dtype=np.float32)
+
+        state = plan.get("es_state") if plan is not None else None
+        if state is not None and (
+            state["n"] != n
+            or state["qv"].shape != query_vectors.shape
+            or not np.array_equal(state["qv"], query_vectors)
+        ):
+            state = None
+        if plan is not None:
+            # tells _assemble_es this plan is hot (a repeat call): only then
+            # is building cached categorical ID columns worth it
+            plan["es_hot"] = state is not None
+        if state is None:
+            q_no = df["q_no"].to_numpy(dtype=np.int64)
+            change = np.flatnonzero(np.diff(q_no)) + 1
+            view = self._device_view()
+            lazy = view is not None and self.mode in (Mode.PASSAGE, Mode.FIRSTP)
+            state = {
+                "n": n,
+                "qv": np.array(query_vectors, copy=True),
+                "q_no": q_no,
+                "lex": df["score"].to_numpy(dtype=np.float32),
+                # contiguous run per query
+                "starts": np.concatenate(([0], change)),
+                "ends": np.concatenate((change, [n])),
+                "prep": None if lazy else self._candidate_arrays(df),
+                "view": view if lazy else None,
+                "lazy_rows": np.full(n, -1, dtype=np.int64) if lazy else None,
+                "ff": np.empty(n, dtype=np.float32),
+                "have": np.zeros(n, dtype=bool),
+            }
+            if plan is not None:
+                plan["es_state"] = state
+        q_no, lex = state["q_no"], state["lex"]
+        starts, ends = state["starts"], state["ends"]
+        nq = starts.shape[0]
+        prep = state["prep"]
+        ff_cache, have = state["ff"], state["have"]
+
+        # per-query state: top-`cutoff` interpolated scores (desc, -inf
+        # padded), number of rows scored, best semantic score
+        topk = np.full((nq, cutoff), -np.inf, dtype=np.float64)
+        scored_n = np.zeros(nq, dtype=np.int64)
+        best_sem = np.full(nq, -np.inf, dtype=np.float64)
+
+        sels: list[np.ndarray] = []
+        ffs: list[np.ndarray] = []
+        a = 0
+        for b in sorted(depths):
+            if b < cutoff:
+                continue
+            if a == 0:
+                act_idx = np.arange(nq)
+            else:
+                kth = topk[np.arange(nq), np.minimum(scored_n, cutoff) - 1]
+                last_lex = lex[np.minimum(starts + np.maximum(scored_n, 1), ends) - 1]
+                bound = alpha * last_lex + (1 - alpha) * best_sem
+                act_idx = np.flatnonzero((kth < bound) & (scored_n > 0))
+            LOGGER.info("depth %s: %s queries left", b, len(act_idx))
+
+            # chunk = rows a..b of each active query's run, clamped
+            lo = starts[act_idx] + a
+            hi = np.minimum(starts[act_idx] + b, ends[act_idx])
+            lens = np.maximum(hi - lo, 0)
+            nonempty = lens > 0
+            lo, lens, act_rows = lo[nonempty], lens[nonempty], act_idx[nonempty]
+            total = int(lens.sum())
+            if total == 0:
+                break
+            offsets = np.concatenate(([0], np.cumsum(lens)[:-1]))
+            within = np.arange(total, dtype=np.int64) - np.repeat(offsets, lens)
+            sel = within + np.repeat(lo, lens)
+
+            need = sel[~have[sel]]
+            if need.size:
+                with annotate("ff.es_score"):
+                    if state["lazy_rows"] is not None:
+                        lazy_rows = state["lazy_rows"]
+                        missing = need[lazy_rows[need] < 0]
+                        if missing.size:
+                            resolved, _ = self._ids.resolve(df["id"].iloc[missing], self.mode)
+                            lazy_rows[missing] = resolved
+                        scored = self._device_score_grouped(
+                            state["view"],
+                            query_vectors,
+                            lazy_rows[need][:, None],
+                            q_no[need],
+                            np.ones(need.size, dtype=np.int32),
+                            1,
+                        )
+                    elif prep is not None:
+                        view, rows_mat, counts_pp, k = prep
+                        scored = self._device_score_grouped(
+                            view, query_vectors, rows_mat[need], q_no[need], counts_pp[need], k
+                        )
+                    else:  # documents with more than _MAX_GROUP_K passages
+                        scored = self._compute_scores(df.iloc[need], query_vectors)
+                ff_cache[need] = scored
+                have[need] = True
+            ff = ff_cache[sel]
+            # interpolate on the host: the inputs are host arrays and the
+            # result feeds the host criterion
+            int_score = (alpha * lex[sel] + (1.0 - alpha) * ff).astype(np.float32)
+
+            # per-query state updates (reduceat over contiguous segments)
+            best_sem[act_rows] = np.maximum(best_sem[act_rows], np.maximum.reduceat(ff, offsets))
+            scored_n[act_rows] += lens
+            # top-k maintenance, vectorized over active queries: each
+            # query's (old top-k ++ new chunk) in one -inf-padded row, the
+            # best `cutoff` partitioned into the tail columns, then sorted
+            n_act = act_rows.shape[0]
+            width = cutoff + int(lens.max())
+            mat = np.full((n_act, width), -np.inf)
+            mat[:, :cutoff] = topk[act_rows]
+            mat[np.repeat(np.arange(n_act), lens), cutoff + within] = int_score
+            best = np.partition(mat, width - cutoff, axis=1)[:, width - cutoff :]
+            topk[act_rows] = -np.sort(-best, axis=1)
+
+            sels.append(sel)
+            ffs.append(ff)
+            a = b
+
+        if not sels:
+            return np.empty(0, dtype=np.int64), np.empty(0, dtype=np.float32)
+        return np.concatenate(sels), np.concatenate(ffs)
+
+    def _assemble_es(
+        self,
+        df: pd.DataFrame,
+        take: np.ndarray,
+        ff: np.ndarray,
+        q_uniques,
+        score_dtype,
+        plan: dict | None,
+        cut: "int | None" = None,
+    ) -> Ranking:
+        """Assemble the ES result ranking from scored-row indices: ordered by
+        (q_id desc, score desc) through the composite-key radix argsort and,
+        with ``cut``, only the top ``cut`` rows of each query kept.
+
+        Categorical ID columns are built (and kept in the plan) only on a
+        repeat call of the same plan; a one-shot ranking takes the frame's
+        own arrays.
+        """
+        arrs = plan.get("es_arrays") if plan is not None else None
+        if arrs is None:
+            # per-row high key bits (query rank): candidate layout only
+            qhi = _query_ranks(q_uniques)[df["q_no"].to_numpy()] << np.uint64(32)
+            if plan is not None and plan.get("es_hot"):
+                qid_arr = pd.Categorical(df["q_id"])
+                id_arr = pd.Categorical(df["id"])
+                query_arr = pd.Categorical(df["query"])
+                plan["es_arrays"] = (qhi, qid_arr, id_arr, query_arr)
+            else:
+                qid_arr = df["q_id"].array
+                id_arr = df["id"].array
+                query_arr = df["query"].array
+        else:
+            qhi, qid_arr, id_arr, query_arr = arrs
+        qhi_take = qhi[take]
+        order = _desc_rank_order(qhi_take, ff)
+        if cut is not None and order.size:
+            # ES-serve tail: keep the top `cut` rows per query directly in
+            # the sorted order — queries are contiguous runs of equal qhi
+            keys = qhi_take[order]
+            run_start = np.empty(keys.size, dtype=bool)
+            run_start[0] = True
+            np.not_equal(keys[1:], keys[:-1], out=run_start[1:])
+            starts = np.flatnonzero(run_start)
+            lens = np.diff(np.concatenate((starts, [keys.size])))
+            pos = np.arange(keys.size, dtype=np.int64) - np.repeat(starts, lens)
+            order = order[pos < cut]
+        final = take[order]
+        out = pd.DataFrame(
+            {
+                "q_id": qid_arr.take(final),
+                "id": id_arr.take(final),
+                "score": ff[order].astype(score_dtype),
+                "query": query_arr.take(final),
+            }
+        )
+        return Ranking._from_trusted_frame(out, "fast-forward")
+
     def __call__(
         self,
         ranking: Ranking,
@@ -792,36 +1155,42 @@ class Index(abc.ABC):
         """Compute semantic scores for a ranking.
 
         :param ranking: The ranking (queries must be attached).
-        :param early_stopping: Must be ``None`` (not ported yet).
-        :param early_stopping_alpha: Must be ``None`` (not ported yet).
-        :param early_stopping_depths: Must be ``None`` (not ported yet).
-        :param batch_size: Queries per device batch; ``None`` (or at least
-            the number of queries) scores all at once, smaller batches are
-            not ported yet.
+        :param early_stopping: Early-stopping cut-off depth.
+        :param early_stopping_alpha: Early-stopping interpolation parameter.
+        :param early_stopping_depths: Early-stopping depth schedule.
+        :param batch_size: Queries per device batch (``None``: all at once).
         :raises ValueError: When the ranking has no queries attached.
+        :raises ValueError: When early-stopping arguments are missing.
         :raises IndexError: When an ID is missing from the index.
         :return: A ranking with the computed scores.
         """
         if not ranking.has_queries:
             raise ValueError("Input ranking has no queries attached.")
-        if (
-            early_stopping is not None
-            or early_stopping_alpha is not None
-            or early_stopping_depths is not None
+        if early_stopping is not None and (
+            early_stopping_alpha is None or early_stopping_depths is None
         ):
-            raise not_ported("early stopping", "6")
+            raise ValueError("Early stopping requires alpha and depths.")
         from fastforward_tpu_torch.utils.tracing import maybe_trace
 
         with maybe_trace():
-            return self._call(ranking, batch_size)
+            return self._call(
+                ranking, early_stopping, early_stopping_alpha, early_stopping_depths, batch_size
+            )
 
-    def _call(self, ranking: Ranking, batch_size: int | None) -> Ranking:
+    def _call(
+        self,
+        ranking: Ranking,
+        early_stopping: int | None,
+        early_stopping_alpha: float | None,
+        early_stopping_depths: Iterable[int] | None,
+        batch_size: int | None,
+    ) -> Ranking:
         t0 = perf_counter()
         score_dtype = ranking._df.dtypes["score"]
         # prepared-run fast path: the same ranking was scored before against
         # the current table — skip all frame work and candidate resolution
         plan = self._get_plan(ranking)
-        if plan.get("ready"):
+        if early_stopping is None and plan.get("ready"):
             queries = plan["queries"]
             if batch_size is None or batch_size >= len(queries):
                 query_vectors = self.encode_queries(queries)
@@ -834,18 +1203,68 @@ class Index(abc.ABC):
         # unique queries -> dense query numbers (device batch indices):
         # factorize numbers queries by first appearance, and the
         # first-occurrence rows carry the matching query strings
-        df = ranking._df.copy()
-        q_codes, q_uniques = pd.factorize(df["q_id"], sort=False)
-        df["q_no"] = q_codes
-        queries = df.loc[~df["q_id"].duplicated(), "query"].tolist()
-        if batch_size is not None and batch_size < len(queries):
-            raise not_ported("scoring in query batches (batch_size)", "4")
+        es_prep = plan.get("es_prep")
+        if es_prep is not None:
+            df, queries, q_uniques = es_prep
+        else:
+            df, queries, q_uniques = _numbered_frame(ranking)
+            if early_stopping is not None:
+                # warm ES calls (alpha sweeps, re-evaluation) reuse the
+                # prepared frame: the plan is keyed on the ranking's frame
+                plan["es_prep"] = (df, queries, q_uniques)
         query_vectors = self.encode_queries(queries)
-        plan["queries"] = queries
-        plan["q_uniques"] = q_uniques
-        out = self._score_and_sort(df, query_vectors, q_uniques, score_dtype, plan=plan)
+        whole = batch_size is None or batch_size >= len(queries)
+
+        if early_stopping is None and whole:
+            plan["queries"] = queries
+            plan["q_uniques"] = q_uniques
+            out = self._score_and_sort(df, query_vectors, q_uniques, score_dtype, plan=plan)
+            if out is not None:
+                LOGGER.info("computed scores in %s seconds", perf_counter() - t0)
+                return out
+
+        if early_stopping is not None and whole:
+            take, ff = self._early_stopping(
+                df, query_vectors, early_stopping, early_stopping_alpha,
+                early_stopping_depths, plan=plan,
+            )
+            out = self._assemble_es(df, take, ff, q_uniques, score_dtype, plan)
+            LOGGER.info("computed scores in %s seconds", perf_counter() - t0)
+            return out
+
+        def _get_result(frame: pd.DataFrame) -> pd.DataFrame:
+            if early_stopping is None:
+                return frame.assign(ff_score=self._compute_scores(frame, query_vectors))
+            # the ES state is frame-aligned: never plan-cached for a batch
+            take, ff = self._early_stopping(
+                frame, query_vectors, early_stopping, early_stopping_alpha,
+                early_stopping_depths, plan=None,
+            )
+            return frame.iloc[take].assign(ff_score=ff)
+
+        if whole:
+            result = _get_result(df)
+        else:
+            result = pd.concat(
+                [
+                    _get_result(df[(df["q_no"] >= start) & (df["q_no"] < start + batch_size)])
+                    for start in range(0, len(queries), batch_size)
+                ]
+            )
+        result["score"] = result["ff_score"]
+
+        # order rows by (q_id desc, score desc) with an integer lexsort over
+        # query codes instead of a string sort
+        order = np.lexsort(
+            (
+                -result["score"].to_numpy(dtype=np.float64),
+                _query_ranks(q_uniques)[result["q_no"].to_numpy()],
+            )
+        )
         LOGGER.info("computed scores in %s seconds", perf_counter() - t0)
-        return out
+        return Ranking(
+            result.iloc[order], name="fast-forward", dtype=score_dtype, copy=False, is_sorted=True
+        )
 
     def submit(self, ranking: Ranking) -> ScoreFuture:
         """Launch scoring for a ranking and return a future (pipelined
@@ -864,6 +1283,10 @@ class Index(abc.ABC):
                 pending = fut
             results.append(pending.result())
 
+        Rankings outside the deferred fast path (documents with more than
+        ``_MAX_GROUP_K`` passages) are scored eagerly here; the future then
+        hands back the finished ranking (``future.pipelined`` is ``False``).
+
         :param ranking: The ranking (queries must be attached).
         :raises ValueError: When the ranking has no queries attached.
         :raises IndexError: When an ID is missing from the index.
@@ -880,16 +1303,15 @@ class Index(abc.ABC):
                 None, query_vectors, plan["q_uniques"], score_dtype, plan=plan, defer=True
             )
         else:
-            df = ranking._df.copy()
-            q_codes, q_uniques = pd.factorize(df["q_id"], sort=False)
-            df["q_no"] = q_codes
-            queries = df.loc[~df["q_id"].duplicated(), "query"].tolist()
+            df, queries, q_uniques = _numbered_frame(ranking)
             plan["queries"] = queries
             plan["q_uniques"] = q_uniques
             query_vectors = self.encode_queries(queries)
             deferred = self._score_and_sort(
                 df, query_vectors, q_uniques, score_dtype, plan=plan, defer=True
             )
+        if deferred is None:
+            return ScoreFuture(result=self(ranking))
         return ScoreFuture(finish=deferred)
 
     def serve(
@@ -908,20 +1330,27 @@ class Index(abc.ABC):
         ``ranking.py:279-291``), but the interpolation and the top-k run on
         the device, so only ``num_queries x cutoff`` (score, index) pairs
         come back to the host.  Ties at the cutoff go to the candidate that
-        comes first in the ranking.
+        comes first in the ranking.  Documents with more than
+        ``_MAX_GROUP_K`` passages take that unfused flow itself (its scoring
+        still runs on the device).
+
+        With ``early_stopping_depths`` the semantic scores come from the
+        early-stopping schedule (cutoff ``cutoff``, alpha ``alpha``) and the
+        interpolation covers only the scored subset: a never-scored
+        candidate is not surfaced on its lexical score alone.
 
         With ``refine=margin`` the call runs two-phase: the bf16 ``"fast"``
         tier preselects the top ``cutoff + margin`` candidates per query,
         whose dots are then recomputed in full fp32 on the device before the
         final cut — the returned scores are exact, and a true top-``cutoff``
         candidate is lost only if the bf16 error pushes it below ``margin``
-        others.  Quantized indexes ignore ``refine`` and serve in their own
-        precision tier.
+        others.  Only dense tables with one row per pair refine; quantized
+        indexes and the document modes serve in their own precision tier.
 
         :param ranking: The ranking (queries must be attached).
         :param alpha: Interpolation parameter (lexical weight).
         :param cutoff: Top-k depth per query to return.
-        :param early_stopping_depths: Must be ``None`` (not ported yet).
+        :param early_stopping_depths: Optional early-stopping depth schedule.
         :param refine: Optional two-phase margin (see above).
         :raises ValueError: When the ranking has no queries attached.
         :raises ValueError: When the cutoff is not positive.
@@ -929,9 +1358,8 @@ class Index(abc.ABC):
         :raises IndexError: When an ID is missing from the index.
         :return: The interpolated, cut ranking.
         """
-        return self._serve(
-            ranking, alpha, cutoff, False, early_stopping_depths, refine
-        )()
+        out = self._serve(ranking, alpha, cutoff, False, early_stopping_depths, refine)
+        return out if isinstance(out, Ranking) else out()
 
     def submit_serve(
         self,
@@ -943,14 +1371,17 @@ class Index(abc.ABC):
     ) -> ScoreFuture:
         """Pipelined :meth:`serve`: launch now, fetch in ``result()``.
 
+        Early stopping and the unfused flow run eagerly (the future's
+        ``pipelined`` is then ``False``).
+
         :return: A :class:`ScoreFuture` whose ``result()`` equals
-            ``self.serve(ranking, alpha, cutoff, refine=refine)``.
+            ``self.serve(ranking, alpha, cutoff, early_stopping_depths,
+            refine)``.
         """
-        return ScoreFuture(
-            finish=self._serve(
-                ranking, alpha, cutoff, True, early_stopping_depths, refine
-            )
-        )
+        out = self._serve(ranking, alpha, cutoff, True, early_stopping_depths, refine)
+        if isinstance(out, Ranking):
+            return ScoreFuture(result=out)
+        return ScoreFuture(finish=out)
 
     def _serve(
         self,
@@ -960,7 +1391,7 @@ class Index(abc.ABC):
         defer: bool,
         early_stopping_depths: "Iterable[int] | None" = None,
         refine: "int | None" = None,
-    ) -> "Callable[[], Ranking]":
+    ) -> "Ranking | Callable[[], Ranking]":
         if not ranking.has_queries:
             raise ValueError("Input ranking has no queries attached.")
         if cutoff < 1:
@@ -968,7 +1399,7 @@ class Index(abc.ABC):
         if refine is not None and refine < 0:
             raise ValueError("refine margin must be non-negative.")
         if early_stopping_depths is not None:
-            raise not_ported("early stopping", "6")
+            return self._serve_early_stopping(ranking, alpha, cutoff, early_stopping_depths)
         t0 = perf_counter()
         plan = self._get_plan(ranking)
         if plan.get("cand_ready") and plan.get("queries") is not None:
@@ -985,9 +1416,37 @@ class Index(abc.ABC):
         finish = self._serve_fused(
             ranking, query_vectors, q_uniques, q_codes, plan, alpha, cutoff, refine
         )
+        if finish is None:
+            # the unfused flow (documents with more than _MAX_GROUP_K passages)
+            out = ranking.interpolate(self(ranking), alpha).cut(cutoff)
+            out.name = "fast-forward"
+            return out
         if not defer:
             LOGGER.info("served interpolated top-%d in %s seconds", cutoff, perf_counter() - t0)
         return finish
+
+    def _serve_early_stopping(
+        self, ranking: Ranking, alpha: float, cutoff: int, depths: Iterable[int]
+    ) -> Ranking:
+        """Early-stopping serve: schedule-scored subset -> interpolate -> cut.
+
+        The interpolation covers only the scored subset (an outer-merge
+        ``interpolate`` would give never-scored candidates a semantic score
+        of 0) and runs on the host over the ES loop's own ``(take, ff)``
+        arrays; the cut happens inside the result sort
+        (``_assemble_es(cut=...)``).
+        """
+        plan = self._get_plan(ranking)
+        if "es_prep" not in plan:
+            plan["es_prep"] = _numbered_frame(ranking)
+        df, queries, q_uniques = plan["es_prep"]
+        query_vectors = self.encode_queries(queries)
+        take, ff = self._early_stopping(df, query_vectors, cutoff, alpha, depths, plan=plan)
+        lex = plan["es_state"]["lex"] if "es_state" in plan else df["score"].to_numpy(np.float32)
+        interp = (alpha * lex[take] + (1.0 - alpha) * ff).astype(np.float32)
+        return self._assemble_es(
+            df, take, interp, q_uniques, ranking._df.dtypes["score"], plan, cut=cutoff
+        )
 
     def _serve_fused(
         self,
@@ -999,8 +1458,9 @@ class Index(abc.ABC):
         alpha: float,
         cutoff: int,
         refine: "int | None" = None,
-    ) -> "Callable[[], Ranking]":
-        """Launch the fused serve program; return the finish callable.
+    ) -> "Callable[[], Ranking] | None":
+        """Launch the fused serve program; return the finish callable, or
+        ``None`` when the candidates need the unfused flow.
 
         Static artifacts (candidate arrays, the per-query slot layout, the
         lexical score upload, output id arrays) are plan-cached: warm calls
@@ -1018,7 +1478,10 @@ class Index(abc.ABC):
         else:
             n_pairs = len(ranking._df)
             pair_qno = q_codes.astype(np.int64)
-            view, rows_mat, counts_pp, k = self._candidate_arrays(ranking._df)
+            prep = self._candidate_arrays(ranking._df)
+            if prep is None:
+                return None
+            view, rows_mat, counts_pp, k = prep
             plan.update(
                 n_pairs=n_pairs,
                 pair_qno=pair_qno,

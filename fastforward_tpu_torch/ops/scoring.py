@@ -1,15 +1,18 @@
 """Scoring ops on the re-rank and serve path: candidate layout, kernels, top-k.
 
-The port of the ``fastforward_tpu/ops/scoring.py`` subset that the main
-path runs.  Dense candidate sets stream through the kernels
-(:func:`streamed_scores`: K1 or K2 for fp32/bf16/int8 tables;
-:func:`streamed_scores_pq`: K3 or K4 for PQ codes; both fuse the slot
-gather after the kernel); sparse sets take the plain gather-dots
-:func:`score_pairs_bounded` and :func:`score_pairs_grouped_pq`; the fused
-serve tail interpolates and cuts per query (:func:`serve_topk`,
-:func:`serve_topk_refine`).  Everything runs on the device of the table;
-the hand-written kernel runs for CUDA tensors, its plain version for CPU
-tensors, and nothing falls back from one to the other.
+The port of the ``fastforward_tpu/ops/scoring.py`` single-device subset.
+Dense candidate sets stream through the kernels (:func:`streamed_scores`:
+K1 or K2 for fp32/bf16/int8 tables; :func:`streamed_scores_pq`: K3 or K4
+for PQ codes; both fuse the slot gather and the document modes' K-reduce
+after the kernel); sparse or ungrouped sets take the plain gather-dots
+:func:`score_pairs_bounded`, :func:`score_pairs_grouped` and
+:func:`score_pairs_grouped_pq`; ragged documents take the flat layout's
+:func:`score_pairs_dense` and :func:`score_pairs_pq` with a segment
+reduce; the fused serve tail interpolates and cuts per query
+(:func:`serve_topk`, :func:`serve_topk_refine`).  Everything runs on the
+device of the table; the hand-written kernel runs for CUDA tensors, its
+plain version for CPU tensors, and nothing falls back from one to the
+other.
 
 No matmul appears on the exact path: every fp32 dot is an elementwise
 multiply and an fp32 sum, so TF32 settings cannot change a result.
@@ -19,6 +22,7 @@ import numpy as np
 import torch
 
 from fastforward_tpu_torch.ops import stream_kernel, stream_kernel_pq
+from fastforward_tpu_torch.utils.tracing import annotate
 
 _BUCKET_MIN = 256
 
@@ -61,8 +65,11 @@ def _round_bf16(x: torch.Tensor) -> torch.Tensor:
 # -- host transfers ----------------------------------------------------------
 
 
-def fetch_np(arr: torch.Tensor) -> np.ndarray:
-    """Copy a tensor to a host numpy array (waits for the device)."""
+def fetch_np(arr: "torch.Tensor | np.ndarray") -> np.ndarray:
+    """Copy a tensor to a host numpy array (waits for the device); host
+    arrays pass through."""
+    if isinstance(arr, np.ndarray):
+        return arr
     return arr.detach().cpu().numpy()
 
 
@@ -234,18 +241,20 @@ def _cached_layout(
     key: str,
     n_pad: int,
     q_pad: np.ndarray,
-    rows: np.ndarray,
-    qno: np.ndarray,
+    rows: "np.ndarray | None",
+    qno: "np.ndarray | None",
     r: int,
     plan: dict | None,
     device: torch.device,
 ) -> "tuple[torch.Tensor, torch.Tensor, torch.Tensor] | None":
     """The streamed layout's device grid ``(cand3, tile_idx, slot_of_pair)``,
-    built once and kept in ``plan[key]``; ``None`` when no layout applies."""
+    built once and kept in ``plan[key]`` (``rows`` and ``qno`` may then be
+    ``None``); ``None`` when no layout applies."""
     cached = plan.get(key) if plan is not None else None
     if cached is None:
         cap = _adaptive_cap(rows.shape[0], n_pad // r)
-        layout = build_streamed_layout(rows, qno, n_pad, q_pad.shape[0], r=r, cap=cap)
+        with annotate("ff.layout"):
+            layout = build_streamed_layout(rows, qno, n_pad, q_pad.shape[0], r=r, cap=cap)
         if layout is None:
             return None
         cand, tile_idx, slot_of_pair = layout
@@ -271,8 +280,8 @@ def _pick_slots(outs, slot_dev, reduce, fetch):
 def streamed_scores(
     table: torch.Tensor,
     q_pad: np.ndarray,
-    rows: np.ndarray,
-    qno: np.ndarray,
+    rows: "np.ndarray | None",
+    qno: "np.ndarray | None",
     precision: str = "exact",
     plan: dict | None = None,
     reduce: "tuple[str, int, torch.Tensor] | None" = None,
@@ -285,7 +294,8 @@ def streamed_scores(
     tile (K1 for 2D tables and for int8 tables at ``cap <= r``, K2 for int8
     tables at ``cap > r``) and gathers each pair's slot on the device.  With
     ``reduce=(op, k, counts)`` the rows are a flattened ``(P, K)`` grouped
-    layout reduced along K on the device.
+    layout reduced along K on the device.  ``rows`` and ``qno`` may be
+    ``None`` when ``plan`` already holds the layout.
 
     :param table: ``(N_pad, dim)`` fp32/bf16, or int8 ``(N_pad, dim/128,
         128)`` codes (scales folded into ``q_pad``).
@@ -310,8 +320,8 @@ def streamed_scores_pq(
     codes: torch.Tensor,
     codebooks: torch.Tensor,
     q_pad: np.ndarray,
-    rows: np.ndarray,
-    qno: np.ndarray,
+    rows: "np.ndarray | None",
+    qno: "np.ndarray | None",
     precision: str = "exact",
     plan: dict | None = None,
     reduce: "tuple[str, int, torch.Tensor] | None" = None,
@@ -338,6 +348,42 @@ def streamed_scores_pq(
         codes, codebooks, q_dev.t(), cand_dev, tile_dev, r=r, precision=precision
     )
     return _pick_slots(outs, slot_dev, reduce, fetch)
+
+
+def _segment_reduce(
+    row_scores: torch.Tensor, seg: torch.Tensor, num_out: int, op: str
+) -> torch.Tensor:
+    """Reduce per-row scores into per-pair scores (the flat layout).
+
+    Padding rows carry ``seg == num_out`` (a sentinel slot that is dropped);
+    a pair with no rows gets ``-inf`` under ``"max"`` and 0 otherwise.
+    """
+    n = num_out + 1
+    seg = seg.long()
+    if op == "max":
+        out = torch.full((n,), -torch.inf, dtype=torch.float32, device=row_scores.device)
+        out = out.scatter_reduce(0, seg, row_scores, "amax")
+    else:
+        out = torch.zeros(n, dtype=torch.float32, device=row_scores.device)
+        out.index_add_(0, seg, row_scores)
+        if op == "mean":
+            counts = torch.zeros_like(out).index_add_(0, seg, torch.ones_like(row_scores))
+            out = out / counts.clamp(min=1.0)
+    return out[:num_out]
+
+
+def host_segment_reduce(
+    scores: np.ndarray, seg: np.ndarray, n_out: int, op: str
+) -> np.ndarray:
+    """Numpy segment reduction (``max``/``sum``): the host twin of
+    :func:`_segment_reduce` for already-fetched per-row scores."""
+    if op == "max":
+        out = np.full(n_out, -np.inf, dtype=np.float32)
+        np.maximum.at(out, seg, scores)
+        return out
+    out = np.zeros(n_out, dtype=np.float64)
+    np.add.at(out, seg, scores)
+    return out.astype(np.float32)
 
 
 def masked_reduce_host(mat: np.ndarray, counts: np.ndarray, op: str) -> np.ndarray:
@@ -393,11 +439,85 @@ def score_pairs_bounded(
     """
     iota = torch.arange(rows.shape[0], device=rows.device, dtype=torch.int32)
     qno = torch.searchsorted(bounds, iota, right=True).clamp(0, qvecs.shape[0] - 1)
-    d = table[rows.long()].reshape(rows.shape[0], -1).float()
-    q = qvecs[qno]
-    if precision == "fast":
-        d, q = _round_bf16(d), _round_bf16(q)
-    return (d * q).sum(-1)
+    return _gathered_dots(table, qvecs, rows, qno, precision)
+
+
+def _gathered_dots(
+    table: torch.Tensor,
+    qvecs: torch.Tensor,
+    rows: torch.Tensor,
+    qno: torch.Tensor,
+    precision: str,
+) -> torch.Tensor:
+    """``table[rows[i]] . qvecs[qno[i]]`` per row as an elementwise multiply
+    and an fp32 sum (bf16-rounded operands for ``"fast"``), in chunks that
+    bound the gathered temporaries."""
+    out = torch.empty(rows.shape[0], dtype=torch.float32, device=table.device)
+    step = stream_kernel._PLAIN_CHUNK_SLOTS
+    for lo in range(0, rows.shape[0], step):
+        d = table[rows[lo : lo + step].long()].reshape(-1, qvecs.shape[1]).float()
+        q = qvecs[qno[lo : lo + step].long()].float()
+        if precision == "fast":
+            d, q = _round_bf16(d), _round_bf16(q)
+        out[lo : lo + step] = (d * q).sum(-1)
+    return out
+
+
+def score_pairs_grouped(
+    table: torch.Tensor,
+    qvecs: torch.Tensor,
+    idx: torch.Tensor,
+    op: str,
+    precision: str = "exact",
+) -> torch.Tensor:
+    """Scoring over the dense ``(pairs, K)`` candidate layout (sparse or
+    ungrouped candidate sets).
+
+    Each (query, doc) pair scores up to ``K`` rows; the ranking ``Mode``
+    becomes the masked reduction along K (max / mean / first).
+
+    :param table: Embedding table, ``(N, dim)`` or int8 codes ``(N,
+        dim/128, 128)``.
+    :param qvecs: Query vectors, ``(Q, dim)`` fp32.
+    :param idx: Stacked int32 ``(K + 1, S)``: the row matrix (first ``K``
+        rows, transposed) and a packed last row ``qno * 256 + counts``
+        (counts <= 255; 0 for padding pairs).
+    :param op: ``"max"`` | ``"mean"`` | ``"first"``.
+    :param precision: ``"exact"``, ``"high"`` or ``"fast"``.
+    :return: Per-pair scores, ``(S,)`` fp32.
+    """
+    k = idx.shape[0] - 1
+    s = idx.shape[1]
+    qno = idx[k] >> 8
+    row_scores = _gathered_dots(
+        table, qvecs, idx[:k].T.reshape(-1), qno.repeat_interleave(k), precision
+    )
+    return _masked_reduce(row_scores.view(s, k), idx[k] & 0xFF, op)
+
+
+def score_pairs_dense(
+    table: torch.Tensor,
+    qvecs: torch.Tensor,
+    idx: torch.Tensor,
+    num_out: int,
+    op: str,
+    precision: str = "exact",
+) -> torch.Tensor:
+    """Score (query, doc) pairs over the flat per-row layout (ragged
+    documents, or more queries than the grouped packing holds).
+
+    :param table: Embedding table, ``(N, dim)`` or int8 codes ``(N,
+        dim/128, 128)``.
+    :param qvecs: Query vectors, ``(Q, dim)`` fp32.
+    :param idx: Stacked int32 ``(3, P)``: table row, query row and output
+        pair per candidate row (padding rows carry ``num_out``).
+    :param num_out: Number of output pairs.
+    :param op: ``"max"`` | ``"mean"`` | ``"sum"``.
+    :param precision: ``"exact"``, ``"high"`` or ``"fast"``.
+    :return: Per-pair scores, ``(num_out,)`` fp32.
+    """
+    row_scores = _gathered_dots(table, qvecs, idx[0], idx[1], precision)
+    return _segment_reduce(row_scores, idx[2], num_out, op)
 
 
 def pq_lut(qvecs: torch.Tensor, codebooks: torch.Tensor) -> torch.Tensor:
@@ -445,16 +565,42 @@ def score_pairs_grouped_pq(
     """
     k = idx.shape[0] - 1
     s = idx.shape[1]
-    rows_flat = idx[:k].T.reshape(-1).long()
-    qno = (idx[k] >> 8).long()
-    counts = idx[k] & 0xFF
-    m = codebooks.shape[0]
-    lut = pq_lut(qvecs, codebooks)
-    c = codes[rows_flat][:, :m].long()
+    qno = idx[k] >> 8
+    row_scores = _adc_rows(
+        codes, pq_lut(qvecs, codebooks), idx[:k].T.reshape(-1), qno.repeat_interleave(k)
+    )
+    return _masked_reduce(row_scores.view(s, k), idx[k] & 0xFF, op)
+
+
+def _adc_rows(
+    codes: torch.Tensor, lut: torch.Tensor, rows: torch.Tensor, qno: torch.Tensor
+) -> torch.Tensor:
+    """Per row, the sum over subspaces of its query's LUT entry at the
+    row's code (``lut`` from :func:`pq_lut`)."""
+    m = lut.shape[1]
+    c = codes[rows.long()][:, :m].long()
     subspace = torch.arange(m, device=codes.device)[None, :]
-    qno_flat = qno.repeat_interleave(k)
-    row_scores = lut[qno_flat[:, None], subspace, c].sum(-1)
-    return _masked_reduce(row_scores.view(s, k), counts, op)
+    return lut[qno.long()[:, None], subspace, c].sum(-1)
+
+
+def score_pairs_pq(
+    codes: torch.Tensor,
+    codebooks: torch.Tensor,
+    qvecs: torch.Tensor,
+    idx: torch.Tensor,
+    num_out: int,
+    op: str,
+) -> torch.Tensor:
+    """ADC-score (query, doc) pairs against PQ codes over the flat per-row
+    layout (:func:`score_pairs_dense`'s ``idx`` and ``op``).
+
+    :param codes: PQ codes, ``(N, M)``.
+    :param codebooks: Codebooks, ``(M, Ks, Ds)`` fp32.
+    :param qvecs: (OPQ-rotated) query vectors, ``(Q, M * Ds)`` fp32.
+    :return: Per-pair scores, ``(num_out,)`` fp32.
+    """
+    row_scores = _adc_rows(codes, pq_lut(qvecs, codebooks), idx[0], idx[1])
+    return _segment_reduce(row_scores, idx[2], num_out, op)
 
 
 # -- fused serve tail --------------------------------------------------------

@@ -132,6 +132,73 @@ def test_cuda_index_matches_cpu_index(cuda, precision):
     )
 
 
+def _doc_workload(seed: int, n=8192, queries=24, depth=80):
+    """A corpus of documents with 1-7 passages each, and a document run of
+    ``queries`` x ``depth`` (at 8 rows per pair: cap 1024 over 512-row
+    tiles, K1 fp32 at ``cap > r``)."""
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(1, 8, size=n)
+    counts = counts[: int(np.searchsorted(np.cumsum(counts), n)) + 1]
+    counts[-1] -= counts.sum() - n
+    doc_ids = [f"d{d}" for d, c in enumerate(counts) for _ in range(c)]
+    corpus = rng.standard_normal((n, DIM), dtype=np.float32)
+    qvecs = rng.standard_normal((queries, DIM), dtype=np.float32)
+    run = {
+        f"q{i}": {f"d{c}": float(depth - j) for j, c in enumerate(rng.choice(len(counts), depth, replace=False))}
+        for i in range(queries)
+    }
+    ranking = ft.Ranking.from_run(run, queries={f"q{i}": f"query {i}" for i in range(queries)})
+    by_text = {f"query {i}": qvecs[i] for i in range(queries)}
+    return corpus, doc_ids, by_text, ranking
+
+
+def _assert_rankings_close(cpu_r, cuda_r):
+    """The same rows in the same order; scores at atol 1e-4, rtol 1e-5 (fp32
+    sums in another order)."""
+    a, b = cpu_r._df, cuda_r._df
+    for col in ("q_id", "id"):
+        np.testing.assert_array_equal(a[col].astype(str), b[col].astype(str))
+    np.testing.assert_allclose(b["score"], a["score"], atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("mode", ["MAXP", "AVEP"])
+def test_cuda_doc_modes_match_cpu(cuda, mode):
+    """Document re-rank and serve on the card (K1 fp32 at cap 1024 with the
+    K-reduce on the card) against the same index on the CPU."""
+    corpus, doc_ids, by_text, ranking = _doc_workload(3)
+    out = {}
+    for device in ("cpu", "cuda"):
+        index = InMemoryIndex(
+            query_encoder=LambdaEncoder(by_text.__getitem__), mode=Mode[mode], device=device
+        )
+        index.add(corpus, doc_ids=doc_ids)
+        before = sk.stream_select_pairwise.launches
+        out[device] = (index(ranking), index.serve(ranking, 0.2, 10))
+        assert sk.stream_select_pairwise.launches - before == (2 if device == "cuda" else 0)
+        cand3 = index._get_plan(ranking)["stream"][0]
+        assert cand3.shape[1] * 128 > sk.KERNEL_TILE_ROWS
+    for cpu_r, cuda_r in zip(out["cpu"], out["cuda"]):
+        _assert_rankings_close(cpu_r, cuda_r)
+
+
+def test_cuda_early_stopping_matches_cpu(cuda):
+    """One early-stopping re-rank and serve on the card against the same
+    index on the CPU: the same rows, scores within the fp32 tolerance."""
+    corpus, doc_ids, by_text, ranking = _doc_workload(4, depth=200)
+    kw = dict(early_stopping=10, early_stopping_alpha=0.2, early_stopping_depths=(20, 50, 200))
+    out = {}
+    for device in ("cpu", "cuda"):
+        index = InMemoryIndex(
+            query_encoder=LambdaEncoder(by_text.__getitem__), mode=Mode.MAXP, device=device
+        )
+        index.add(corpus, doc_ids=doc_ids)
+        before = sk.stream_select_pairwise.launches
+        out[device] = (index(ranking, **kw), index.serve(ranking, 0.2, 10, early_stopping_depths=(20, 200)))
+        assert (sk.stream_select_pairwise.launches > before) == (device == "cuda")
+    for cpu_r, cuda_r in zip(out["cpu"], out["cuda"]):
+        _assert_rankings_close(cpu_r, cuda_r)
+
+
 # -- K2, K3, K4 and the quantized index --------------------------------------------
 
 M_PQ, KS, DS = 32, 256, 8

@@ -215,18 +215,23 @@ def test_quantizer_must_be_a_trained_quantizer():
         InMemoryIndex(device="cpu", quantizer=ScalarQuantizer())
 
 
-def test_unported_scoring_paths_raise(data):
+def test_unported_scoring_paths_raise(data, monkeypatch):
+    """What the port still lacks raises, naming its ROADMAP item: the u16
+    score transport (item 5) and scoring without a device table, the host
+    gather of on-disk indexes (item 7); the document modes, early stopping
+    and query batches score."""
     corpus, by_text, _, _ = data
+    with pytest.raises(NotImplementedError, match="item 5"):
+        InMemoryIndex(device="cpu", score_transport="u16")
     index = InMemoryIndex(
         query_encoder=LambdaEncoder(by_text.__getitem__), mode=Mode.MAXP, device="cpu"
     )
-    index.add(corpus[:8], doc_ids=[f"d{i}" for i in range(8)])
-    r = ft.Ranking.from_run({"q0": {"d1": 1.0}}, queries={"q0": "query 0"})
-    with pytest.raises(NotImplementedError, match="item 4"):
-        index(r)
-    index.mode = Mode.FIRSTP
-    with pytest.raises(NotImplementedError, match="item 6"):
-        index(r, early_stopping=5, early_stopping_alpha=0.2, early_stopping_depths=[5])
-    with pytest.raises(NotImplementedError, match="item 6"):
-        index.serve(r, 0.2, 1, early_stopping_depths=[5])
-    assert len(index(r)._df) == 1
+    index.add(corpus[:8], doc_ids=[f"d{i // 2}" for i in range(8)])
+    r = ft.Ranking.from_run({"q0": {"d1": 1.0, "d2": 0.5}}, queries={"q0": "query 0"})
+    assert len(index(r)._df) == 2
+    assert len(index(r, early_stopping=1, early_stopping_alpha=0.2, early_stopping_depths=[1, 2])._df) >= 1
+    assert len(index.serve(r, 0.2, 1, early_stopping_depths=[1, 2])._df) == 1
+    assert index(r, batch_size=1) == index(r)
+    monkeypatch.setattr(index, "_device_view", lambda: None)
+    with pytest.raises(NotImplementedError, match="item 7"):
+        index(ft.Ranking.from_run({"q0": {"d3": 1.0}}, queries={"q0": "query 0"}))
