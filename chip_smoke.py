@@ -17,7 +17,11 @@ Phases, each of which must pass (any failure exits non-zero):
    ``cap > r`` for fp32, bf16 and int8 tables, every tier, and K3
    (``stream_select_pq_pairwise``) at ``cap <= r`` and K4
    (``stream_select_pq``) at ``cap > r`` for ``PQ(M, Ks)`` with M 24, 96 and
-   384 (the lookup table in chunks) and Ks 16 and 256, every tier;
+   384 (the lookup table in chunks) and Ks 16 and 256, every tier; and K1
+   on fp32 tables at dim 768 on tiles that pin the shortcuts of its body
+   (``fp32_edge_tiles``: padding alone, runs of repeated slots across warp
+   and block boundaries, one row wanted by every slot, a padding query that
+   is not zero) at every cap from 128 to 1024, r 512 and 128, both tiers;
 3. re-rank at the flagship shape (N = 2,000,000 passages, dim 768, fp32,
    Q = 512 queries x depth 1000, ``Mode.PASSAGE``, precision ``"high"``):
    one cold and several warm ``index(ranking)`` calls, 32 queries checked
@@ -145,13 +149,15 @@ ENCODE_AGREE = 0.999  # least share of those codes that must agree
 FIT_CHECK_N = 1 << 14  # clustered rows of the on-card k-means check (half train, half held out)
 FIT_AGREE = 0.99  # least share of held-out codes the card's and the CPU's fits agree on
 #: what one wrapper call launches on the card, as parts of the names the
-#: profiler gives them: K1's fp32 body; the query-major K1 (bf16, int8) and
+#: profiler gives them: K1's fp32 body (in the fast tier after rounding the
+#: queries); the query-major K1 (bf16, int8) and
 #: K2 (a memset, the grouping of query_groups.cuh, the dot of
 #: dense_dot.cuh); K3 and K4 (the grouping, then adc_lut.cuh's table and
 #: score kernels)
 GROUP_KERNEL_NAMES = ("ff::groups::count_kernel", "ff::groups::scatter_kernel")
 CALL_KERNELS = {
-    "pairwise": ("(anonymous namespace)::pairwise_kernel<",),
+    "pairwise": ("ff::tile_dot::tile_dot_kernel<",),
+    "pairwise_fast": ("ff::tile_dot::round_kernel", "ff::tile_dot::tile_dot_kernel<"),
     "dense": ("Memset", *GROUP_KERNEL_NAMES, "ff::dense::dot_kernel<"),
     "adc": ("Memset", *GROUP_KERNEL_NAMES, "ff::adc::adc_table_kernel", "ff::adc::adc_score_kernel"),
 }
@@ -598,6 +604,11 @@ def traced_kernels(fn, kernels) -> dict:
     for _ in range(PROFILE_TRIES):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            # a device item ahead of the call's: late in the process the
+            # profiler has dropped the first device item of such traces (the
+            # memset of a grouped call; K1's fp32 call, one kernel, lost it
+            # in all tries)
+            torch.zeros(1, device="cuda")
             fn()
             torch.cuda.synchronize()
         out = {}
@@ -831,6 +842,77 @@ def dense_small_cases(sk, rng, n_pad, queries, rates) -> list:
     return rows_out
 
 
+def fp32_edge_tiles(rng, cap: int, r: int, qb: int, n_tiles: int):
+    """Virtual tiles that pin each shortcut of K1's fp32 body
+    (``csrc/tile_dot.cuh``; the padding value is ``qb - 1``):
+
+    0. runs of one value, the first at slot 0, runs across slots 31/32 (a
+       warp's slots) and 255/256 (a block's threads), the last ending at
+       slot ``cap - 1``; padding slots scattered between them; slots 33-39
+       repeat slots 20-31 after a break (a run of their own);
+    1. padding alone, on a tile other than 0;
+    2. one local row wanted by every slot, over random queries;
+    3. one value in every slot (a single run);
+    4. distinct random values, then tail padding (as the layout builder
+       leaves a tile);
+    5. padding alone on tile 0 (a bucket tile);
+    6. pairs of 1-7 rows padded to 8 slots by repeating the last row, one
+       query a pair (a document mode's K = 8), then tail padding;
+    7. padding first, one real value in slot ``cap - 1``.
+
+    Returns ``(cand (8, cap), tile_idx (8,))`` int32 numpy arrays."""
+    pad = qb - 1
+
+    def val():
+        return rng.integers(0, r) * qb + rng.integers(0, qb)
+
+    cand = np.full((8, cap), pad, dtype=np.int64)
+    bounds = sorted({0, 20, 40, 250, 262, cap - 50, cap})
+    for lo, hi in zip(bounds, bounds[1:]):
+        cand[0, lo:hi] = val()
+    cand[0, rng.choice(np.arange(1, cap - 1), size=cap // 16, replace=False)] = pad
+    cand[0, 32] = val()
+    cand[2] = rng.integers(0, r) * qb + rng.integers(0, qb, size=cap)
+    cand[3] = val()
+    cand[4, : cap * 2 // 3] = rng.permutation(r * qb)[: cap * 2 // 3]
+    for pos in range(0, cap * 3 // 4 - 7, 8):
+        n_rows, local = int(rng.integers(1, 8)), int(rng.integers(0, r - 7))
+        cand[6, pos:pos + 8] = (local + np.minimum(np.arange(8), n_rows - 1)) * qb + rng.integers(0, qb)
+    cand[7, cap - 1] = val()
+    tile_idx = rng.integers(1, n_tiles, size=8)
+    tile_idx[5] = 0
+    return cand.astype(np.int32), tile_idx.astype(np.int32)
+
+
+def fp32_edge_cases(sk, rng, n_pad) -> list:
+    """K1's fp32 body against its plain version on :func:`fp32_edge_tiles`
+    at dim ``DIM``, every cap from 128 to 1024, r 512 and 128 (``cap <= r``
+    and ``cap > r``), both tiers; the padding query is not zero."""
+    qb = 37
+    table = torch.from_numpy(rng.standard_normal((n_pad, DIM), dtype=np.float32)).cuda()
+    q = rng.standard_normal((qb, DIM), dtype=np.float32)
+    q[qb - 1] *= 3.0
+    q = torch.from_numpy(q).cuda()
+    rows_out = []
+    for r in (512, 128):
+        for cap in (128, 256, 512, 1024):
+            cand, tidx = fp32_edge_tiles(rng, cap, r, qb, n_pad // r)
+            cand3 = torch.from_numpy(cand.reshape(8, cap // 128, 128)).cuda()
+            tile_idx = torch.from_numpy(tidx).cuda()
+            for exact in (True, False):
+                rows_out.append(hold(
+                    f"K1 fp32 edge tiles cap {cap} r {r} {'exact' if exact else 'fast'}",
+                    lambda c=cand3, t=tile_idx, e=exact, rr=r: sk.stream_select_pairwise(
+                        table, q, c, t, r=rr, exact=e),
+                    lambda c=cand3, t=tile_idx, e=exact, rr=r: sk.stream_select_pairwise_plain(
+                        table, q, c, t, r=rr, exact=e),
+                    lambda c=cand3, t=tile_idx, e=exact, rr=r: sk.stream_select_pairwise_plain(
+                        table.abs(), q.abs(), c, t, r=rr, exact=e),
+                    DIM, False, None,
+                ))
+    return rows_out
+
+
 def pq_small_cases(skpq, rng, n_pad, queries, rates) -> list:
     """K3 (cap <= r) and K4 (cap > r) against their plain versions at
     ``n_pad`` rows, dim ``DIM``, every tier, for each ``(M, Ks)`` of
@@ -1035,6 +1117,9 @@ def main() -> int:
     log(f"[kernel-small] K1 (cap 512) and K2 (cap 1024) vs plain at n_pad {n_pad}, dim {DIM}, "
         f"fp32/bf16/int8 tables; layouts {SMALL_LAYOUTS}")
     small += dense_small_cases(sk, rng, n_pad, queries_s, rates)
+    log(f"[kernel-small] K1 fp32 vs plain at n_pad {n_pad}, dim {DIM} on tiles that pin its "
+        "shortcuts (padding, repeats, one row a tile), caps 128-1024, r 512 and 128")
+    small += fp32_edge_cases(sk, rng, n_pad)
     log(f"[kernel-small] K3 (cap 512) and K4 (cap 1024) vs plain at n_pad {n_pad}, dim {DIM}, "
         f"PQ(M, Ks) for (M, Ks) in {PQ_SMALL_SHAPES}; layouts {SMALL_LAYOUTS}")
     small += pq_small_cases(skpq, rng, n_pad, queries_s, rates)
@@ -1190,7 +1275,8 @@ def main() -> int:
         ("doc_maxp_serve", Mode.MAXP, lambda: index.serve(doc_rank, ALPHA, CUTOFF)),
     ):
         index.mode = mode
-        flows[label]["profile"] = profile_flow(fn, CALL_KERNELS["pairwise"])
+        flows[label]["profile"] = profile_flow(
+            fn, CALL_KERNELS["pairwise_fast" if label == "serve_refine" else "pairwise"])
         log(f"[profile {label}]", json.dumps(flows[label]["profile"]))
     flows["doc_maxp_serve"]["device_memory"] = serve_memory(index, doc_rank, {})
     log(f"[doc memory] one warm MAXP serve: {json.dumps(flows['doc_maxp_serve']['device_memory'])}")
@@ -1307,7 +1393,8 @@ def main() -> int:
         for row in rows_k1:
             row.update(table=label, exact=row["variant"].endswith("exact"))
             split_call(row, lambda t=tab, e=row["exact"]: sk.stream_select_pairwise(
-                t, q_dev, cand3, tile_idx, exact=e), CALL_KERNELS["pairwise" if label == "fp32" else "dense"])
+                t, q_dev, cand3, tile_idx, exact=e),
+                CALL_KERNELS["dense" if label != "fp32" else "pairwise" if row["exact"] else "pairwise_fast"])
         variants["stream_select_pairwise"] += rows_k1
     # the query-major body on the same fp32 layout, through K2's entry (3D
     # fp32 tables go to K2), to hold against K1's fp32 body in this run

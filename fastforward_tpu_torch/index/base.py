@@ -26,7 +26,7 @@ import logging
 import threading
 import weakref
 from collections import OrderedDict
-from collections.abc import Callable, Iterable, Sequence
+from collections.abc import Callable, Iterable, Iterator, Sequence
 from dataclasses import dataclass
 from time import perf_counter
 
@@ -472,6 +472,45 @@ class Index(abc.ABC):
         self._add(vectors, doc_ids, psg_ids)
         # prepared plans hold row indices into the (now stale) table
         self._plans.clear()
+
+    # -- host reads ----------------------------------------------------------
+
+    @abc.abstractmethod
+    def _get_vectors(self, ids: Iterable[str]) -> tuple[np.ndarray, list[str]]:
+        """Return stored (possibly quantized) vectors for IDs (backend, host).
+
+        Each vector is paired with its ID in the returned list (an ID once
+        per row it resolves to in the current mode).
+
+        :param ids: The document/passage IDs.
+        :raises IndexError: When an ID is not found.
+        :return: The vectors and the corresponding IDs.
+        """
+
+    @abc.abstractmethod
+    def _batch_iter(
+        self, batch_size: int
+    ) -> Iterator[tuple[np.ndarray, IDSequence, IDSequence]]:
+        """Yield (stored vectors, doc IDs, psg IDs) batches (backend)."""
+
+    def batch_iter(
+        self, batch_size: int
+    ) -> Iterator[tuple[np.ndarray, IDSequence, IDSequence]]:
+        """Iterate over all vectors and IDs in batches (decoded if quantized).
+
+        :param batch_size: The batch size.
+        :return: Iterator of (vectors, doc IDs, psg IDs) tuples.
+        """
+        if self._quantizer is None:
+            yield from self._batch_iter(batch_size)
+        else:
+            for vectors, doc_ids, psg_ids in self._batch_iter(batch_size):
+                yield self._quantizer.decode(vectors), doc_ids, psg_ids
+
+    def __iter__(self) -> Iterator[tuple[np.ndarray, str | None, str | None]]:
+        """Iterate over all (vector, doc ID, psg ID) triples."""
+        for vectors, doc_ids, psg_ids in self.batch_iter(2**9):
+            yield from zip(vectors, doc_ids, psg_ids)
 
     # -- scoring -------------------------------------------------------------
 

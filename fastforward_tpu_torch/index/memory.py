@@ -10,6 +10,7 @@ codebooks beside them.
 """
 
 import logging
+from collections.abc import Iterable, Iterator
 
 import numpy as np
 import torch
@@ -149,6 +150,29 @@ class InMemoryIndex(Index):
         self._store[start : start + num_new] = vectors
         self._num += num_new
         self._dev_view = None  # device table is stale
+
+    def consolidate(self) -> None:
+        """Trim the host store to exactly the used capacity."""
+        if self._store is not None:
+            self._store = self._store[: self._num].copy()
+
+    # -- host reads ----------------------------------------------------------
+
+    def _get_vectors(self, ids: Iterable[str]) -> tuple[np.ndarray, list[str]]:
+        ids = list(ids)
+        rows, counts = self._ids.resolve(ids, self.mode)
+        if rows.shape[0] == 0:
+            return np.array([]), []
+        out_ids = [i for i, c in zip(ids, counts) for _ in range(c)]
+        return self._store[rows], out_ids
+
+    def _batch_iter(
+        self, batch_size: int
+    ) -> Iterator[tuple[np.ndarray, IDSequence, IDSequence]]:
+        doc_list, psg_list = self._ids.inverse(self._num)
+        for i in range(0, self._num, batch_size):
+            j = min(i + batch_size, self._num)
+            yield self._store[i:j], doc_list[i:j], psg_list[i:j]
 
     # -- device table --------------------------------------------------------
 

@@ -1,5 +1,5 @@
 // K1 for Hopper: pairwise stream-select scoring, query-major for bf16 and
-// int8 tables, one warp per slot for fp32 tables.
+// int8 tables, one block per virtual tile for fp32 tables.
 //
 // Replaces the Pallas kernel fastforward_tpu/ops/stream_kernel.py:397
 // stream_select_pairwise (body _pairwise_kernel, :256), which the JAX
@@ -29,16 +29,16 @@
 //   a work item of DENSE_ITEM_SLOTS of its slots, so a slot costs its row.
 //   The body, its launch sequence and what bounds it (bytes: the rows the
 //   slots read) are in dense_dot.cuh, shared with K2.
-// - fp32 tables: one warp per slot (pairwise_kernel below), as first
-//   written.  Each lane loads 16 bytes of the row and of the query per
-//   step, multiplies them and the warp sums with shuffles.  For fp32 rows
-//   the query's L2 reads only match the row bytes, and the slots run in
-//   tile order, so rows near each other in device memory are read together
-//   and a row that two queries want is read once from device memory; on
-//   an H100 SXM at the flagship fp32 layout it ran at 0.514-0.517 ms per
-//   call against 0.628-0.648 ms for the query-major body (PERF.md).
-//   Bound: bytes, the rows (1.57 GB at the flagship layout, 0.47 ms at
-//   3.35 TB/s).
+// - fp32 tables: tile-major (tile_dot.cuh), one block per virtual tile in
+//   tile order, so rows near each other in device memory are read
+//   together.  The block dots only what differs: all padding slots share
+//   one dot, a slot that repeats the slot before it copies its result, and
+//   each distinct row of the tile is read once and dotted with every query
+//   that wants it.  Grouped by query instead, an fp32 row is read once per
+//   query that wants it and tile order is lost (slower for fp32 rows,
+//   PERF.md).  Exact is true fp32 FMA (no TF32, no tensor cores: each
+//   (row, query) pair is one dot).  Bound: bytes, the distinct rows of the
+//   tiles.
 //
 // Built by fastforward_tpu_torch/ops/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -48,56 +48,14 @@
 #include <stdint.h>
 
 #include "dense_dot.cuh"
-
-namespace {
-
-constexpr int kWarpsPerBlock = 8;
-
-// fp32 rows, one warp per slot: out[slot] = table[row] . q[qno], each lane
-// an fp32 FMA chain over 4 elements a step (rounded to bf16 first unless
-// kExact), the lanes' sums added with shuffles.
-template <bool kExact>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-    pairwise_kernel(const float* __restrict__ table, const float* __restrict__ q,
-                    const int* __restrict__ cand,
-                    const int* __restrict__ tile_idx, float* __restrict__ out,
-                    long long n_slots, int cap, int qb, int r, int dim) {
-  const long long slot =
-      static_cast<long long>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (slot >= n_slots) return;  // the whole warp leaves together
-  const int c = __ldg(cand + slot);
-  const long long row =
-      static_cast<long long>(__ldg(tile_idx + slot / cap)) * r + c / qb;
-  const float* trow = table + row * dim;
-  const float* qrow = q + static_cast<long long>(c % qb) * dim;
-  float acc = 0.0f;
-#pragma unroll 2
-  for (int i = lane * 4; i < dim; i += 32 * 4) {
-    const float4 xv = __ldg(reinterpret_cast<const float4*>(trow + i));
-    const float4 qv = __ldg(reinterpret_cast<const float4*>(qrow + i));
-    const float x[4] = {xv.x, xv.y, xv.z, xv.w};
-    const float y[4] = {qv.x, qv.y, qv.z, qv.w};
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      acc = kExact ? fmaf(x[k], y[k], acc)
-                   : fmaf(ff::dense::round_bf16(x[k]),
-                          ff::dense::round_bf16(y[k]), acc);
-    }
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  }
-  if (lane == 0) out[slot] = acc;
-}
-
-}  // namespace
+#include "tile_dot.cuh"
 
 // Table dtype codes: 0 fp32, 1 bf16, 2 int8.  Pointers are device pointers
 // (table 16-byte aligned with rows of dim elements, dim % 128 == 0; q
 // (qb, dim) fp32; the wrapper checks); scratch holds 3 * qb + 2 + n_slots
-// 64-bit words (unused, and may be null, for fp32 tables).  The launches go
+// 64-bit words for bf16 and int8 tables, qb * dim floats (the rounded
+// queries) for fp32 tables in the fast tier, and may be null for fp32
+// tables in the exact tier.  The launches go
 // on `stream` of `device` and do not synchronise.  Returns the cudaError_t
 // of the first failing launch (0 on success).
 extern "C" int ff_stream_select_pairwise(const void* table, int dtype,
@@ -115,21 +73,18 @@ extern "C" int ff_stream_select_pairwise(const void* table, int dtype,
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    const dim3 grid(static_cast<unsigned>((n_slots + kWarpsPerBlock - 1) /
-                                          kWarpsPerBlock));
-    const float* t = static_cast<const float*>(table);
-    const float* qf = static_cast<const float*>(q);
-    const int* c = static_cast<const int*>(cand);
-    const int* ti = static_cast<const int*>(tile_idx);
-    float* o = static_cast<float*>(out);
-    if (exact) {
-      pairwise_kernel<true><<<grid, kWarpsPerBlock * 32, 0, s>>>(
-          t, qf, c, ti, o, n_slots, cap, qb, r, dim);
-    } else {
-      pairwise_kernel<false><<<grid, kWarpsPerBlock * 32, 0, s>>>(
-          t, qf, c, ti, o, n_slots, cap, qb, r, dim);
-    }
-    return static_cast<int>(cudaGetLastError());
+    const ff::tile_dot::Args a{static_cast<const float*>(table),
+                               static_cast<const float*>(q),
+                               static_cast<const int*>(cand),
+                               static_cast<const int*>(tile_idx),
+                               static_cast<float*>(out),
+                               cap,
+                               qb,
+                               r,
+                               dim};
+    return static_cast<int>(
+        ff::tile_dot::tile_dot_launch(a, n_slots / cap, exact != 0,
+                                      static_cast<float*>(scratch), s));
   }
   const ff::DenseArgs a{table,
                         dim,

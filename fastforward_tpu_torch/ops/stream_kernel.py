@@ -24,7 +24,10 @@ card K2, and K1 for bf16 and int8 tables, are query-major
 into work items of at most ``DENSE_ITEM_SLOTS`` slots, and a block holds
 one item's query while it dots the item's rows.  The wrapper allocates the
 grouping's scratch and bounds the number of items (:func:`dense_max_items`).
-K1 scores fp32 tables one warp per slot, which measured faster there.
+K1 scores fp32 tables tile-major (``csrc/tile_dot.cuh``), which measured
+faster there: one block per virtual tile dots each distinct row of the tile
+once with every query that wants it; padding slots share one dot and a
+slot that repeats the slot before it copies its score.
 """
 
 import ctypes
@@ -67,7 +70,7 @@ _PAIRWISE_ARGS = (
     ctypes.c_int,  # r
     ctypes.c_int,  # dim
     ctypes.c_int,  # exact
-    ctypes.c_void_p,  # grouping scratch
+    ctypes.c_void_p,  # grouping scratch, or the fp32 fast tier's rounded queries
     ctypes.c_int,  # slots per work item
     ctypes.c_longlong,  # work-item bound
     ctypes.c_int,  # device
@@ -141,9 +144,12 @@ def stream_select_pairwise(
     if table.data_ptr() % 16 or qvecs.data_ptr() % 16:
         raise ValueError("table and qvecs must be 16-byte aligned")
     out = torch.empty_like(cand3, dtype=torch.float32)
-    # fp32 tables are scored slot by slot, without grouping (csrc/stream_select_pairwise.cu)
-    grouped = table.dtype != torch.float32
-    scratch = query_groups.scratch(qvecs.shape[0], out.numel(), table.device) if grouped else None
+    # fp32 tables are scored tile by tile, without grouping; their fast tier
+    # rounds the queries once, into scratch (csrc/tile_dot.cuh)
+    if table.dtype != torch.float32:
+        scratch = query_groups.scratch(qvecs.shape[0], out.numel(), table.device)
+    else:
+        scratch = None if exact else torch.empty_like(qvecs)
     _build.bind("stream_select_pairwise", _PAIRWISE_ARGS)(
         table.data_ptr(),
         _DTYPE_CODE[table.dtype],
@@ -157,7 +163,7 @@ def stream_select_pairwise(
         r,
         dim,
         int(exact),
-        scratch.data_ptr() if grouped else None,
+        None if scratch is None else scratch.data_ptr(),
         DENSE_ITEM_SLOTS,
         dense_max_items(qvecs.shape[0], out.numel()),
         device,

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time variants of the query-major kernels (K1-K4) on one NVIDIA GPU.
+"""Time variants of the kernels K1-K4 on one NVIDIA GPU.
 
 Each variant is a JSON object of overrides: a key starting with ``k`` sets
 a ``constexpr int`` constant of the kernel headers
@@ -13,7 +13,9 @@ rows from seed 0 at dim 768:
 
 - K1: fp32, bf16 and int8 tables of 2,000,384 rows (cap 256), exact and
   fast tiers, and K2's entry on the fp32 table viewed 3D (K2's body on
-  K1's layout);
+  K1's layout); and the fp32 table, both tiers, on a ``Mode.MAXP`` layout:
+  512 queries x 1000 random documents of 1-7 consecutive rows, each pair
+  padded to 8 rows by repeating its last row (cap 1024);
 - K2: an int8 table of 262,144 rows (dense tiles, cap 1024), high and fast;
 - K3: PQ(96, 256) codes of 2,000,384 rows (cap 256);
 - K4: PQ(96, 256) codes of 262,144 rows (cap 1024).
@@ -56,6 +58,27 @@ def layout(scoring, rng, n: int, r: int = 512):
     qno = np.repeat(np.arange(QUERIES), DEPTH)
     cap = scoring._adaptive_cap(rows.size, n // r)
     cand, tidx, _ = scoring.build_streamed_layout(rows, qno, n, scoring.bucket(QUERIES), r=r, cap=cap)
+    return (
+        torch.from_numpy(cand.reshape(cand.shape[0], cap // 128, 128)).cuda(),
+        torch.from_numpy(tidx).cuda(),
+    )
+
+
+def doc_layout(scoring, rng, n: int, r: int = 512, k: int = 8):
+    """A ``Mode.MAXP`` streamed layout, as the index builds it
+    (``index/util.py`` ``expand_pairs_grouped``): ``QUERIES`` queries x
+    ``DEPTH`` random documents of 1-7 consecutive rows of ``n``, each pair
+    ``k`` rows, the last row repeated past a document's end."""
+    counts = rng.integers(1, 8, size=n)
+    counts = counts[: int(np.searchsorted(np.cumsum(counts), n)) + 1]
+    counts[-1] -= counts.sum() - n
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    docs = np.concatenate([rng.choice(counts.size, DEPTH, replace=False) for _ in range(QUERIES)])
+    rows = starts[docs][:, None] + np.minimum(np.arange(k), counts[docs][:, None] - 1)
+    qno = np.repeat(np.arange(QUERIES), DEPTH * k)
+    cap = scoring._adaptive_cap(rows.size, n // r)
+    cand, tidx, _ = scoring.build_streamed_layout(rows.ravel(), qno, n, scoring.bucket(QUERIES), r=r,
+                                                  cap=cap)
     return (
         torch.from_numpy(cand.reshape(cand.shape[0], cap // 128, 128)).cuda(),
         torch.from_numpy(tidx).cuda(),
@@ -147,6 +170,12 @@ def cases(kernels, modules, rng) -> dict:
                     lambda t=table, e=exact, c=cand3, ti=tidx: sk.stream_select_pairwise(t, q, c, ti, exact=e),
                     lambda t=table, e=exact, c=cand3, ti=tidx: sk.stream_select_pairwise_plain(t, q, c, ti, exact=e),
                 )
+        cand_d, tidx_d = doc_layout(scoring, rng, LARGE_N)
+        for exact in (True, False):
+            out[f"K1 fp32 {'exact' if exact else 'fast'}, MAXP layout"] = (
+                lambda e=exact: sk.stream_select_pairwise(t32, q, cand_d, tidx_d, exact=e),
+                lambda e=exact: sk.stream_select_pairwise_plain(t32, q, cand_d, tidx_d, exact=e),
+            )
         # K2's entry takes a 3D fp32 table: its body on K1's fp32 layout
         t32_3d = t32.view(LARGE_N, DIM // 128, 128)
         out["K2 fp32 exact, K1's layout"] = (

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 import fastforward_tpu_torch as ft
+from chip_smoke import fp32_edge_tiles
 from fastforward_tpu_torch import convert
 from fastforward_tpu_torch.encoder import LambdaEncoder
 from fastforward_tpu_torch.index import InMemoryIndex, Mode
@@ -94,6 +95,35 @@ def test_cuda_wrapper_rejects_strided_tables(cuda):
         sk.stream_select_pairwise(wide[:, :DIM], q, cand3, tile_idx)
     with pytest.raises(ValueError, match="one device"):
         sk.stream_select_pairwise(table.cpu(), q, cand3, tile_idx)
+
+
+@pytest.mark.parametrize("dim", [256, 896], ids=["dim256", "dim896"])
+@pytest.mark.parametrize("exact", [True, False], ids=["exact", "fast"])
+@pytest.mark.parametrize("r", [512, 128], ids=["r512", "r128"])
+@pytest.mark.parametrize("cap", [128, 256, 512, 1024])
+def test_cuda_k1_fp32_edge_tiles(cuda, cap, r, exact, dim):
+    """K1's fp32 body against its plain version on tiles that pin its
+    shortcuts (``chip_smoke.fp32_edge_tiles``), at every cap from 128 to 1024
+    with ``cap <= r`` and ``cap > r``, both tiers, one row chunk (dim 256)
+    and two (dim 896); the padding query is not zero.  The same products
+    summed in another fp32 order (atol 1e-4, rtol 1e-5, and within the
+    sum-order tolerance)."""
+    rng = np.random.default_rng(cap + r + dim)
+    qb = 37
+    table = torch.from_numpy(rng.standard_normal((N_PAD, dim), dtype=np.float32)).to(cuda)
+    q = rng.standard_normal((qb, dim), dtype=np.float32)
+    q[qb - 1] *= 3.0  # the padding query is a query like any other
+    q = torch.from_numpy(q).to(cuda)
+    cand, tile_idx = fp32_edge_tiles(rng, cap, r, qb, N_PAD // r)
+    cand3 = torch.from_numpy(cand.reshape(8, cap // 128, 128)).to(cuda)
+    tile_idx = torch.from_numpy(tile_idx).to(cuda)
+    before = sk.stream_select_pairwise.launches
+    got = sk.stream_select_pairwise(table, q, cand3, tile_idx, r=r, exact=exact)
+    assert sk.stream_select_pairwise.launches == before + 1
+    want = sk.stream_select_pairwise_plain(table, q, cand3, tile_idx, r=r, exact=exact)
+    assert bool((want[1] != 0).all()), "the padding dot is zero: the case pins nothing"
+    absdot = sk.stream_select_pairwise_plain(table.abs(), q.abs(), cand3, tile_idx, r=r, exact=exact)
+    _assert_within_sum_order(got, want, absdot, dim)
 
 
 @pytest.mark.parametrize("precision", ["high", "fast"])
