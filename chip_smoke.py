@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """GPU smoke run of fastforward_tpu_torch: kernels, re-rank, fused serve,
-document ranking and early stopping.
+document ranking, early stopping, preload, the u16 score transport and the
+batching server.
 
 Run from the repository root on a machine with one NVIDIA GPU::
 
@@ -51,6 +52,28 @@ Phases, each of which must pass (any failure exits non-zero):
     port's on a ``device="cpu"`` index of only their candidates' rows (a
     query whose rows differ is printed with its stop margin and fails
     above the tolerance); must launch K1;
+15. preload: a second fp32 index of the flagship corpus (and its doc ids)
+    with ``score_transport="u16"``, ``preload(warm=(512, 1000),
+    serve=(0.2, 10, 22))``: it must return True, launch K1 in the exact
+    and the fast tier, leave no plan, restore the encoder and record every
+    stats key; then the first real re-rank and warm ones, which must load
+    no kernel;
+16. the u16 transport on that index: the flagship re-rank, and MAXP on
+    phase 12's run, every pair within ``(max - min) / 131070`` (plus fp32
+    rounding) of the f32 index's score and 32 queries within that plus the
+    K1 tolerance of float64; warm times of u16 and f32 side by side; must
+    launch K1 only.  The u16 index is freed after it;
+17. ``BatchingServer(index, 0.2, 10, max_batch_queries=512,
+    max_wait_ms=5.0, prep_workers=2)`` over the flagship index: the
+    512-query run as 64 requests of 8 queries x depth 1000, submitted from
+    16 threads in 3 waves and once as a backlog of all 3 waves; every
+    request's result must equal its own ``serve`` (ids exact, scores
+    within 1e-5), every batch take the array path and K1 launch; the
+    same with ``refine=22`` and on phase 12's MAXP run; the server's and
+    the sequential per-request ``serve`` QPS, the host time of each step
+    of the array path a wave (request prep, the batch's merge and launches,
+    its result copy, the fan-out; summed over the threads), and one more
+    wave of each under ``torch.profiler``;
 6. K1 against its plain version on the main path's own inputs, for fp32,
    bf16 and int8 tables in both tiers, timed, back to back and in one
    traced call split by kernel; beside it, the query-major body (K2's
@@ -84,7 +107,7 @@ Phases, each of which must pass (any failure exits non-zero):
     splits its time by kernel (memset, grouping, scoring), and each is
     timed back to back.
 
-The phases run in the order 1-5, 12, 14, 6-11 (phase 13 inside 7 and 9,
+The phases run in the order 1-5, 12, 14-17, 6-11 (phase 13 inside 7 and 9,
 while their indexes exist).  After phases 12 (for 4 and 12 together),
 14 and 7-10, one warm call of each flow (and one cold early-stopping call)
 runs under
@@ -106,6 +129,7 @@ and power limit, the ``{"kernels": [...]}`` summary and, last,
 import json
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -131,6 +155,10 @@ ES_COLD_CALLS = 3
 SWEEP_QUERIES, SWEEP_DEPTH, SWEEP_DEPTHS = 64, 5000, (500, 5000)
 SWEEP_ALPHAS = (0.1, 0.3, 0.5, 0.7, 0.9)
 SWEEP_PASSES = 3
+#: the server phase (``bench.py --config server``, ``bench.py:363-472``): the
+#: 512-query run as requests of 8 queries, submitted from 16 threads
+SERVER_REQUEST_QUERIES, SERVER_BATCH_QUERIES, SERVER_WAIT_MS = 8, 512, 5.0
+SERVER_CLIENTS, SERVER_WAVES = 16, 3
 
 #: published H100 rates by part (NVIDIA data sheets): memory bytes/s and
 #: fp32 (non-tensor) flop/s
@@ -526,6 +554,73 @@ def timed_calls(fn, n: int) -> tuple[float, list]:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return float(np.median(times)), out
+
+
+def u16_bound(span: float, score: np.ndarray) -> np.ndarray:
+    """The u16 transport's error bound for scores of a call whose scores
+    span ``span``: half a code step, ``(max - min) / 131070``, plus the fp32
+    rounding of the scale and of the decode."""
+    return span / 131070 * (1 + 1e-6) + 2.0**-21 * (span + np.abs(score))
+
+
+def check_u16_against_f32(got, want, what) -> tuple[float, float]:
+    """Every pair of a u16 re-rank against the same pair of the f32 port's
+    re-rank: the same pairs, scores within :func:`u16_bound` of the f32
+    scores' span.  Returns ``(max error, span / 131070)``."""
+    import pandas as pd
+
+    def keyed(df):
+        key = df["q_id"].astype(str) + "\x1f" + df["id"].astype(str)
+        return pd.Series(df["score"].to_numpy(np.float64), index=key.to_numpy())
+
+    g, w = keyed(got._df), keyed(want._df)
+    check(len(g) == len(w), f"{what}: {len(g)} pairs, the f32 re-rank has {len(w)}")
+    g = g.reindex(w.index).to_numpy()
+    w = w.to_numpy()
+    check(not np.isnan(g).any(), f"{what}: pairs differ from the f32 re-rank")
+    span = float(w.max() - w.min())
+    err = np.abs(g - w)
+    bound = u16_bound(span, w)
+    worst = int(np.argmax(err - bound))
+    check(bool((err <= bound).all()), f"{what}: err {err[worst]} over the u16 bound {bound[worst]}")
+    log(f"  {what}: {len(w)} pairs within the u16 bound of the f32 re-rank (max err "
+        f"{err.max():.3e}, (max - min) / 131070 = {span / 131070:.3e})")
+    return float(err.max()), span / 131070
+
+
+def u16_exact(exact, span: float):
+    """``exact`` (``passage_exact`` / ``doc_exact``) with the u16 bound of a
+    call whose scores span ``span`` added to its tolerance."""
+
+    def wrapped(q, ids):
+        ref, tol = exact(q, ids)
+        return ref, tol + span / 131070 * (1 + 1e-6) + 2.0**-21 * (span + ref.abs())
+
+    return wrapped
+
+
+def split_requests(run: dict, queries: dict, size: int, ranking_cls) -> list:
+    """The run as requests of ``size`` queries each (``bench.py:391-400``)."""
+    q_ids = list(run)
+    return [
+        ranking_cls.from_run({q: run[q] for q in q_ids[i : i + size]},
+                             queries={q: queries[q] for q in q_ids[i : i + size]})
+        for i in range(0, len(q_ids), size)
+    ]
+
+
+def check_same_served(got: list, want: list, what: str) -> None:
+    """Each request's server result against its own ``serve``: ids exact,
+    scores within rtol 1e-5 and atol 1e-5 (``tests/test_serving_server.py``)."""
+    check(len(got) == len(want), f"{what}: {len(got)} results for {len(want)} requests")
+    for i, (g, w) in enumerate(zip(got, want)):
+        gd, wd = g._df, w._df
+        for col in ("q_id", "id"):
+            check(list(gd[col].astype(str)) == list(wd[col].astype(str)),
+                  f"{what}: request {i} differs from its serve() in {col}")
+        check(bool(np.allclose(gd["score"].to_numpy(), wd["score"].to_numpy(), rtol=1e-5, atol=1e-5)),
+              f"{what}: request {i} scores differ from its serve()")
+    log(f"  {what}: {len(got)} requests equal their own serve()")
 
 
 def profile_flow(fn, kernels, needs_copy: bool = True) -> dict:
@@ -1379,6 +1474,184 @@ def main() -> int:
         flows[label]["profile"] = profile_flow(fn, kernels, needs_copy=copy)
         log(f"[profile {label}]", json.dumps(flows[label]["profile"]))
     del es_rankings, es_first, es_cold, es_warm, es_served, sweep_rank, swept, fresh
+
+    # -- 15. preload of a second flagship index with the u16 transport --------------
+    t0 = time.perf_counter()
+    u16_index = InMemoryIndex(
+        query_encoder=LambdaEncoder(by_text.__getitem__),
+        mode=Mode.PASSAGE,
+        precision="high",
+        score_transport="u16",
+    )
+    u16_index.add(corpus, doc_ids=doc_ids, psg_ids=psg_ids)
+    log(f"[setup] u16 index of {N} rows in {time.perf_counter() - t0:.1f} s")
+    user_encoder = u16_index.query_encoder
+    tiers = []
+    auto = sk.stream_select_auto
+
+    def auto_tier(*args, precision="exact", **kwargs):
+        # a 2D fp32 table goes to K1, exact unless the tier is "fast"
+        tiers.append(precision != "fast")
+        return auto(*args, precision=precision, **kwargs)
+
+    reset_counts(wrappers)
+    sk.stream_select_auto = auto_tier
+    try:
+        t0 = time.perf_counter()
+        preloaded = u16_index.preload(warm=(QUERIES, DEPTH), serve=(ALPHA, CUTOFF, REFINE))
+        torch.cuda.synchronize()
+        preload_s = time.perf_counter() - t0
+    finally:
+        sk.stream_select_auto = auto
+    n_k1 = k1_phase_launches("preload")
+    check(preloaded is True, f"preload returned {preloaded}")
+    check(n_k1 == len(tiers) >= 2 and sorted(set(tiers)) == [False, True],
+          f"preload launched K1 {n_k1} times in {len(tiers)} calls, exact {sorted(set(tiers))}")
+    check(not u16_index._plans, "preload left a plan behind")
+    check(u16_index.query_encoder is user_encoder, "preload did not restore the encoder")
+    stats = dict(u16_index._preload_stats)
+    check({"overlap", "upload_s", "build_s", "warm_rerank_s", "warm_serve_s"} <= set(stats),
+          f"preload stats lack a key: {stats}")
+    loaded = set(_build._libs)
+    reset_counts(wrappers)
+    t0 = time.perf_counter()
+    u16_first = u16_index(ranking)
+    torch.cuda.synchronize()
+    u16_first_ms = (time.perf_counter() - t0) * 1e3
+    u16_ms, u16_warm = timed_calls(lambda: u16_index(ranking), WARM_CALLS)
+    check(set(_build._libs) == loaded, "a call after preload built or loaded a kernel")
+    check(u16_first == u16_warm, "u16: the first and the warm re-rank disagree")
+    flows["preload"] = {"s": preload_s, "stats": stats, "first_call_ms": u16_first_ms,
+                        "warm_ms": u16_ms, "k1_launches": n_k1}
+    log(f"[preload] {preload_s:.1f} s, stats {json.dumps(stats)}; K1 launches {n_k1} (tiers "
+        f"{sorted(set(tiers))}); first real call {u16_first_ms:.1f} ms, warm median {u16_ms:.2f} ms")
+
+    # -- 16. the u16 score transport: passage and MAXP, beside f32 ------------------
+    f32_ms, f32_warm = timed_calls(lambda: index(ranking), WARM_CALLS)
+    err, half_step = check_u16_against_f32(u16_warm, f32_warm, "u16 re-rank")
+    span = half_step * 131070
+    check_rerank(u16_warm, u16_exact(exact_p, span), "u16 re-rank")
+    flows["u16_rerank"] = {"first_ms": u16_first_ms, "warm_ms": u16_ms, "f32_warm_ms": f32_ms,
+                           "qps": QUERIES / u16_ms * 1e3, "max_err_vs_f32": err,
+                           "half_step": half_step}
+    u16_index.mode = index.mode = Mode.MAXP
+    t0 = time.perf_counter()
+    u16_doc_first = u16_index(doc_rank)
+    torch.cuda.synchronize()
+    u16_doc_first_ms = (time.perf_counter() - t0) * 1e3
+    u16_doc_ms, u16_doc = timed_calls(lambda: u16_index(doc_rank), WARM_CALLS)
+    f32_doc_ms, f32_doc = timed_calls(lambda: index(doc_rank), WARM_CALLS)
+    check(u16_doc_first == u16_doc, "u16 MAXP: the first and the warm re-rank disagree")
+    err, half_step = check_u16_against_f32(u16_doc, f32_doc, "u16 MAXP re-rank")
+    check_rerank(u16_doc, u16_exact(exact_doc["MAXP"], half_step * 131070), "u16 MAXP re-rank")
+    n_k1 = k1_phase_launches("u16")
+    check(n_k1 == 2 * (1 + WARM_CALLS) + 2 * WARM_CALLS, f"u16 and f32 re-ranks ran K1 {n_k1} times")
+    flows["u16_doc_maxp_rerank"] = {"first_ms": u16_doc_first_ms, "warm_ms": u16_doc_ms,
+                                    "f32_warm_ms": f32_doc_ms, "qps": QUERIES / u16_doc_ms * 1e3,
+                                    "max_err_vs_f32": err, "half_step": half_step}
+    index.mode = Mode.PASSAGE
+    log(f"[u16] warm median re-rank u16 {u16_ms:.2f} ms vs f32 {f32_ms:.2f} ms; MAXP u16 "
+        f"{u16_doc_ms:.2f} ms vs f32 {f32_doc_ms:.2f} ms (first u16 MAXP call "
+        f"{u16_doc_first_ms:.1f} ms)")
+    del u16_index, u16_first, u16_warm, u16_doc_first, u16_doc, f32_warm, f32_doc
+    torch.cuda.empty_cache()
+
+    # -- 17. BatchingServer over the flagship index (the array path, K1) ------------
+    from fastforward_tpu_torch.utils.serving import BatchingServer
+
+    def serve_phase(label, run_s, queries_s, mode, refine):
+        """64 requests of 8 queries through a BatchingServer, checked against
+        each request's own serve(), beside the sequential serve() loop."""
+        index.mode = mode
+        requests = split_requests(run_s, queries_s, SERVER_REQUEST_QUERIES, Ranking)
+        index.serve(requests[0], ALPHA, CUTOFF, refine=refine)  # the per-request shape, warm
+        reset_counts(wrappers)
+        t0 = time.perf_counter()
+        want = [index.serve(r, ALPHA, CUTOFF, refine=refine) for r in requests]
+        seq_s = time.perf_counter() - t0
+        n_seq = k1_phase_launches(f"{label}_sequential")
+        check(n_seq == len(requests), f"{label}: sequential serve ran K1 {n_seq} times")
+        arrays = []
+        # host seconds spent in each step of the array path, summed over the
+        # threads that run it: per-request prep (resolver pool), the batch's
+        # merge + scoring + tail launch, its result copy, the fan-out
+        spent = dict.fromkeys(("prep", "arrays", "fetch", "fanout"), 0.0)
+        spent_lock = threading.Lock()
+
+        def timed(key, fn):
+            def run(*args, **kwargs):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*args, **kwargs)
+                finally:
+                    with spent_lock:
+                        spent[key] += time.perf_counter() - t0
+            return run
+
+        serve_arrays = timed("arrays", index._serve_arrays)
+
+        def counted(*args, **kwargs):
+            arrays.append(1)
+            finish = serve_arrays(*args, **kwargs)
+            return None if finish is None else timed("fetch", finish)
+
+        index._serve_arrays = counted
+        index._serve_prep = timed("prep", index._serve_prep)
+        waves, continuous_s = [], None
+        try:
+            with BatchingServer(index, ALPHA, CUTOFF, max_batch_queries=SERVER_BATCH_QUERIES,
+                                max_wait_ms=SERVER_WAIT_MS, prep_workers=2, refine=refine) as server:
+                server._dispatch_merged = lambda batch: check(False, f"{label}: frame path taken")
+                server._fanout_arrays = timed("fanout", server._fanout_arrays)
+                server.serve(requests[0])  # the server path, warm
+                reset_counts(wrappers)
+                arrays.clear()
+                spent.update(dict.fromkeys(spent, 0.0))
+                with ThreadPoolExecutor(SERVER_CLIENTS) as pool:
+                    for _ in range(SERVER_WAVES):  # round-synchronized waves
+                        t0 = time.perf_counter()
+                        got = [f.result() for f in list(pool.map(server.submit, requests))]
+                        waves.append(time.perf_counter() - t0)
+                        check_same_served(got, want, f"{label} wave")
+                    wave_host_ms = {k: v / SERVER_WAVES * 1e3 for k, v in spent.items()}
+                    wave_batches = len(arrays) / SERVER_WAVES
+                    if refine is None and mode is Mode.PASSAGE:  # a backlog: waves in flight
+                        t0 = time.perf_counter()
+                        futures = list(pool.map(server.submit, requests * SERVER_WAVES))
+                        got = [f.result() for f in futures]
+                        continuous_s = time.perf_counter() - t0
+                        check_same_served(got, want * SERVER_WAVES, f"{label} continuous")
+                    # one more wave under the profiler (every thread's spans)
+                    wave_profile = profile_flow(
+                        lambda: [f.result() for f in list(pool.map(server.submit, requests))],
+                        CALL_KERNELS["pairwise_fast" if refine else "pairwise"],
+                    )
+        finally:
+            del index._serve_arrays, index._serve_prep
+        n_k1 = k1_phase_launches(label)
+        check(n_k1 >= 1 and len(arrays) >= 1, f"{label}: K1 {n_k1} launches, {len(arrays)} "
+              "array-path batches")
+        n_q = len(run_s)
+        row = {"requests": len(requests), "queries": n_q, "batches": len(arrays),
+               "k1_launches": n_k1, "wave_s": waves, "qps": n_q / float(np.median(waves)),
+               "wave_batches": wave_batches, "wave_host_ms": wave_host_ms,
+               "sequential_s": seq_s, "sequential_qps": n_q / seq_s}
+        if continuous_s is not None:
+            row.update(continuous_s=continuous_s, continuous_qps=n_q * SERVER_WAVES / continuous_s)
+        row["profile"] = wave_profile
+        log(f"[profile {label} wave]", json.dumps(wave_profile))
+        log(f"[{label}] {len(requests)} requests x {SERVER_REQUEST_QUERIES} queries: server "
+            f"{row['qps']:.1f} QPS (median of {len(waves)} waves, {len(arrays)} array-path "
+            f"batches, K1 {n_k1} launches; host ms a wave, summed over threads: "
+            f"{json.dumps(wave_host_ms)})"
+            + (f", continuous {row['continuous_qps']:.1f} QPS" if continuous_s else "")
+            + f"; sequential serve() {row['sequential_qps']:.1f} QPS")
+        index.mode = Mode.PASSAGE
+        return row
+
+    flows["server"] = serve_phase("server", run, queries, Mode.PASSAGE, None)
+    flows["server_refine"] = serve_phase("server_refine", run, queries, Mode.PASSAGE, REFINE)
+    flows["server_doc_maxp"] = serve_phase("server_doc_maxp", doc_run, queries, Mode.MAXP, None)
 
     # -- 6. K1 vs plain on the main path's inputs, timed ---------------------
     cand3, tile_idx, q_dev = main_inputs

@@ -10,6 +10,7 @@ codebooks beside them.
 """
 
 import logging
+import threading
 from collections.abc import Iterable, Iterator
 
 import numpy as np
@@ -73,7 +74,9 @@ class InMemoryIndex(Index):
         :param store: Must be ``"host"`` (``"device"`` is not ported yet).
         :param hbm_budget: Must be ``None`` (not ported yet).
         :param stream_chunk_rows: Must be ``None`` (not ported yet).
-        :param score_transport: Must be ``"f32"``.
+        :param score_transport: ``"f32"`` (exact scores) or ``"u16"``
+            (the re-rank path copies 16-bit codes of the scores: half the
+            bytes, at most ``score_range / 131070`` added to each score).
         :param device: Torch device of the scoring table; ``None`` means
             ``"cuda"``.
         :raises RuntimeError: When the device is CUDA and none is available.
@@ -81,7 +84,7 @@ class InMemoryIndex(Index):
         if store not in ("host", "device"):
             raise ValueError(f"store must be 'host' or 'device', got {store!r}")
         if store == "device":
-            raise not_ported("store='device'", "12")
+            raise not_ported("store='device'", "12b")
         if mesh_config is not None:
             raise not_ported("mesh_config (multi-device tables)", "14")
         if hbm_budget is not None or stream_chunk_rows is not None:
@@ -102,6 +105,9 @@ class InMemoryIndex(Index):
         self._device_dtype = device_dtype
         self._precision = precision
         self._dev_view: DeviceView | None = None
+        # one upload when several threads (a server's resolver pool, the
+        # preload warms) ask for the table at once
+        self._view_lock = threading.Lock()
         super().__init__(
             query_encoder=query_encoder,
             quantizer=quantizer,
@@ -192,38 +198,45 @@ class InMemoryIndex(Index):
     def _device_view(self) -> DeviceView | None:
         if self._num == 0:
             return None
-        if self._dev_view is None:
-            n_pad = -(-self._num // _ROW_PAD) * _ROW_PAD
-            data = self._store[: self._num]
-            width = data.shape[1]
-            if isinstance(self._quantizer, PQ):
-                if data.dtype != np.uint8:
-                    raise not_ported("PQ codes wider than uint8 (Ks > 256)", "10")
-                # compact (N_pad, M) codes; the fp32 codebooks stay in L2
-                codebooks = np.array(self._quantizer.codewords, dtype=np.float32)
-                self._dev_view = DeviceView(
-                    kind="pq",
-                    table=self._upload(data, (n_pad, width), torch.uint8),
-                    precision=self._precision,
-                    codebooks=torch.from_numpy(codebooks).to(self._device),
-                )
-            elif isinstance(self._quantizer, ScalarQuantizer):
-                # 3D int8 layout when the lanes divide (the streamed kernels'
-                # table form); the scales fold into the queries
-                shape = (n_pad, width // 128, 128) if width % 128 == 0 else (n_pad, width)
-                self._dev_view = DeviceView(
-                    kind="scalar",
-                    table=self._upload(data, shape, torch.int8),
-                    precision=self._precision,
-                    scales=self._quantizer.scales,
-                )
-            else:
-                # fp32 rows go up in chunks (no padded host copy is made)
-                self._dev_view = DeviceView(
-                    kind="dense",
-                    table=self._upload(
-                        data, (n_pad, width), _DEVICE_DTYPES[self._device_dtype], np.float32
-                    ),
-                    precision=self._precision,
-                )
-        return self._dev_view
+        view = self._dev_view
+        if view is not None:
+            return view
+        with self._view_lock:
+            if self._dev_view is None:
+                self._dev_view = self._build_view()
+            return self._dev_view
+
+    def _build_view(self) -> DeviceView:
+        """Upload the host store into a new device view."""
+        n_pad = -(-self._num // _ROW_PAD) * _ROW_PAD
+        data = self._store[: self._num]
+        width = data.shape[1]
+        if isinstance(self._quantizer, PQ):
+            if data.dtype != np.uint8:
+                raise not_ported("PQ codes wider than uint8 (Ks > 256)", "10")
+            # compact (N_pad, M) codes; the fp32 codebooks stay in L2
+            codebooks = np.array(self._quantizer.codewords, dtype=np.float32)
+            return DeviceView(
+                kind="pq",
+                table=self._upload(data, (n_pad, width), torch.uint8),
+                precision=self._precision,
+                codebooks=torch.from_numpy(codebooks).to(self._device),
+            )
+        if isinstance(self._quantizer, ScalarQuantizer):
+            # 3D int8 layout when the lanes divide (the streamed kernels'
+            # table form); the scales fold into the queries
+            shape = (n_pad, width // 128, 128) if width % 128 == 0 else (n_pad, width)
+            return DeviceView(
+                kind="scalar",
+                table=self._upload(data, shape, torch.int8),
+                precision=self._precision,
+                scales=self._quantizer.scales,
+            )
+        # fp32 rows go up in chunks (no padded host copy is made)
+        return DeviceView(
+            kind="dense",
+            table=self._upload(
+                data, (n_pad, width), _DEVICE_DTYPES[self._device_dtype], np.float32
+            ),
+            precision=self._precision,
+        )

@@ -38,6 +38,7 @@ NVCC_FLAGS = [
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 
 
 def nvcc_path() -> str:
@@ -103,6 +104,14 @@ def bind(name: str, argtypes: tuple) -> Callable[..., None]:
             raise RuntimeError(f"{name} launch failed: {msg} ({rc})")
 
     return launch
+
+
+def count_launch(wrapper: Callable) -> None:
+    """Add one to ``wrapper.launches`` (kernels launch from several threads
+    when a server prepares batches concurrently, and ``+=`` on an attribute
+    is not atomic)."""
+    with _count_lock:
+        wrapper.launches += 1
 
 
 def cuda_target(named: "Sequence[tuple[str, torch.Tensor]]") -> tuple[int, int]:

@@ -9,7 +9,10 @@ after the kernel); sparse or ungrouped sets take the plain gather-dots
 :func:`score_pairs_grouped_pq`; ragged documents take the flat layout's
 :func:`score_pairs_dense` and :func:`score_pairs_pq` with a segment
 reduce; the fused serve tail interpolates and cuts per query
-(:func:`serve_topk`, :func:`serve_topk_refine`).  Everything runs on the
+(:func:`serve_topk`, :func:`serve_topk_refine`, and their ``_seg`` forms,
+which build the slot matrix on the device); :func:`encode_scores_u16`
+packs the per-pair scores into 16-bit codes for the host copy.  Everything
+runs on the
 device of the table; the hand-written kernel runs for CUDA tensors, its
 plain version for CPU tensors, and nothing falls back from one to the
 other.
@@ -18,10 +21,12 @@ No matmul appears on the exact path: every fp32 dot is an elementwise
 multiply and an fp32 sum, so TF32 settings cannot change a result.
 """
 
+from concurrent.futures import ThreadPoolExecutor
+
 import numpy as np
 import torch
 
-from fastforward_tpu_torch.ops import stream_kernel, stream_kernel_pq
+from fastforward_tpu_torch.ops import _build, stream_kernel, stream_kernel_pq
 from fastforward_tpu_torch.utils.tracing import annotate
 
 _BUCKET_MIN = 256
@@ -133,6 +138,60 @@ def fetch_np_overlapped(
     return out
 
 
+# -- the u16 score transport ---------------------------------------------------
+
+
+def encode_scores_u16(scores: torch.Tensor) -> torch.Tensor:
+    """Affine-quantize fp32 scores to 16-bit codes for the host copy.
+
+    Calibration is per call over the finite entries (``-inf`` padding of
+    the document modes' K-reduce encodes as 0 and is never read back):
+    ``scale = max(max - min, 1e-30) / 65535``, codes ``round((s - min) /
+    scale)`` (half to even) clipped to ``[0, 65535]``.  The ``[min,
+    scale]`` header rides in front as 4 lanes, each fp32 split into its low
+    and high 16 bits, so one copy carries both.  The error of a decoded
+    score is at most ``(max - min) / 131070`` plus fp32 rounding.  The
+    buffer is ``int16`` (CUDA's ``uint16`` support is partial): the host
+    reads it as ``uint16`` (:func:`decode_scores_u16`).
+
+    :param scores: Per-pair scores, ``(S,)`` fp32 (may hold ``-inf``).
+    :return: ``(4 + S,)`` int16 holding the uint16 header and codes;
+        ``score ~= min + scale * code``.
+    """
+    finite = torch.isfinite(scores)
+    big = torch.tensor(3.4e38, dtype=torch.float32, device=scores.device)
+    mn = torch.where(finite, scores, big).min()
+    mx = torch.where(finite, scores, -big).max()
+    scale = torch.clamp(mx - mn, min=1e-30) / 65535.0
+    codes = torch.round((scores - mn) / scale)
+    codes = torch.where(finite, codes, 0.0).clamp(0.0, 65535.0).to(torch.int32)
+    # the header's halves from the fp32 bits, masked in int64 (no unsigned
+    # 32-bit type on the card)
+    bits = torch.stack([mn, scale]).view(torch.int32).long() & 0xFFFFFFFF
+    header = torch.stack([bits[0] & 0xFFFF, bits[0] >> 16, bits[1] & 0xFFFF, bits[1] >> 16])
+    packed = torch.cat([header.to(torch.int32), codes])
+    # uint16 bit patterns as int16: values past 32767 wrap explicitly
+    return torch.where(packed > 32767, packed - 65536, packed).to(torch.int16)
+
+
+def decode_u16_header(raw4: np.ndarray) -> tuple[float, float]:
+    """Reassemble the ``[min, scale]`` floats from the 4 header lanes
+    (``uint16``, or the ``int16`` buffer :func:`encode_scores_u16` ships)."""
+    u = np.asarray(raw4).view(np.uint16).astype(np.uint32)
+    mn = np.array([u[0] | (u[1] << 16)], dtype=np.uint32).view(np.float32)[0]
+    scale = np.array([u[2] | (u[3] << 16)], dtype=np.uint32).view(np.float32)[0]
+    return float(mn), float(scale)
+
+
+def decode_scores_u16(packed: np.ndarray) -> np.ndarray:
+    """One-shot host decode of a fetched :func:`encode_scores_u16` buffer."""
+    mn, scale = decode_u16_header(packed[:4])
+    out = np.asarray(packed[4:]).view(np.uint16).astype(np.float32)
+    out *= scale
+    out += mn
+    return out
+
+
 def _cached_q_upload(
     q_host: np.ndarray, plan: dict | None, key: str, device: torch.device
 ) -> torch.Tensor:
@@ -156,6 +215,25 @@ def _cached_q_upload(
 
 
 # -- streamed scoring (K1-K4) -------------------------------------------------
+
+#: the kernels each device-view kind can stream through (``stream_select_auto``
+#: sends 2D tables to K1, int8 codes to K1 or K2 by cap, PQ codes to K3 or
+#: K4 by cap)
+VIEW_KERNELS = {
+    "dense": ("stream_select_pairwise",),
+    "scalar": ("stream_select_pairwise", "stream_select"),
+    "pq": ("stream_select_pq_pairwise", "stream_select_pq"),
+}
+
+
+def load_kernels(kind: str) -> None:
+    """Build (one ``nvcc`` per source, all at once) and load the kernels a
+    device view of ``kind`` can stream through, so that no scoring call
+    pays for it."""
+    names = VIEW_KERNELS[kind]
+    with ThreadPoolExecutor(len(names)) as pool:
+        list(pool.map(_build.load_kernel, names))
+
 
 
 def _adaptive_cap(p: int, num_tiles: int) -> int:
@@ -633,6 +711,16 @@ def _pack_topk(vals: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.stack([vals.float().contiguous().view(torch.int32), idx.to(torch.int32)])
 
 
+def _slot_from_segments(starts: torch.Tensor, counts: torch.Tensor, d_max: int) -> torch.Tensor:
+    """The ``(Q, d_max)`` slot matrix built on the device from per-row
+    segments: row ``q`` holds ``starts[q] .. starts[q] + counts[q] - 1``
+    then ``-1`` (pair query numbers must be non-decreasing, so each query's
+    pairs are one contiguous range; two ``(Q,)`` vectors go up instead of
+    the matrix)."""
+    d = torch.arange(d_max, dtype=torch.int32, device=starts.device)[None, :]
+    return torch.where(d < counts[:, None], starts[:, None] + d, -1).to(torch.int32)
+
+
 def _interp_slots(scores, lex_pad, slot_mat, alpha):
     valid = slot_mat >= 0
     safe = torch.where(valid, slot_mat, 0).long()
@@ -666,6 +754,26 @@ def serve_topk(
     gathered = _interp_slots(scores_pad, lex_pad, slot_mat, alpha)
     vals, pos = _topk_desc(gathered, cutoff)
     return _pack_topk(vals, torch.gather(slot_mat, 1, pos))
+
+
+def serve_topk_seg(
+    scores_pad: torch.Tensor,
+    lex_pad: torch.Tensor,
+    starts: torch.Tensor,
+    counts: torch.Tensor,
+    alpha,
+    cutoff: int,
+    d_max: int,
+) -> torch.Tensor:
+    """:func:`serve_topk` with the slot matrix built on the device.
+
+    ``starts``/``counts`` are ``(Q,)`` int32 in output-row order (rows past
+    the live queries carry ``counts == 0``); each query's pairs must be one
+    contiguous range of the flat pair space.  The packed result equals
+    :func:`serve_topk` on the materialized matrix.
+    """
+    slot_mat = _slot_from_segments(starts, counts, d_max)
+    return serve_topk(scores_pad, lex_pad, slot_mat, alpha, cutoff)
 
 
 def serve_topk_refine(
@@ -713,6 +821,28 @@ def serve_topk_refine(
     interp2 = torch.where(pvalid, interp2, -torch.inf)
     vals, pos2 = _topk_desc(interp2, cutoff)
     return _pack_topk(vals, torch.gather(pair_idx, 1, pos2))
+
+
+def serve_topk_refine_seg(
+    scores_fast: torch.Tensor,
+    lex_pad: torch.Tensor,
+    starts: torch.Tensor,
+    counts: torch.Tensor,
+    alpha,
+    cutoff: int,
+    margin: int,
+    d_max: int,
+    table: torch.Tensor,
+    rows_pad: torch.Tensor,
+    q_dev: torch.Tensor,
+    q_perm: torch.Tensor,
+) -> torch.Tensor:
+    """:func:`serve_topk_refine` with the slot matrix built on the device
+    (the segment contract of :func:`serve_topk_seg`)."""
+    slot_mat = _slot_from_segments(starts, counts, d_max)
+    return serve_topk_refine(
+        scores_fast, lex_pad, slot_mat, alpha, cutoff, margin, table, rows_pad, q_dev, q_perm
+    )
 
 
 def serve_topk_host(

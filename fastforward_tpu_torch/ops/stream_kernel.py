@@ -169,7 +169,7 @@ def stream_select_pairwise(
         device,
         stream,
     )
-    stream_select_pairwise.launches += 1
+    _build.count_launch(stream_select_pairwise)
     return out
 
 
@@ -327,7 +327,7 @@ def stream_select(
         device,
         stream,
     )
-    stream_select.launches += 1
+    _build.count_launch(stream_select)
     return out
 
 

@@ -185,7 +185,7 @@ def stream_select_pq_pairwise(
     )
     _launch_adc("stream_select_pq_pairwise", _PAIRWISE_ARGS, head, qb, m, out.numel(), device,
                 stream)
-    stream_select_pq_pairwise.launches += 1
+    _build.count_launch(stream_select_pq_pairwise)
     return out
 
 
@@ -233,7 +233,7 @@ def stream_select_pq(
         out.data_ptr(), cand3.shape[0], cand3.shape[1] * 128, qb, r, PQ_TIERS.index(precision),
     )
     _launch_adc("stream_select_pq", _SELECT_ARGS, head, qb, m, out.numel(), device, stream)
-    stream_select_pq.launches += 1
+    _build.count_launch(stream_select_pq)
     return out
 
 

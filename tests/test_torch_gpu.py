@@ -7,6 +7,10 @@ port's dependencies (``--noconftest`` skips the JAX test configuration)::
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 """
 
+import subprocess
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -22,6 +26,8 @@ from fastforward_tpu_torch.ops import stream_kernel_pq as skpq
 from fastforward_tpu_torch.quantizer import OPQ, PQ, ScalarQuantizer
 
 pytestmark = pytest.mark.gpu
+
+REPO = Path(__file__).resolve().parent.parent
 
 N_PAD, DIM, QB, P = 4096, 256, 16, 3000
 
@@ -418,3 +424,101 @@ def test_cuda_fit_and_encode_match_cpu(cuda, monkeypatch, cls):
     same_books = cls.deserialize(*on_card.serialize())
     same_books.device = "cpu"
     assert (codes == same_books.encode(held_out)).mean() >= 0.999
+
+
+# -- serving: the u16 transport, the BatchingServer, preload -----------------------
+
+
+@pytest.mark.parametrize("case", ["normal", "inf_padded", "constant"])
+def test_cuda_u16_encode_equals_cpu_bits(cuda, case):
+    """The packed u16 buffer built on the card equals the CPU's bit for bit
+    (header and codes), ``-inf`` padding included."""
+    rng = np.random.default_rng(12)
+    scores = (rng.standard_normal(300_001) * 40).astype(np.float32)
+    if case == "inf_padded":
+        scores[rng.choice(scores.shape[0], 50_000, replace=False)] = -np.inf
+    elif case == "constant":
+        scores[:] = 3.25
+    cpu = scoring.encode_scores_u16(torch.from_numpy(scores))
+    card = scoring.encode_scores_u16(torch.from_numpy(scores).cuda())
+    assert card.dtype == torch.int16 and card.is_cuda
+    np.testing.assert_array_equal(card.cpu().numpy(), cpu.numpy())
+
+
+def test_cuda_batching_server_matches_serve(cuda):
+    """A small BatchingServer run on the card: every request's result equals
+    ``index.serve`` of it, through the array path, and K1 launched."""
+    from fastforward_tpu_torch.utils.serving import BatchingServer
+
+    rng = np.random.default_rng(5)
+    n, queries = 8192, 24
+    corpus = rng.standard_normal((n, DIM), dtype=np.float32)
+    qvecs = rng.standard_normal((queries, DIM), dtype=np.float32)
+    by_text = {f"query {i}": qvecs[i] for i in range(queries)}
+    index = InMemoryIndex(query_encoder=LambdaEncoder(by_text.__getitem__), mode=Mode.PASSAGE)
+    index.add(corpus, psg_ids=[f"p{i}" for i in range(n)])
+    requests = []
+    for r in range(12):
+        q_ids = [f"r{r}-q{j}" for j in range(1 + r % 3)]
+        run = {q: {f"p{c}": float(rng.standard_normal()) for c in rng.choice(n, 300, replace=False)}
+               for q in q_ids}
+        requests.append(ft.Ranking.from_run(run, queries={q: f"query {(r + j) % queries}"
+                                                          for j, q in enumerate(q_ids)}))
+    for refine in (None, 16):
+        want = [index.serve(r, 0.2, 10, refine=refine) for r in requests]
+        before = sk.stream_select_pairwise.launches
+        with BatchingServer(index, 0.2, 10, max_batch_queries=8, max_wait_ms=5.0,
+                            refine=refine) as server:
+            server._dispatch_merged = lambda batch: (_ for _ in ()).throw(
+                AssertionError("frame path used")
+            )
+            got = [f.result(timeout=120) for f in [server.submit(r) for r in requests]]
+        assert sk.stream_select_pairwise.launches > before
+        for g, w in zip(got, want):
+            for col in ("q_id", "id"):
+                np.testing.assert_array_equal(g._df[col].astype(str), w._df[col].astype(str))
+            np.testing.assert_allclose(g._df["score"], w._df["score"], rtol=1e-5, atol=1e-5)
+
+
+def test_cuda_preload_first_call_loads_k1(cuda):
+    """In a fresh process, ``preload`` as the index's first call builds and
+    loads K1 before any scoring call launches it; a warm preload launches it
+    in both tiers and later calls load nothing new."""
+    code = """
+import numpy as np
+from fastforward_tpu_torch import InMemoryIndex, Mode, Ranking
+from fastforward_tpu_torch.encoder import LambdaEncoder
+from fastforward_tpu_torch.ops import _build
+from fastforward_tpu_torch.ops import stream_kernel as sk
+rng = np.random.default_rng(0)
+corpus = rng.standard_normal((8192, 256), dtype=np.float32)
+q = rng.standard_normal(256, dtype=np.float32)
+index = InMemoryIndex(query_encoder=LambdaEncoder(lambda _t: q), mode=Mode.PASSAGE)
+index.add(corpus, psg_ids=[f"p{i}" for i in range(8192)])
+assert "stream_select_pairwise" not in _build._libs
+assert index.preload()
+assert "stream_select_pairwise" in _build._libs, sorted(_build._libs)
+assert sk.stream_select_pairwise.launches == 0
+tiers = []
+auto = sk.stream_select_auto
+def recording(*args, precision="exact", **kwargs):  # 2D fp32 tables go to K1
+    tiers.append(precision != "fast")
+    return auto(*args, precision=precision, **kwargs)
+sk.stream_select_auto = recording
+assert index.preload(warm=(16, 200), serve=(0.2, 10, 8))
+assert sorted(set(tiers)) == [False, True], tiers
+assert sk.stream_select_pairwise.launches == len(tiers) >= 2 and not index._plans
+stats = index._preload_stats
+assert {"upload_s", "build_s", "warm_rerank_s", "warm_serve_s"} <= set(stats), stats
+loaded = set(_build._libs)
+run = {"q0": {f"p{i}": float(i) for i in range(0, 8192, 7)}}
+out = index(Ranking.from_run(run, queries={"q0": "x"}))
+assert set(_build._libs) == loaded
+assert abs(out["q0"]["p0"] - float(corpus[0] @ q)) < 1e-3
+print("ok")
+"""
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=600
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")

@@ -16,9 +16,15 @@ PORT_FILES = sorted((REPO / "fastforward_tpu_torch").rglob("*.py")) + [REPO / "c
 
 def test_import_pulls_in_neither_jax_nor_the_jax_package():
     """A fresh interpreter imports every module of the port and parses and
-    loads ``chip_smoke.py``; neither JAX nor ``fastforward_tpu`` appears."""
+    loads ``chip_smoke.py``; neither JAX nor ``fastforward_tpu`` appears.
+    ``utils.pyterrier`` needs python-terrier: where it is not installed, a
+    stub module stands in for it, so that module is imported too."""
     code = """
-import ast, importlib, importlib.util, pkgutil, sys
+import ast, importlib, importlib.util, pkgutil, sys, types
+if importlib.util.find_spec("pyterrier") is None:
+    pt = types.ModuleType("pyterrier")
+    pt.Transformer = object
+    sys.modules["pyterrier"] = pt
 import fastforward_tpu_torch
 for m in pkgutil.walk_packages(fastforward_tpu_torch.__path__, "fastforward_tpu_torch."):
     importlib.import_module(m.name)

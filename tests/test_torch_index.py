@@ -196,16 +196,35 @@ def test_convert_carries_rows_and_ids(data):
         ({"hbm_budget": 1 << 30}, NotImplementedError),
         ({"mesh_config": object()}, NotImplementedError),
         ({"stream_chunk_rows": 1 << 16}, NotImplementedError),
-        ({"score_transport": "u16"}, NotImplementedError),
+        ({"score_transport": "u16"}, None),
         ({"score_transport": "f16"}, ValueError),
         ({"store": "disk"}, ValueError),
         ({"device_dtype": "float16"}, ValueError),
         ({"precision": "bf16"}, ValueError),
     ],
 )
-def test_unported_options_raise(kwargs, err):
-    with pytest.raises(err):
-        InMemoryIndex(device="cpu", **kwargs)
+def test_unported_options_raise(data, kwargs, err):
+    """What the port still lacks raises; an option ported since (``err`` is
+    ``None``: the u16 score transport) constructs and scores within its
+    bound, ``(max - min) / 131070`` of the f32 port's scores."""
+    if err is not None:
+        with pytest.raises(err):
+            InMemoryIndex(device="cpu", **kwargs)
+        return
+    corpus, by_text, queries, runs = data
+    indexes = []
+    for extra in (kwargs, {}):
+        index = InMemoryIndex(
+            query_encoder=LambdaEncoder(by_text.__getitem__), mode=Mode.PASSAGE, device="cpu", **extra
+        )
+        index.add(corpus, psg_ids=[f"p{i}" for i in range(N)])
+        indexes.append(index)
+    ranking = ft.Ranking.from_run(runs["PASSAGE"], queries=queries)
+    got, want = (dict(zip(zip(*_cols(ix(ranking))[:2]), _cols(ix(ranking))[2])) for ix in indexes)
+    assert got.keys() == want.keys()
+    span = max(want.values()) - min(want.values())
+    err_max = max(abs(got[key] - s) for key, s in want.items())
+    assert err_max <= span / 131070 * (1 + 1e-3) + 1e-5
 
 
 def test_quantizer_must_be_a_trained_quantizer():
@@ -216,13 +235,23 @@ def test_quantizer_must_be_a_trained_quantizer():
 
 
 def test_unported_scoring_paths_raise(data, monkeypatch):
-    """What the port still lacks raises, naming its ROADMAP item: the u16
-    score transport (item 5) and scoring without a device table, the host
-    gather of on-disk indexes (item 7); the document modes, early stopping
-    and query batches score."""
+    """What the port still lacks raises, naming its ROADMAP item: scoring
+    without a device table, the host gather of on-disk indexes (item 7); the
+    u16 score transport (item 5, ported since), the document modes, early
+    stopping and query batches score."""
     corpus, by_text, _, _ = data
-    with pytest.raises(NotImplementedError, match="item 5"):
-        InMemoryIndex(device="cpu", score_transport="u16")
+    u16 = InMemoryIndex(
+        query_encoder=LambdaEncoder(by_text.__getitem__), mode=Mode.MAXP, device="cpu",
+        score_transport="u16",
+    )
+    u16.add(corpus[:8], doc_ids=[f"d{i // 2}" for i in range(8)])
+    r16 = ft.Ranking.from_run({"q0": {"d1": 1.0, "d2": 0.5}}, queries={"q0": "query 0"})
+    want = {d: float(np.max(corpus[2 * int(d[1:]) : 2 * int(d[1:]) + 2] @ by_text["query 0"]))
+            for d in ("d1", "d2")}
+    got = u16(r16)["q0"]
+    assert got.keys() == want.keys()
+    bound = abs(want["d1"] - want["d2"]) / 131070 + 1e-5
+    assert all(abs(got[d] - want[d]) <= bound for d in want)
     index = InMemoryIndex(
         query_encoder=LambdaEncoder(by_text.__getitem__), mode=Mode.MAXP, device="cpu"
     )

@@ -2,11 +2,10 @@
 the port's ``InMemoryIndex`` on the CPU.
 
 The case bodies of ``test_properties``, ``test_add_retrieve``,
-``test_iter``, ``test_quantization`` and ``TestInMemoryIndex.test_consolidate``
-are copied with the same dummy data, and run with the port's ``Mode``,
-``LambdaEncoder`` and ``NanoPQ(2, 8)``.  ``test_coalescing`` stays out: it
-needs ``create_coalesced_index``, which the port does not have yet
-(ROADMAP.md, Queue 1 item 11).
+``test_coalescing``, ``test_iter``, ``test_quantization`` and
+``TestInMemoryIndex.test_consolidate`` are copied with the same dummy data,
+and run with the port's ``Mode``, ``LambdaEncoder``, ``NanoPQ(2, 8)`` and
+``create_coalesced_index``.
 
 Beside them, two cases hold the port against ``fastforward_tpu`` itself:
 ``_get_vectors`` and ``batch_iter`` return the JAX index's vectors and IDs,
@@ -29,6 +28,7 @@ from fastforward_tpu_torch import convert
 from fastforward_tpu_torch.encoder import LambdaEncoder
 from fastforward_tpu_torch.index import InMemoryIndex, Mode
 from fastforward_tpu_torch.quantizer import NanoPQ
+from fastforward_tpu_torch.utils import create_coalesced_index
 
 DUMMY_DOC_IDS = ["d0", "d0", "d1", "d2", "d3"]
 UNIQUE_DUMMY_DOC_IDS = list(set(DUMMY_DOC_IDS))
@@ -83,6 +83,7 @@ class TestTorchInMemoryIndex(unittest.TestCase):
         cls.psg_index = _index(DUMMY_ENCODER)
         cls.iter_indexes = [_index(init_size=2, alloc_size=2), _index(init_size=5)]
         cls.quantized_index = _index(quantizer=DUMMY_QUANTIZER)
+        cls.coalesced_indexes = [_index(mode=Mode.MAXP), _index(mode=Mode.MAXP)]
 
         cls.doc_psg_index.add(vectors=DUMMY_VECTORS, doc_ids=DUMMY_DOC_IDS, psg_ids=DUMMY_PSG_IDS)
 
@@ -153,6 +154,29 @@ class TestTorchInMemoryIndex(unittest.TestCase):
                 [f"doc_{i}" for i in range(lower // 2, upper // 2)]
             )
             _assert_vectors_match(vecs, ids, data[lower:upper], doc_ids[lower:upper])
+
+    def test_coalescing(self):
+        # delta = 0.3: d0's two vectors merge into their average
+        create_coalesced_index(self.doc_index, self.coalesced_indexes[0], 0.3)
+        self.assertEqual(self.doc_index.doc_ids, self.coalesced_indexes[0].doc_ids)
+        d0_expected = np.average([DUMMY_VECTORS[0], DUMMY_VECTORS[1]], axis=0)
+        d0_vectors, _ = self.coalesced_indexes[0]._get_vectors(["d0"])
+        self.assertEqual(1, len(d0_vectors))
+        self.assertTrue(np.array_equal(d0_expected, d0_vectors[0]))
+
+        # delta = 0.2: nothing merges
+        create_coalesced_index(self.doc_index, self.coalesced_indexes[1], 0.2, batch_size=2)
+        self.assertEqual(self.doc_index.doc_ids, self.coalesced_indexes[1].doc_ids)
+        for doc_id in self.doc_index.doc_ids:
+            vectors_1, _ = self.doc_index._get_vectors([doc_id])
+            vectors_2, _ = self.coalesced_indexes[1]._get_vectors([doc_id])
+            self.assertEqual(len(vectors_1), len(vectors_2))
+            for v1, v2 in zip(vectors_1, vectors_2):
+                self.assertTrue(np.array_equal(v1, v2))
+
+        # non-empty target rejected
+        with self.assertRaises(ValueError):
+            create_coalesced_index(self.doc_index, self.coalesced_indexes[0], 0.3)
 
     def test_iter(self):
         for index in self.iter_indexes:
