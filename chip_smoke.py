@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """GPU smoke run of fastforward_tpu_torch: kernels, re-rank, fused serve,
-document ranking, early stopping, preload, the u16 score transport and the
-batching server.
+document ranking, early stopping, preload, the u16 score transport, the
+batching server, the transformer query towers and the disk index.
 
 Run from the repository root on a machine with one NVIDIA GPU::
 
@@ -74,6 +74,27 @@ Phases, each of which must pass (any failure exits non-zero):
     of the array path a wave (request prep, the batch's merge and launches,
     its result copy, the fan-out; summed over the threads), and one more
     wave of each under ``torch.profiler``;
+18. the query towers at full width: a BERT-base tower (transformers'
+    default ``BertConfig``: 12 layers, hidden 768, 12 heads, FFN 3,072;
+    TCT-ColBERT's shape) and a DistilBERT-base one (6 layers, 768; TAS-B's),
+    random weights from ``torch.manual_seed``, saved with a hand-written
+    30,522-entry vocabulary and opened by ``TCTColBERTQueryEncoder`` and
+    ``TASBEncoder``; the flagship run's 512 queries (36 tokens each for
+    TCT) encoded on the card in fp32 and bf16, the first 64 checked against
+    the port's tower on the CPU (fp32 within 1e-4, with TF32 on in this
+    process; bf16 within 16 bf16 steps, and no further in rms from the
+    CPU's bf16 tower than twice that from its fp32 one) and the CPU tower
+    against transformers' eager forward (atol 2e-4, rtol 1e-3); encode
+    and tower times against the flop bound, peak activation memory; then
+    the flagship re-rank (a cold and 5 warm calls) and serve with the fp32
+    TCT encoder as the index's query encoder: must launch K1 alone, every
+    score of 32 queries and their top-10 against float64 of the vectors the
+    index encoded;
+19. the disk index: ``fastforward_tpu_torch.index.disk`` imports; without
+    h5py, ``OnDiskIndex`` and ``OnDiskIndex.load`` must raise
+    ``ImportError`` naming it.  Where h5py is installed, a dense and a
+    ``PQ(96, 256)`` index of 8,192 rows go through ``add``,
+    ``load(hbm_cache=True)`` and a re-rank that must launch K1 and K3;
 6. K1 against its plain version on the main path's own inputs, for fp32,
    bf16 and int8 tables in both tiers, timed, back to back and in one
    traced call split by kernel; beside it, the query-major body (K2's
@@ -107,7 +128,7 @@ Phases, each of which must pass (any failure exits non-zero):
     splits its time by kernel (memset, grouping, scoring), and each is
     timed back to back.
 
-The phases run in the order 1-5, 12, 14-17, 6-11 (phase 13 inside 7 and 9,
+The phases run in the order 1-5, 12, 14-19, 6-11 (phase 13 inside 7 and 9,
 while their indexes exist).  After phases 12 (for 4 and 12 together),
 14 and 7-10, one warm call of each flow (and one cold early-stopping call)
 runs under
@@ -126,9 +147,12 @@ and power limit, the ``{"kernels": [...]}`` summary and, last,
 ``{"ok": true, "device": {...}}``.
 """
 
+import importlib.util
 import json
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -167,6 +191,18 @@ CARD_RATES = {
     "nvl": (3.9e12, 60e12),
     "sxm": (3.35e12, 67e12),
 }
+
+#: published dense bf16 tensor-core rates by part (NVIDIA data sheets)
+BF16_RATES = {"pcie": 756e12, "nvl": 835e12, "sxm": 989e12}
+#: the query towers of phase 18: BERT-base (TCT-ColBERT's shape) and
+#: DistilBERT-base (TAS-B's) from transformers' default configs, random
+#: weights; a hand-written vocabulary of BERT's size; the flagship run's
+#: queries, of which ``TOWER_CHECK_QUERIES`` are also run on the CPU
+TOWER_VOCAB = 30_522
+TOWER_CHECK_QUERIES = 64
+TOWER_TIMED = 5
+#: phase 19 (where h5py is installed): a small dense and PQ disk index
+DISK_N, DISK_QUERIES, DISK_DEPTH = 8192, 32, 100
 
 QUANT_FIT = 1 << 16  # training vectors of the quantizers
 DENSE_N = 262_144  # rows of the dense-tile phases: ~1,000 pairs per 512-row tile
@@ -256,6 +292,11 @@ def card_rates(name: str) -> tuple[float, float]:
     return CARD_RATES["sxm"]
 
 
+def card_bf16_rate(name: str) -> float:
+    low = name.lower()
+    return BF16_RATES["pcie" if "pcie" in low else "nvl" if "nvl" in low else "sxm"]
+
+
 def median_ms(fn, n: int, warmup: int = 3) -> float:
     """Median device time of ``fn()`` over ``n`` runs (CUDA events)."""
     for _ in range(warmup):
@@ -315,6 +356,55 @@ def make_run(n_ids: int, prefix: str, num_queries: int, depth: int, seed: int) -
                   for i, c in enumerate(rng.choice(n_ids, size=depth, replace=False))}
         for q in range(num_queries)
     }
+
+
+def tower_vocab(size: int) -> list[str]:
+    """A BERT vocabulary of ``size`` entries written by hand: the special
+    tokens and TCT-ColBERT's ``[Q]``/``[D]`` first, then ``query`` and the
+    numbers, so that the flagship run's queries (``query <n>``) tokenize to
+    distinct ids."""
+    head = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", "[Q]", "[D]", "query"]
+    return head + [str(i) for i in range(size - len(head))]
+
+
+def write_checkpoint(target: Path, model, vocab: list) -> Path:
+    """Save a transformers ``model`` and a ``BertTokenizer`` of ``vocab``
+    to ``target``, as a checkpoint ``AutoModel``/``AutoTokenizer`` open."""
+    from transformers import BertTokenizer
+
+    target.mkdir(parents=True, exist_ok=True)
+    (target / "vocab.txt").write_text("\n".join(vocab))
+    BertTokenizer(str(target / "vocab.txt")).save_pretrained(target)
+    model.save_pretrained(target)
+    return target
+
+
+def tower_bound(config, batch: int, length: int, rate: float, mem_rate: float) -> dict:
+    """Least time of one tower call on ``batch`` sequences of ``length``
+    tokens: the matmul operations (per layer and token ``2 (4 H^2 + 2 H I)``
+    for the projections and the FFN, per sequence ``4 L^2 H`` for the
+    logits and the context) at ``rate``, against the layer weights
+    (``config.dtype``), the tokens' embedding rows and the output read or
+    written once at ``mem_rate``."""
+    h, i, n = config.hidden_size, config.intermediate_size, config.num_layers
+    tokens = batch * length
+    flops = n * (2.0 * tokens * (4 * h * h + 2 * h * i) + 4.0 * batch * length * length * h)
+    weight_bytes = n * (4 * h * h + 2 * h * i + 9 * h + i) * (2 if config.dtype == "bfloat16" else 4)
+    moved = weight_bytes + tokens * h * 4 * 2
+    flop_ms, byte_ms = flops / rate * 1e3, moved / mem_rate * 1e3
+    return {"flops": flops, "bytes": moved, "bound_ms": max(flop_ms, byte_ms),
+            "bound_by": "operations" if flop_ms >= byte_ms else "bytes"}
+
+
+def check_close(got: np.ndarray, want: np.ndarray, atol: float, rtol: float, what: str) -> float:
+    """Every element of ``got`` within ``atol + rtol |want|``; the largest
+    difference."""
+    check(got.shape == want.shape and bool(np.isfinite(got).all()),
+          f"{what}: shape {got.shape} vs {want.shape}, or non-finite values")
+    err = np.abs(got.astype(np.float64) - want)
+    check(bool((err <= atol + rtol * np.abs(want)).all()),
+          f"{what}: max err {err.max():.3e} (atol {atol:.1e}, rtol {rtol:.1e})")
+    return float(err.max())
 
 
 def k1_bound(table, q, cand3, tile_idx, dim, r, rates) -> dict:
@@ -1150,6 +1240,219 @@ def serve_memory(index, ranking, scratch: dict) -> dict:
     return {"held_bytes": held, "peak_bytes": torch.cuda.max_memory_allocated(), **scratch}
 
 
+def tower_phase(index, ranking, run, queries, corpus_dev, q_index, wrappers, launches, rates,
+                name) -> dict:
+    """Phase 18: BERT-base (``TCTColBERTQueryEncoder``) and DistilBERT-base
+    (``TASBEncoder``) towers with random weights, saved as checkpoints with
+    a hand-written vocabulary and opened by the encoders: the flagship
+    run's queries encoded on the card in fp32 and bf16, held against the
+    port's tower and transformers' eager forward on the CPU, timed against
+    their bounds; then the flagship re-rank and serve with the fp32 TCT
+    encoder as the index's query encoder, which must launch K1 alone."""
+    from transformers import AutoModel
+    from transformers import BertConfig as HFBertConfig
+    from transformers import BertModel, DistilBertConfig, DistilBertModel
+
+    from fastforward_tpu_torch.encoder import TASBEncoder, TCTColBERTQueryEncoder, transformer
+    from fastforward_tpu_torch.index import Mode
+
+    tmp = Path(tempfile.mkdtemp(prefix="ff-towers-"))
+    bf16_rate = card_bf16_rate(name)
+    texts = [queries[f"q{i}"] for i in range(len(queries))]
+    check_texts = texts[:TOWER_CHECK_QUERIES]
+    towers, encoders = {}, {}
+    try:
+        t0 = time.perf_counter()
+        torch.manual_seed(0)
+        tct_path = write_checkpoint(tmp / "tct", BertModel(HFBertConfig()).eval(),
+                                    tower_vocab(TOWER_VOCAB))
+        torch.manual_seed(1)
+        tasb_path = write_checkpoint(tmp / "tasb", DistilBertModel(DistilBertConfig()).eval(),
+                                     tower_vocab(TOWER_VOCAB))
+        log(f"[setup] BERT-base and DistilBERT-base checkpoints (random weights, vocabulary "
+            f"{TOWER_VOCAB}) written in {time.perf_counter() - t0:.1f} s")
+        for label, cls, path in (("tct", TCTColBERTQueryEncoder, tct_path),
+                                 ("tasb", TASBEncoder, tasb_path)):
+            # the CPU references on the first queries: the port's tower in
+            # fp32 and bf16, and transformers' own eager forward
+            cpu32 = cls(path, device="cpu")
+            want32 = cpu32(check_texts)
+            want16 = cls(path, device="cpu", compute_dtype="bfloat16")(check_texts)
+            tokens = cpu32._tokenizer(cpu32._get_tokenizer_inputs(check_texts), return_tensors="pt",
+                                      **{"padding": True, **cpu32._tokenizer_call_args})
+            eager = AutoModel.from_pretrained(path, attn_implementation="eager").eval()
+            with torch.no_grad():
+                hidden = eager(input_ids=tokens["input_ids"],
+                               attention_mask=tokens["attention_mask"]).last_hidden_state
+            want_hf = transformer._POOLING[cls._pooling](hidden, tokens["attention_mask"]).numpy()
+            # transformers' tolerance of the JAX tower (tests/test_models.py:63)
+            row = {"tokens_per_query": int(tokens["input_ids"].shape[1]),
+                   "max_err_cpu_tower_vs_transformers_eager": check_close(
+                       want32, want_hf, 2e-4, 1e-3, f"{label} CPU tower vs transformers")}
+            del eager, cpu32, hidden
+            for dtype in ("float32", "bfloat16"):
+                enc = cls(path, compute_dtype=dtype)
+                check(enc.device.type == "cuda", f"{label} {dtype}: the tower is not on the card")
+                vecs = enc(texts)
+                check(vecs.shape == (len(texts), DIM) and vecs.dtype == np.float32,
+                      f"{label} {dtype}: vectors {vecs.shape} {vecs.dtype}")
+                got = vecs[:TOWER_CHECK_QUERIES]
+                if dtype == "float32":
+                    # both IEEE fp32, summed in other orders (TF32, on in this
+                    # process, would miss by ~1e-2)
+                    err = check_close(got, want32, 1e-4, 1e-4, f"{label} fp32 card vs CPU")
+                    encoders[label] = enc
+                    card32 = vecs
+                else:
+                    # each layer carries a one-step rounding difference on: 16
+                    # bf16 steps at the largest value, and (rms) no further from
+                    # the CPU's bf16 tower than that is from the fp32 one, twice
+                    err = check_close(got, want16, 16 * 2.0**-8 * np.abs(want16).max(), 0.0,
+                                      f"{label} bf16 card vs CPU")
+                    rms = float(np.sqrt(np.mean((got - want16) ** 2)))
+                    rms_ref = float(np.sqrt(np.mean((want16 - want32) ** 2)))
+                    check(rms <= 2 * rms_ref,
+                          f"{label} bf16: rms {rms:.3e} vs the CPU's bf16-fp32 {rms_ref:.3e}")
+                    row.update(bf16_rms_vs_cpu_bf16=rms, cpu_bf16_rms_vs_fp32=rms_ref,
+                               bf16_max_diff_vs_card_fp32=float(np.abs(vecs - card32).max()))
+                encode_ms, _ = timed_calls(lambda: enc(texts), TOWER_TIMED)
+                tok = enc._tokenizer(enc._get_tokenizer_inputs(texts), return_tensors="np",
+                                     **{"padding": True, **enc._tokenizer_call_args})
+                ids = torch.from_numpy(tok["input_ids"]).cuda()
+                mask = torch.from_numpy(tok["attention_mask"]).cuda()
+                with torch.inference_mode():
+                    tower_ms = median_ms(lambda: enc._tower(ids, mask), TOWER_TIMED, warmup=1)
+                    torch.cuda.synchronize()
+                    held = torch.cuda.memory_allocated()
+                    torch.cuda.reset_peak_memory_stats()
+                    enc._tower(ids, mask)
+                    torch.cuda.synchronize()
+                    peak = torch.cuda.max_memory_allocated() - held
+                    # where the tower's device time goes, by kernel
+                    traced = profile_flow(lambda: enc._tower(ids, mask), (), needs_copy=False)
+                bound = tower_bound(enc.config, ids.shape[0], ids.shape[1],
+                                    bf16_rate if dtype == "bfloat16" else rates[1], rates[0])
+                row[dtype] = {"encode_ms": encode_ms, "tower_ms": tower_ms,
+                              "max_err_vs_cpu": err, "peak_activation_bytes": peak,
+                              "weight_bytes": sum(p.numel() * p.element_size()
+                                                  for p in enc._tower.parameters()),
+                              **bound, "bound_share": bound["bound_ms"] / tower_ms,
+                              "traced_device_ms": traced["device_ms"],
+                              "top_device_ms": traced["top_device_ms"]}
+                log(f"[{label} {dtype}] {len(texts)} queries x {ids.shape[1]} tokens: encode "
+                    f"{encode_ms:.2f} ms (median of {TOWER_TIMED}, host, synchronized), tower "
+                    f"{tower_ms:.2f} ms (CUDA events) vs bound {bound['bound_ms']:.3f} ms "
+                    f"({bound['flops'] / 1e12:.3f} TFLOP, {bound['bound_by']}); peak "
+                    f"activations {peak} B; max err vs CPU {err:.3e}")
+            towers[label] = row
+        towers["card"] = smi_line()
+        log(f"[towers] {json.dumps(towers)}")
+
+        # the flagship re-rank and serve with the fp32 TCT tower as the
+        # query encoder (the index's own micro-batches of encoder_batch_size)
+        index.mode = Mode.PASSAGE
+        index.query_encoder = encoders["tct"]
+        reset_counts(wrappers)
+        t0 = time.perf_counter()
+        cold = index(ranking)
+        torch.cuda.synchronize()
+        cold_ms = (time.perf_counter() - t0) * 1e3
+        warm_ms, warm = timed_calls(lambda: index(ranking), WARM_CALLS)
+        served = index.serve(ranking, ALPHA, CUTOFF)
+        counts = read_counts(wrappers)
+        launches["tower_rerank"] = counts
+        n_k1 = counts["stream_select_pairwise"]
+        check(n_k1 == 2 + WARM_CALLS and sum(counts.values()) == n_k1,
+              f"the tower re-rank and serve launched {counts}")
+        check(cold == warm, "tower re-rank: cold and warm disagree")
+        # float64 of the vectors the index encoded
+        tower_q = torch.from_numpy(index.encode_queries(texts)).cuda()
+        exact = passage_exact(corpus_dev, tower_q, q_index, DIM)
+        check_rerank(warm, exact, "tower re-rank")
+        check_serve(served, run, exact, "tower serve")
+        encode_ms, _ = timed_calls(lambda: index.encode_queries(texts), TOWER_TIMED)
+        profile = profile_flow(lambda: index(ranking), CALL_KERNELS["pairwise"])
+        rerank = {"cold_ms": cold_ms, "warm_ms": warm_ms, "qps": len(texts) / warm_ms * 1e3,
+                  "k1_launches": n_k1, "encode_queries_ms": encode_ms,
+                  "encoder_batch_size": index._encoder_batch_size, "profile": profile}
+        log(f"[tower re-rank] on {towers['card']}: cold {cold_ms:.1f} ms, warm median {warm_ms:.2f} ms "
+            f"({rerank['qps']:.1f} QPS); encode_queries alone {encode_ms:.2f} ms (batches of "
+            f"{index._encoder_batch_size}); K1 launches {n_k1}; traced spans "
+            f"{json.dumps(profile['host_span_ms'])}")
+    finally:
+        encoders.clear()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"towers": towers, "tower_rerank": rerank}
+
+
+def disk_phase(corpus, qvecs, wrappers, launches) -> dict:
+    """Phase 19: the disk index's module imports; without h5py,
+    ``OnDiskIndex`` and ``OnDiskIndex.load`` raise ``ImportError`` naming
+    it.  Where h5py is installed instead, a dense and a ``PQ(96, 256)``
+    ``OnDiskIndex`` of the first ``DISK_N`` rows, written with ``add`` and
+    opened with ``load(hbm_cache=True)``, re-rank a run of
+    ``DISK_QUERIES`` x ``DISK_DEPTH``: the dense index must launch K1 and
+    the PQ index K3, each alone, and every score match float64 (of the
+    decoded rows)."""
+    importlib.import_module("fastforward_tpu_torch.index.disk")
+    from fastforward_tpu_torch.encoder import LambdaEncoder
+    from fastforward_tpu_torch.index import Mode, OnDiskIndex
+    from fastforward_tpu_torch.quantizer import PQ
+    from fastforward_tpu_torch.ranking import Ranking
+
+    tmp = Path(tempfile.mkdtemp(prefix="ff-disk-"))
+    try:
+        if importlib.util.find_spec("h5py") is None:
+            for what, make in (("OnDiskIndex", lambda: OnDiskIndex(tmp / "x.h5")),
+                               ("OnDiskIndex.load", lambda: OnDiskIndex.load(tmp / "x.h5"))):
+                try:
+                    make()
+                except ImportError as exc:
+                    check("h5py" in str(exc), f"{what} raised ImportError without naming h5py: {exc}")
+                    log(f"[disk] no h5py here: {what} raises ImportError: {exc}")
+                else:
+                    check(False, f"{what} built an index without h5py")
+            return {"h5py": False}
+        rows = corpus[:DISK_N]
+        by_text = {f"query {i}": qvecs[i] for i in range(DISK_QUERIES)}
+        q_index = {f"q{i}": i for i in range(DISK_QUERIES)}
+        run = make_run(DISK_N, "p", DISK_QUERIES, DISK_DEPTH, SEED + 7)
+        ranking = Ranking.from_run(run, queries={f"q{i}": f"query {i}" for i in range(DISK_QUERIES)})
+        psg_ids = [f"p{i}" for i in range(DISK_N)]
+        qvecs_dev = torch.from_numpy(qvecs[:DISK_QUERIES]).cuda()
+        pq = PQ(PQ_M, PQ_KS)
+        pq.fit(rows)
+        out = {"h5py": True}
+        step = DISK_N // 4
+        for label, quantizer, want in (("disk_dense", None, "stream_select_pairwise"),
+                                       ("disk_pq", pq, "stream_select_pq_pairwise")):
+            t0 = time.perf_counter()
+            path = tmp / f"{label}.h5"
+            writer = OnDiskIndex(path, quantizer=quantizer, mode=Mode.PASSAGE)
+            for lo in range(0, DISK_N, step):
+                writer.add(rows[lo : lo + step], psg_ids=psg_ids[lo : lo + step])
+            index = OnDiskIndex.load(path, LambdaEncoder(by_text.__getitem__), mode=Mode.PASSAGE,
+                                     hbm_cache=True)
+            reset_counts(wrappers)
+            result = index(ranking)
+            counts = read_counts(wrappers)
+            launches[label] = counts
+            check(counts[want] >= 1 and sum(counts.values()) == counts[want],
+                  f"{label}: launches {counts}, want {want} alone")
+            if quantizer is None:
+                ref = torch.from_numpy(rows).cuda()
+            else:
+                codes = np.concatenate([v for v, _, _ in index._batch_iter(DISK_N)])
+                ref = pq_rows(codes, pq.codewords)
+            check_rerank(result, passage_exact(ref, qvecs_dev, q_index, DIM), label, DISK_QUERIES)
+            out[label] = {"s": time.perf_counter() - t0, "launches": counts}
+            log(f"[disk] {label}: add, load(hbm_cache=True) and re-rank in {out[label]['s']:.1f} "
+                f"s; launches {counts}")
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1652,6 +1955,15 @@ def main() -> int:
     flows["server"] = serve_phase("server", run, queries, Mode.PASSAGE, None)
     flows["server_refine"] = serve_phase("server_refine", run, queries, Mode.PASSAGE, REFINE)
     flows["server_doc_maxp"] = serve_phase("server_doc_maxp", doc_run, queries, Mode.MAXP, None)
+
+    # -- 18. the query towers on the card at full width ---------------------------
+    flows.update(tower_phase(index, ranking, run, queries, corpus_dev, q_index, wrappers,
+                             launches, rates, name))
+    index.query_encoder = LambdaEncoder(by_text.__getitem__)
+    torch.cuda.empty_cache()
+
+    # -- 19. the disk index: its module without h5py, or a round trip with it --------
+    flows["disk"] = disk_phase(corpus, qvecs, wrappers, launches)
 
     # -- 6. K1 vs plain on the main path's inputs, timed ---------------------
     cand3, tile_idx, q_dev = main_inputs

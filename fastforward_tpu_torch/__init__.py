@@ -10,8 +10,11 @@ run on the card unless the caller passes ``device="cpu"``.
 Subpackages mirror ``fastforward_tpu``:
 
 - ``ranking`` — host-side run I/O and score algebra (``Ranking``).
-- ``encoder`` — the encoder contract and ``LambdaEncoder``.
-- ``index`` — the vector store + scoring engine (``InMemoryIndex``).
+- ``encoder`` — the encoder contract, ``LambdaEncoder`` and the transformer
+  encoders (``TCTColBERTQueryEncoder``, ...; imported on first use).
+- ``models`` — the BERT/DistilBERT tower the transformer encoders run.
+- ``index`` — the vector store + scoring engine (``InMemoryIndex``,
+  ``OnDiskIndex``).
 - ``ops`` — kernels and tensor programs of the hot path.
 - ``runtime`` — the native id map and layout builder.
 - ``convert`` — building indexes from arrays or another index's triples.

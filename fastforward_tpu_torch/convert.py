@@ -7,6 +7,8 @@ never an object of another framework, so an index built elsewhere can be
 rebuilt here row for row.  A quantized index is rebuilt from its codes and
 its quantizer's state (:func:`index_from_codes`,
 :func:`quantizer_from_state`), so both hold the same codes and codebooks.
+A query tower is rebuilt from the JAX package's parameter pytree, given as
+numpy arrays (:func:`bert_from_params`), so both compute the same function.
 """
 
 from collections.abc import Iterable, Mapping, Sequence
@@ -17,6 +19,7 @@ import torch
 from fastforward_tpu_torch.index.base import check_ids
 from fastforward_tpu_torch.index.memory import InMemoryIndex
 from fastforward_tpu_torch.index.mode import Mode
+from fastforward_tpu_torch.models.bert import LAYER_KEYS, BertConfig, BertTower
 from fastforward_tpu_torch.quantizer import PQ, Quantizer
 
 
@@ -127,3 +130,22 @@ def index_from_codes(
     index = InMemoryIndex(mode=_port_mode(mode), quantizer=quantizer, **index_kwargs)
     index._add(codes, doc_ids, psg_ids)
     return index
+
+
+def bert_from_params(params: Mapping, config: BertConfig) -> BertTower:
+    """The port's tower for a parameter pytree in the JAX package's layout
+    (``fastforward_tpu.models.bert.init_params``/``from_hf_torch``: an
+    ``embeddings`` dict and a ``layers`` dict stacked along the layer axis,
+    Linear weights ``(layers, in, out)``), given as numpy arrays.
+
+    :param params: The parameters (``np.asarray`` of each leaf).
+    :param config: The tower's configuration (the port's ``BertConfig``;
+        its ``dtype`` sets the compute type).
+    :return: The tower, on the CPU, with the Linear weights transposed to
+        ``(layers, out, in)``.
+    """
+    layers = {}
+    for key in LAYER_KEYS:
+        value = np.asarray(params["layers"][key])
+        layers[key] = np.swapaxes(value, 1, 2) if key.endswith("_w") else value
+    return BertTower.from_arrays(config, params["embeddings"], layers)

@@ -1,8 +1,9 @@
 """Encoders: text -> dense vectors.
 
-``Encoder`` is the abstract contract and ``LambdaEncoder`` adapts arbitrary
-per-text functions (reference: ``encoder/__init__.py:32-44``).  The
-transformer encoders are ROADMAP Queue 1 item 9.
+``Encoder`` is the abstract contract, ``LambdaEncoder`` adapts arbitrary
+per-text functions (reference: ``encoder/__init__.py:32-44``), and the
+Transformer encoders (the port's BERT towers on the card) live in
+``fastforward_tpu_torch.encoder.transformer``, imported on first use.
 """
 
 from collections.abc import Callable, Sequence
@@ -11,7 +12,16 @@ import numpy as np
 
 from fastforward_tpu_torch.encoder.base import Encoder
 
-__all__ = ["Encoder", "LambdaEncoder"]
+__all__ = [
+    "Encoder",
+    "LambdaEncoder",
+    "TransformerEncoder",
+    "TCTColBERTQueryEncoder",
+    "TCTColBERTDocumentEncoder",
+    "TASBEncoder",
+    "ContrieverEncoder",
+    "BGEEncoder",
+]
 
 
 class LambdaEncoder(Encoder):
@@ -26,3 +36,13 @@ class LambdaEncoder(Encoder):
 
     def _encode(self, texts: Sequence[str]) -> np.ndarray:
         return np.array([self._f(t) for t in texts])
+
+
+def __getattr__(name: str):
+    # lazy import: the transformer encoders need transformers when one is
+    # built, which host-only use of the package does not
+    if name in __all__[2:]:
+        from fastforward_tpu_torch.encoder import transformer
+
+        return getattr(transformer, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

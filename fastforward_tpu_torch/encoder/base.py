@@ -1,8 +1,7 @@
 """Encoder contract: a batch of texts in, a matrix of embeddings out.
 
 Mirrors the reference contract (reference: ``encoder/base.py:10-23``).
-The transformer encoders are not ported yet (ROADMAP Queue 1 item 9);
-host-side encoders (``LambdaEncoder``) return plain numpy.
+Every encoder returns plain numpy, whatever device it computes on.
 """
 
 import abc

@@ -377,6 +377,8 @@ class Index(abc.ABC):
 
     _query_encoder: Encoder | None = None
     _quantizer: Quantizer | None = None
+    #: the torch device the index scores on (set by the backend)
+    _device: torch.device
 
     #: score transport of the re-rank path: "f32" copies exact fp32 scores;
     #: "u16" quantizes them on the device and dequantizes them on the host,
@@ -457,6 +459,11 @@ class Index(abc.ABC):
                 self._plans.move_to_end(key)
         return plan
 
+    @property
+    def device(self) -> torch.device:
+        """The torch device the index scores on."""
+        return self._device
+
     # -- encoders ------------------------------------------------------------
 
     def encode_queries(self, queries: Sequence[str]) -> np.ndarray:
@@ -496,8 +503,12 @@ class Index(abc.ABC):
             raise TypeError(f"expected a Quantizer, got {type(quantizer).__name__}")
         if len(self) > 0:
             raise RuntimeError("Quantizers can only be attached to empty indexes.")
-        quantizer.set_attached()
         self._quantizer = quantizer
+        self._on_quantizer_set()
+        quantizer.set_attached()
+
+    def _on_quantizer_set(self) -> None:
+        """Backend hook: a quantizer was attached to this index."""
 
     # -- mode / shape properties ---------------------------------------------
 
@@ -987,16 +998,38 @@ class Index(abc.ABC):
     _MAX_GROUP_K = 64
 
     def _gather_view(self, ids) -> "tuple[DeviceView, np.ndarray, np.ndarray]":
-        """Return ``(device view, per-ID row indices, per-ID row counts)``:
-        the index's device table and its host ID map.
+        """Return ``(device view, per-ID row indices, per-ID row counts)``.
+
+        With a device table: that table and the host ID map's rows.
+        Without one (an ``OnDiskIndex`` without ``hbm_cache``): the IDs'
+        vectors are read (and decoded) on the host and uploaded as a dense
+        fp32 table on the index's device for this call only; the rows index
+        that table.  The scoring then runs on the device as for any table.
 
         :raises IndexError: When an ID is missing from the index.
         """
-        rows, counts = self._ids.resolve(ids, self.mode)
         view = self._device_view()
-        if view is None:
-            raise not_ported("scoring an index that has no device table", "7")
-        return view, rows, counts
+        if view is not None:
+            rows, counts = self._ids.resolve(ids, self.mode)
+            return view, rows, counts
+        ids = list(ids)
+        vectors, vec_ids = self._get_vectors(ids)
+        if self._quantizer is not None and len(vec_ids):
+            vectors = self._quantizer.decode(vectors)
+        vectors = np.asarray(vectors, dtype=np.float32).reshape(len(vec_ids), self.dim)
+        # each ID's rows are the positions of its vectors, in order
+        vec_codes, uniques = pd.factorize(pd.Index(vec_ids, dtype=object))
+        order = np.argsort(vec_codes, kind="stable")
+        per_code = np.bincount(vec_codes, minlength=len(uniques))
+        code_start = np.cumsum(per_code) - per_code
+        id_codes = uniques.get_indexer(pd.Index(ids, dtype=object))
+        counts = np.where(id_codes >= 0, per_code[id_codes], 0)
+        starts = np.repeat(code_start[id_codes], counts)
+        within = np.arange(counts.sum()) - np.repeat(np.cumsum(counts) - counts, counts)
+        rows = order[starts + within].astype(np.int32)
+        table = torch.from_numpy(vectors).to(self._device)
+        view = DeviceView("dense", table, precision=getattr(self, "_precision", "exact"))
+        return view, rows, counts.astype(np.int32)
 
     def _candidate_arrays(
         self, df: pd.DataFrame
@@ -1008,10 +1041,11 @@ class Index(abc.ABC):
 
         :raises IndexError: When an ID is missing from the index.
         """
-        if self.mode in (Mode.PASSAGE, Mode.FIRSTP):
+        view = self._device_view()
+        if view is not None and self.mode in (Mode.PASSAGE, Mode.FIRSTP):
             # exactly one row per pair: resolve the whole id column directly
             # (zero-copy from the arrow buffers)
-            view, rows, _ = self._gather_view(df["id"])
+            rows, _ = self._ids.resolve(df["id"], self.mode)
             return view, rows[:, None], np.ones(len(df), dtype=np.int32), 1
         pair_id_pos, ids_unique = pd.factorize(df["id"], sort=False)
         view, rows_concat, counts = self._gather_view(ids_unique)
@@ -1053,7 +1087,8 @@ class Index(abc.ABC):
         """Fused fast path: device scoring + host result ordering.
 
         Returns ``None`` when the candidates need the flat segment path
-        (documents with more than ``_MAX_GROUP_K`` passages).  With a
+        (documents with more than ``_MAX_GROUP_K`` passages), or when a
+        ready plan's device table is gone.  With a
         *ready* ``plan`` (a previous call on the same ranking succeeded),
         ``df`` may be ``None`` — every candidate-derived artifact comes from
         the plan and only queries are live.
@@ -1063,6 +1098,12 @@ class Index(abc.ABC):
         fetch + result assembly run when it is called (the seam used by
         :meth:`Index.submit`).
         """
+        if plan is not None and self._device_view() is None:
+            if plan.get("ready"):  # the table went away under a ready plan
+                return None
+            # plans hold rows of a persistent device table; the host gather
+            # builds its table anew on every call
+            plan = None
         if plan is not None and plan.get("cand_ready"):
             # candidate resolution already done (by an earlier call or a
             # serve() call on the same ranking)
@@ -1505,8 +1546,9 @@ class Index(abc.ABC):
                 out = self._score_and_sort(
                     None, query_vectors, plan["q_uniques"], score_dtype, plan=plan
                 )
-                LOGGER.info("computed scores in %s seconds (prepared)", perf_counter() - t0)
-                return out
+                if out is not None:
+                    LOGGER.info("computed scores in %s seconds (prepared)", perf_counter() - t0)
+                    return out
 
         # unique queries -> dense query numbers (device batch indices):
         # factorize numbers queries by first appearance, and the
@@ -1639,8 +1681,8 @@ class Index(abc.ABC):
         the device, so only ``num_queries x cutoff`` (score, index) pairs
         come back to the host.  Ties at the cutoff go to the candidate that
         comes first in the ranking.  Documents with more than
-        ``_MAX_GROUP_K`` passages take that unfused flow itself (its scoring
-        still runs on the device).
+        ``_MAX_GROUP_K`` passages, and an index without a device table, take
+        that unfused flow itself (its scoring still runs on the device).
 
         With ``early_stopping_depths`` the semantic scores come from the
         early-stopping schedule (cutoff ``cutoff``, alpha ``alpha``) and the
@@ -1725,7 +1767,8 @@ class Index(abc.ABC):
             ranking, query_vectors, q_uniques, q_codes, plan, alpha, cutoff, refine
         )
         if finish is None:
-            # the unfused flow (documents with more than _MAX_GROUP_K passages)
+            # the unfused flow (documents with more than _MAX_GROUP_K
+            # passages, or no device table)
             out = ranking.interpolate(self(ranking), alpha).cut(cutoff)
             out.name = "fast-forward"
             return out
@@ -1786,8 +1829,12 @@ class Index(abc.ABC):
         Static artifacts (candidate arrays, the per-query slot layout, the
         lexical score upload, output id arrays) are plan-cached: warm calls
         pay only encode + device work + the ``(2, Q, cutoff)`` fetch, whose
-        copy starts as soon as it is launched.
+        copy starts as soon as it is launched.  An index without a device
+        table takes the unfused flow.
         """
+        if self._device_view() is None:
+            # no device table (the host gather): the unfused flow
+            return None
         score_dtype = ranking._df.dtypes["score"]
         if plan.get("cand_ready"):
             n_pairs = plan["n_pairs"]

@@ -116,11 +116,6 @@ class InMemoryIndex(Index):
             score_transport=score_transport,
         )
 
-    @property
-    def device(self) -> torch.device:
-        """The torch device of the scoring table."""
-        return self._device
-
     # -- storage -------------------------------------------------------------
 
     def _get_num_vectors(self) -> int:
@@ -182,19 +177,6 @@ class InMemoryIndex(Index):
 
     # -- device table --------------------------------------------------------
 
-    def _upload(
-        self, rows: np.ndarray, shape: tuple, dtype: torch.dtype, host_dtype=None
-    ) -> torch.Tensor:
-        """Zero-padded device copy of host rows, uploaded in row chunks
-        (each chunk converted to ``host_dtype`` on the host, then cast on
-        the device; bf16 rounds to nearest even)."""
-        table = torch.zeros(shape, dtype=dtype, device=self._device)
-        flat = table.view(shape[0], -1)
-        for lo in range(0, rows.shape[0], _UPLOAD_ROWS):
-            chunk = np.ascontiguousarray(rows[lo : lo + _UPLOAD_ROWS], dtype=host_dtype)
-            flat[lo : lo + chunk.shape[0]] = torch.from_numpy(chunk).to(self._device)
-        return table
-
     def _device_view(self) -> DeviceView | None:
         if self._num == 0:
             return None
@@ -208,35 +190,71 @@ class InMemoryIndex(Index):
 
     def _build_view(self) -> DeviceView:
         """Upload the host store into a new device view."""
-        n_pad = -(-self._num // _ROW_PAD) * _ROW_PAD
-        data = self._store[: self._num]
-        width = data.shape[1]
-        if isinstance(self._quantizer, PQ):
-            if data.dtype != np.uint8:
-                raise not_ported("PQ codes wider than uint8 (Ks > 256)", "10")
-            # compact (N_pad, M) codes; the fp32 codebooks stay in L2
-            codebooks = np.array(self._quantizer.codewords, dtype=np.float32)
-            return DeviceView(
-                kind="pq",
-                table=self._upload(data, (n_pad, width), torch.uint8),
-                precision=self._precision,
-                codebooks=torch.from_numpy(codebooks).to(self._device),
-            )
-        if isinstance(self._quantizer, ScalarQuantizer):
-            # 3D int8 layout when the lanes divide (the streamed kernels'
-            # table form); the scales fold into the queries
-            shape = (n_pad, width // 128, 128) if width % 128 == 0 else (n_pad, width)
-            return DeviceView(
-                kind="scalar",
-                table=self._upload(data, shape, torch.int8),
-                precision=self._precision,
-                scales=self._quantizer.scales,
-            )
-        # fp32 rows go up in chunks (no padded host copy is made)
-        return DeviceView(
-            kind="dense",
-            table=self._upload(
-                data, (n_pad, width), _DEVICE_DTYPES[self._device_dtype], np.float32
-            ),
+        return build_view(
+            self._store[: self._num],
+            self._quantizer,
+            self._device,
             precision=self._precision,
+            device_dtype=self._device_dtype,
         )
+
+
+def upload_rows(
+    rows: np.ndarray, shape: tuple, dtype: torch.dtype, device: torch.device, host_dtype=None
+) -> torch.Tensor:
+    """Zero-padded device copy of host rows, uploaded in row chunks (each
+    chunk converted to ``host_dtype`` on the host, then cast on the device;
+    bf16 rounds to nearest even).  No padded host copy is made."""
+    table = torch.zeros(shape, dtype=dtype, device=device)
+    flat = table.view(shape[0], -1)
+    for lo in range(0, rows.shape[0], _UPLOAD_ROWS):
+        chunk = np.ascontiguousarray(rows[lo : lo + _UPLOAD_ROWS], dtype=host_dtype)
+        flat[lo : lo + chunk.shape[0]] = torch.from_numpy(chunk).to(device)
+    return table
+
+
+def build_view(
+    data: np.ndarray,
+    quantizer: "Quantizer | None",
+    device: torch.device,
+    precision: str = "exact",
+    device_dtype: str = "float32",
+) -> DeviceView:
+    """The device view of stored rows (vectors as added, or the
+    quantizer's codes), zero-padded to a multiple of ``_ROW_PAD`` rows:
+    ``(N_pad, M)`` uint8 PQ codes with their fp32 codebooks; int8 codes,
+    ``(N_pad, dim/128, 128)`` when the lanes divide; or ``(N_pad, dim)``
+    vectors in ``device_dtype``.
+
+    :raises NotImplementedError: For PQ codes wider than uint8.
+    """
+    n_pad = -(-data.shape[0] // _ROW_PAD) * _ROW_PAD
+    width = data.shape[1]
+    if isinstance(quantizer, PQ):
+        if data.dtype != np.uint8:
+            raise not_ported("PQ codes wider than uint8 (Ks > 256)", "10")
+        # compact (N_pad, M) codes; the fp32 codebooks stay in L2
+        codebooks = np.array(quantizer.codewords, dtype=np.float32)
+        return DeviceView(
+            kind="pq",
+            table=upload_rows(data, (n_pad, width), torch.uint8, device),
+            precision=precision,
+            codebooks=torch.from_numpy(codebooks).to(device),
+        )
+    if isinstance(quantizer, ScalarQuantizer):
+        # 3D int8 layout when the lanes divide (the streamed kernels'
+        # table form); the scales fold into the queries
+        shape = (n_pad, width // 128, 128) if width % 128 == 0 else (n_pad, width)
+        return DeviceView(
+            kind="scalar",
+            table=upload_rows(data, shape, torch.int8, device),
+            precision=precision,
+            scales=quantizer.scales,
+        )
+    return DeviceView(
+        kind="dense",
+        table=upload_rows(
+            data, (n_pad, width), _DEVICE_DTYPES[device_dtype], device, np.float32
+        ),
+        precision=precision,
+    )

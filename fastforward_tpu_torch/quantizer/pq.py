@@ -14,14 +14,13 @@ and the same class names as ``fastforward_tpu``, so triples load in either
 package.  The device is not part of the state.
 """
 
-import contextlib
 import logging
 from typing import Any
 
 import numpy as np
 import torch
 
-from fastforward_tpu_torch.device import resolve_device
+from fastforward_tpu_torch.device import fp32_matmul, resolve_device
 from fastforward_tpu_torch.quantizer.base import (
     Quantizer,
     QuantizerAttributes,
@@ -37,20 +36,6 @@ KMEANS_ITERS = 20
 _DIST_ELEMS = 1 << 27
 
 
-@contextlib.contextmanager
-def _fp32_matmul(device: torch.device):
-    """Run CUDA matmuls in IEEE fp32 (TF32 off) inside the block."""
-    if device.type != "cuda":
-        yield
-        return
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
-
-
 def _nearest_center(vecs: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
     """Index of the L2-nearest centroid per subspace and vector.
 
@@ -64,7 +49,7 @@ def _nearest_center(vecs: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
     c_sq = (centers * centers).sum(-1)[:, None, :]
     step = max(1, _DIST_ELEMS // (m * ks))
     out = torch.empty((m, n), dtype=torch.int64, device=vecs.device)
-    with _fp32_matmul(vecs.device):
+    with fp32_matmul(vecs.device):
         for lo in range(0, n, step):
             dots = torch.bmm(vecs[:, lo : lo + step], centers.transpose(1, 2))
             out[:, lo : lo + step] = torch.argmin(c_sq - 2.0 * dots, dim=-1)

@@ -7,6 +7,7 @@ port's dependencies (``--noconftest`` skips the JAX test configuration)::
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 """
 
+import dataclasses
 import subprocess
 import sys
 from pathlib import Path
@@ -16,10 +17,11 @@ import pytest
 import torch
 
 import fastforward_tpu_torch as ft
-from chip_smoke import fp32_edge_tiles
+from chip_smoke import fp32_edge_tiles, tower_vocab, write_checkpoint
 from fastforward_tpu_torch import convert
 from fastforward_tpu_torch.encoder import LambdaEncoder
 from fastforward_tpu_torch.index import InMemoryIndex, Mode
+from fastforward_tpu_torch.models import bert
 from fastforward_tpu_torch.ops import scoring
 from fastforward_tpu_torch.ops import stream_kernel as sk
 from fastforward_tpu_torch.ops import stream_kernel_pq as skpq
@@ -522,3 +524,101 @@ print("ok")
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("ok")
+
+
+# -- the query towers --------------------------------------------------------------
+
+
+def _tower_inputs(seed: int, batch: int, length: int, vocab: int = 1024):
+    rng = np.random.default_rng(seed)
+    ids = torch.from_numpy(rng.integers(0, vocab, size=(batch, length)))
+    mask = torch.ones_like(ids)
+    mask[1, length // 2 :] = 0
+    return ids, mask
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_tower_equals_cpu_tower(cuda, dtype):
+    """The tiny tower on the card against the same weights on the CPU:
+    fp32 within 1e-4 (both IEEE fp32, summed in other orders; TF32 would
+    miss by ~1e-3), bf16 within eight bf16 steps of the largest output."""
+    config = dataclasses.replace(bert.BertConfig.tiny(), dtype=dtype)
+    tower = convert.bert_from_params(bert.init_params(config, seed=0), config)
+    ids, mask = _tower_inputs(0, 4, 24)
+    with torch.inference_mode():
+        want = tower(ids, mask)
+        got = tower.to(cuda)(ids.to(cuda), mask.to(cuda)).cpu()
+    assert got.dtype == torch.float32
+    if dtype == "float32":
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    else:
+        torch.testing.assert_close(got, want, atol=8 * 2.0**-8 * want.abs().max().item(), rtol=0)
+
+
+def test_cuda_fp32_tower_ignores_tf32(cuda):
+    """With TF32 switched on process-wide, the fp32 tower at BERT-base
+    width still runs its matmuls in IEEE fp32: its output equals the run
+    with TF32 off and the CPU's within 1e-4, the flag is back on after the
+    call, and (the control) an unguarded matmul on this card does change."""
+    config = bert.BertConfig(vocab_size=1024, num_layers=2, max_position_embeddings=64)
+    tower = convert.bert_from_params(bert.init_params(config, seed=1), config)
+    ids, mask = _tower_inputs(1, 8, 36)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    try:
+        with torch.inference_mode():
+            want = tower(ids, mask)
+            tower.to(cuda)
+            torch.backends.cuda.matmul.allow_tf32 = True
+            on = tower(ids.to(cuda), mask.to(cuda)).cpu()
+            assert torch.backends.cuda.matmul.allow_tf32 is True
+            torch.backends.cuda.matmul.allow_tf32 = False
+            off = tower(ids.to(cuda), mask.to(cuda)).cpu()
+            x = torch.randn(1024, 768, device=cuda)
+            w = torch.randn(768, 768, device=cuda)
+            ref = x.double() @ w.double()
+            ieee_err = ((x @ w).double() - ref).abs().max().item()
+            torch.backends.cuda.matmul.allow_tf32 = True
+            tf32_err = ((x @ w).double() - ref).abs().max().item()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    torch.testing.assert_close(on, off, atol=1e-6, rtol=1e-6)
+    torch.testing.assert_close(on, want, atol=1e-4, rtol=1e-4)
+    assert tf32_err > 10 * ieee_err, (tf32_err, ieee_err)
+
+
+def test_cuda_tct_encoder_rerank_launches_k1(cuda, tmp_path):
+    """A re-rank on the card with ``TCTColBERTQueryEncoder(device="cuda")``
+    as the index's query encoder: the tower runs on the card, its vectors
+    equal the CPU tower's, and the scoring launches K1 once with the dots
+    of those vectors."""
+    from transformers import BertConfig, BertModel
+
+    from fastforward_tpu_torch.encoder import TCTColBERTQueryEncoder
+
+    torch.manual_seed(0)
+    model = BertModel(BertConfig(
+        vocab_size=1024, hidden_size=128, num_hidden_layers=2, num_attention_heads=2,
+        intermediate_size=256, max_position_embeddings=64,
+    )).eval()
+    path = write_checkpoint(tmp_path / "tct", model, tower_vocab(1024))
+    encoder = TCTColBERTQueryEncoder(path, device="cuda", max_length=12)
+    assert encoder.device.type == "cuda" and encoder._tower.q_w.is_cuda
+    rng = np.random.default_rng(2)
+    n, queries, depth = 4096, 16, 100
+    corpus = rng.standard_normal((n, 128), dtype=np.float32)
+    index = InMemoryIndex(query_encoder=encoder, mode=Mode.PASSAGE)
+    index.add(corpus, psg_ids=[f"p{i}" for i in range(n)])
+    texts = {f"q{i}": f"query {i}" for i in range(queries)}
+    run = {q: {f"p{c}": float(-r) for r, c in enumerate(rng.choice(n, depth, replace=False))}
+           for q in texts}
+    before = sk.stream_select_pairwise.launches
+    out = index(ft.Ranking.from_run(run, queries=texts))
+    assert sk.stream_select_pairwise.launches - before == 1
+    qvecs = encoder(list(texts.values()))
+    cpu_vecs = TCTColBERTQueryEncoder(path, device="cpu", max_length=12)(list(texts.values()))
+    np.testing.assert_allclose(qvecs, cpu_vecs, atol=1e-4, rtol=1e-4)
+    assert len({v.tobytes() for v in qvecs}) == queries  # distinct queries
+    for qi, q in enumerate(texts):
+        for pid, score in out[q].items():
+            want = float(corpus[int(pid[1:])].astype(np.float64) @ qvecs[qi])
+            assert abs(score - want) <= 1e-4 * (1 + abs(want)), (q, pid, score, want)

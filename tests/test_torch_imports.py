@@ -43,6 +43,37 @@ print("ok")
     assert out.stdout.strip().endswith("ok")
 
 
+def test_every_module_imports_without_h5py_and_transformers():
+    """A fresh interpreter in which h5py and transformers cannot be
+    imported still imports every module of the port (the disk index and
+    the transformer encoders import them only when an index or an encoder
+    is built), and neither JAX nor ``fastforward_tpu`` appears."""
+    code = """
+import importlib, importlib.util, pkgutil, sys, types
+for blocked in ("h5py", "transformers"):
+    sys.modules[blocked] = None
+if importlib.util.find_spec("pyterrier") is None:
+    pt = types.ModuleType("pyterrier")
+    pt.Transformer = object
+    sys.modules["pyterrier"] = pt
+import fastforward_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(fastforward_tpu_torch.__path__, "fastforward_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+assert {"fastforward_tpu_torch.index.disk", "fastforward_tpu_torch.encoder.transformer",
+        "fastforward_tpu_torch.models.bert"} <= set(names)
+from fastforward_tpu_torch.encoder import TCTColBERTQueryEncoder
+bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "fastforward_tpu")]
+assert not bad, bad
+print("ok")
+"""
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
 def test_no_source_imports_jax_or_the_jax_package(path):
     for node in ast.walk(ast.parse(path.read_text())):

@@ -235,10 +235,11 @@ def test_quantizer_must_be_a_trained_quantizer():
 
 
 def test_unported_scoring_paths_raise(data, monkeypatch):
-    """What the port still lacks raises, naming its ROADMAP item: scoring
-    without a device table, the host gather of on-disk indexes (item 7); the
-    u16 score transport (item 5, ported since), the document modes, early
-    stopping and query batches score."""
+    """The scoring paths that once raised, naming their ROADMAP items, now
+    score: the u16 score transport (item 5), the document modes, early
+    stopping, query batches, and scoring without a device table (item 7:
+    the host gather of on-disk indexes, which reads the rows through
+    ``_get_vectors`` and scores them as the device table does)."""
     corpus, by_text, _, _ = data
     u16 = InMemoryIndex(
         query_encoder=LambdaEncoder(by_text.__getitem__), mode=Mode.MAXP, device="cpu",
@@ -261,6 +262,10 @@ def test_unported_scoring_paths_raise(data, monkeypatch):
     assert len(index(r, early_stopping=1, early_stopping_alpha=0.2, early_stopping_depths=[1, 2])._df) >= 1
     assert len(index.serve(r, 0.2, 1, early_stopping_depths=[1, 2])._df) == 1
     assert index(r, batch_size=1) == index(r)
+    r3 = ft.Ranking.from_run({"q0": {"d3": 1.0, "d0": 0.5}}, queries={"q0": "query 0"})
+    with_table = index(r3)["q0"]
     monkeypatch.setattr(index, "_device_view", lambda: None)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        index(ft.Ranking.from_run({"q0": {"d3": 1.0}}, queries={"q0": "query 0"}))
+    gathered = index(r3)["q0"]
+    assert gathered.keys() == with_table.keys()
+    assert all(abs(gathered[d] - with_table[d]) <= 1e-5 for d in gathered)
+    assert index.serve(r3, 0.2, 1) == r3.interpolate(index(r3), 0.2).cut(1)
