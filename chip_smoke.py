@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """GPU smoke run of fastforward_tpu_torch: kernels, re-rank, fused serve,
 document ranking, early stopping, preload, the u16 score transport, the
-batching server, the transformer query towers and the disk index.
+batching server, the transformer query towers, the disk index, the hybrid
+tier beyond device memory, the device store and the progressive preload.
 
 Run from the repository root on a machine with one NVIDIA GPU::
 
@@ -95,6 +96,34 @@ Phases, each of which must pass (any failure exits non-zero):
     ``ImportError`` naming it.  Where h5py is installed, a dense and a
     ``PQ(96, 256)`` index of 8,192 rows go through ``add``,
     ``load(hbm_cache=True)`` and a re-rank that must launch K1 and K3;
+20. the hybrid tier: a second fp32 index of the flagship corpus with
+    ``hbm_budget=2 GiB`` must split at 488,448 resident rows (1.50 GB),
+    1,511,552 host-tail rows (4.64 GB) and a 646,971,392-byte device
+    block cache (6 blocks of 32,768 rows); a cold and 5 warm passage
+    re-ranks and ``serve(ranking, 0.2, 10)``, a cold and 5 warm MAXP
+    re-ranks (the ragged layout) and early stopping, each checked against
+    float64 and the top of 32 queries against phase 3's whole-table index;
+    the tier's counters of every call: warm calls copy exactly the blocks
+    the cache does not hold, MAXP fetches 2 x n_pairs floats; every call
+    launches K1 once for the prefix and once a tail block; K1 and K2 (the
+    block as 3D) held against their plain versions on one staged tail
+    block; the host-to-card GB/s of tail blocks (page-locked, staged,
+    gathered) beside the link's generation and width;
+21. (inside phases 7 and 9) the same for the int8 codes of phase 7 at
+    ``hbm_budget=512 MiB`` and the PQ codes of phase 9 at 64 MiB: passage
+    and MAXP re-ranks checked as there, each call launching the kernel
+    each layout routes to (K1/K2, K3/K4); K2, K3 and K4 held against
+    their plain versions on a staged tail block;
+22. ``store="device"``: the flagship corpus in 62 adds of 32,768 rows
+    (rows/s), no host copy; its re-rank and ``serve(refine=22)`` equal
+    phase 3's index, 4,096 rows read back bit for bit;
+23. ``preload(warm=(512, 1000), serve=(0.2, 10, 22), progressive=True)`` of
+    a fresh flagship fp32 index: True with ``stats["progressive"]``; a
+    serve right after it checked against float64 of whichever table it saw
+    (truncated or exact); ``preload_join(timeout=120)`` True with
+    ``stats["progressive_exact"]``, the table equal to the corpus and the
+    re-rank to phase 3's index; the time to each table beside phase 15's
+    ``upload_s``;
 6. K1 against its plain version on the main path's own inputs, for fp32,
    bf16 and int8 tables in both tiers, timed, back to back and in one
    traced call split by kernel; beside it, the query-major body (K2's
@@ -128,8 +157,8 @@ Phases, each of which must pass (any failure exits non-zero):
     splits its time by kernel (memset, grouping, scoring), and each is
     timed back to back.
 
-The phases run in the order 1-5, 12, 14-19, 6-11 (phase 13 inside 7 and 9,
-while their indexes exist).  After phases 12 (for 4 and 12 together),
+The phases run in the order 1-5, 12, 14-20, 22, 23, 6-11 (phases 13 and
+21 inside 7 and 9, while their indexes exist).  After phases 12 (for 4 and 12 together),
 14 and 7-10, one warm call of each flow (and one cold early-stopping call)
 runs under
 ``torch.profiler`` (device busy time, idle share, largest device items;
@@ -203,6 +232,19 @@ TOWER_CHECK_QUERIES = 64
 TOWER_TIMED = 5
 #: phase 19 (where h5py is installed): a small dense and PQ disk index
 DISK_N, DISK_QUERIES, DISK_DEPTH = 8192, 32, 100
+
+#: phases 20-21: the hybrid tier's budgets (bytes): dense fp32, int8 and
+#: PQ(96, 256) tables of the flagship corpus
+HYBRID_BUDGET, HYBRID_INT8_BUDGET, HYBRID_PQ_BUDGET = 2 << 30, 512 << 20, 64 << 20
+#: the dense split phase 20 must find: resident rows (1.50 GB), host-tail
+#: rows (4.64 GB) and the device block cache's bytes (about 6 blocks)
+HYBRID_DENSE_SPLIT = (488_448, 1_511_552, 646_971_392)
+#: tail blocks each variant of the copy-rate probe copies (phase 20)
+RATE_BLOCKS = 16
+#: phase 22: rows per add of the device store
+DEVICE_ADD_ROWS = 32_768
+#: phase 23: seconds ``preload_join`` may take for the exact table
+PROGRESSIVE_JOIN_S = 120
 
 QUANT_FIT = 1 << 16  # training vectors of the quantizers
 DENSE_N = 262_144  # rows of the dense-tile phases: ~1,000 pairs per 512-row tile
@@ -1453,6 +1495,457 @@ def disk_phase(corpus, qvecs, wrappers, launches) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def hybrid_split(num: int, row_bytes: int, budget: int, lifetime_bytes: int = 0) -> tuple:
+    """``(resident rows, tail rows, device cache bytes)`` of a hybrid view
+    (``build_hybrid_view``'s arithmetic, the JAX package's): 70% of the
+    budget left after ``lifetime_bytes`` (PQ codebooks) in steps of 1,024
+    rows, the rest of it for the device block cache."""
+    budget = max(0, budget - lifetime_bytes)
+    resident = (int(budget * 0.7) // row_bytes) // 1024 * 1024
+    return resident, num - resident, max(0, budget - resident * row_bytes)
+
+
+def hybrid_launches_per_call(state: dict, kind: str) -> dict:
+    """The launches one call of a hybrid plan makes: one for the resident
+    prefix when it streams, and one per tail chunk, each to the kernel its
+    layout routes to (2D fp32 tables to K1; int8 codes to K1 at ``cap <=
+    r``, K2 above; PQ codes to K3 at ``cap <= r``, K4 above)."""
+    narrow, wide = (
+        ("stream_select_pq_pairwise", "stream_select_pq") if kind == "pq"
+        else ("stream_select_pairwise", "stream_select")
+    )
+    res = state["res_plan"].get("stream_pq" if kind == "pq" else "stream")
+    out: dict = {}
+    for cand in ([res[0]] if res is not None else []) + [c["cand"] for c in state["chunks"]]:
+        name = wide if kind != "dense" and cand.shape[1] * 128 > 512 else narrow
+        out[name] = out.get(name, 0) + 1
+    return out
+
+
+def hybrid_calls(index, ranking, warm: int) -> tuple:
+    """A cold and ``warm`` warm re-ranks of a hybrid index; returns ``(cold
+    ms, median warm ms, cold result, last result, the tier's counters of
+    each call)``."""
+    from fastforward_tpu_torch.ops import host_stream
+
+    times, stats, results = [], [], []
+    for _ in range(1 + warm):
+        host_stream.reset_stats()
+        t0 = time.perf_counter()
+        results.append(index(ranking))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        stats.append(dict(host_stream.STATS))
+    return times[0], float(np.median(times[1:])), results[0], results[-1], stats
+
+
+def check_cache_use(view, state, stats: list, what: str) -> dict:
+    """Warm calls copy exactly the tail blocks the device cache does not
+    hold, and hit the ones it does; returns the counts."""
+    from fastforward_tpu_torch.ops import host_stream
+
+    blocks = view.aux.get("tail_blocks", {})
+    keys = [host_stream._block_cache_key(c, view.table.dtype) for c in state["chunks"]]
+    cached = sum(k in blocks for k in keys)
+    for i, st in enumerate(stats[1:], 1):
+        check(st["uploads"] == len(keys) - cached and st["block_cache_hits"] == cached,
+              f"{what}: warm call {i} copied {st['uploads']} and hit {st['block_cache_hits']} "
+              f"of {len(keys)} blocks, {cached} of them cached")
+    return {"chunks": len(keys), "cached": cached, "cold": stats[0], "warm": stats[-1]}
+
+
+def staged_block(view, state) -> tuple:
+    """``(device block, chunk)`` of the first tail chunk of ``state`` whose
+    staged block is in the view's device cache."""
+    from fastforward_tpu_torch.ops import host_stream
+
+    blocks = view.aux["tail_blocks"]
+    for chunk in state["chunks"]:
+        ent = blocks.get(host_stream._block_cache_key(chunk, view.table.dtype))
+        if ent is not None:
+            return ent[0], chunk
+    raise SmokeFailure("no staged tail block in the device cache")
+
+
+def check_same_top(got, want, queries: int, what: str, k: "int | None" = None) -> None:
+    """The first ``queries`` queries' ids (their top ``k`` by score, or all)
+    against another index's, as sets (tied scores may order differently),
+    scores within rtol 1e-5 and atol 1e-5."""
+    g, w = got._df, want._df
+    for qi in range(queries):
+        gq, wq = g[g["q_id"].astype(str) == f"q{qi}"], w[w["q_id"].astype(str) == f"q{qi}"]
+        if k is not None:
+            gq, wq = gq.nlargest(k, "score"), wq.nlargest(k, "score")
+        gs = dict(zip(gq["id"].astype(str), gq["score"]))
+        ws = dict(zip(wq["id"].astype(str), wq["score"]))
+        check(gs.keys() == ws.keys(), f"{what}: q{qi} ids {sorted(gs)} vs {sorted(ws)}")
+        check(all(abs(gs[k] - ws[k]) <= 1e-5 + 1e-5 * abs(ws[k]) for k in ws),
+              f"{what}: q{qi} scores differ")
+    log(f"  {what}: the top of {queries} queries equals the whole-table index's")
+
+
+def tail_copy_rates(view) -> dict:
+    """Host-to-card GB/s of tail blocks copied as the hybrid tier copies them
+    (``host_stream._TailCopier``, blocks of ``view.chunk_rows`` rows on its
+    copy stream), ``RATE_BLOCKS`` blocks each: contiguous runs of the tail
+    and scattered rows gathered, each through the pinned staging buffers;
+    beside them the link from pinned memory (one staging-sized pinned block
+    copied ``RATE_BLOCKS`` times, no host copy) and what page-locking the
+    tail in place would cost (``cudaHostRegister``, timed and undone)."""
+    from fastforward_tpu_torch.ops import host_stream
+
+    tail, rows = view.host_tail, view.chunk_rows
+    n = min(RATE_BLOCKS, tail.shape[0] // rows)
+    picked = np.sort(np.random.default_rng(SEED + 9).choice(tail.shape[0], n * rows, replace=False))
+    variants = {
+        "staged_contiguous": [np.arange(i * rows, (i + 1) * rows, dtype=np.int64) for i in range(n)],
+        "gathered": [picked[i * rows : (i + 1) * rows] for i in range(n)],
+    }
+    copier = host_stream._TailCopier(tail, view.aux, rows, view.table.dtype, view.table.shape[1:],
+                                     view.table.device)
+    nbytes = n * rows * copier.row_bytes
+    out = {}
+    for name, row_sets in variants.items():
+        # a full plan budget: no host copy is kept, every block is staged anew
+        acct = {"host_cached_bytes": host_stream.HOST_BLOCK_CACHE_BUDGET}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for row_set in row_sets:
+            src, staged = copier.source({"rows": row_set, "block_rows": rows}, acct)
+            copier.to_device(src, staged, rows)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        out[name] = {"gb_s": nbytes / dt / 1e9, "bytes": nbytes, "s": dt}
+    pinned = torch.empty((rows, tail.shape[1]), dtype=copier.tail.dtype, pin_memory=True)
+    pinned.copy_(copier.tail[:rows])
+    block = torch.empty(pinned.shape, dtype=pinned.dtype, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        block.copy_(pinned, non_blocking=True)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    out["pinned_source"] = {"gb_s": nbytes / dt / 1e9, "bytes": nbytes, "s": dt}
+    cudart = torch.cuda.cudart()
+    t0 = time.perf_counter()
+    err = cudart.cudaHostRegister(tail.ctypes.data, tail.nbytes, 0)
+    out["register_tail_s"] = time.perf_counter() - t0
+    check(err == cudart.cudaError.success, f"cudaHostRegister of the tail failed: {err}")
+    cudart.cudaHostUnregister(tail.ctypes.data)
+    return out
+
+
+def pcie_line() -> str:
+    """The host link's current and maximum generation and width as
+    ``nvidia-smi`` reports them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=pcie.link.gen.current,pcie.link.width.current,"
+         "pcie.link.gen.max,pcie.link.width.max", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0] if out.returncode == 0 and out.stdout.strip() else "unknown"
+
+
+def hybrid_dense_phase(corpus, doc_ids, psg_ids, by_text, ranking, doc_rank, run, queries, index,
+                       exact_p, exact_doc, wrappers, launches, rates, held) -> dict:
+    """Phase 20: the flagship fp32 corpus behind ``hbm_budget=2 GiB``: the
+    split, cold and warm passage re-ranks and serve, MAXP (ragged layout)
+    and early stopping, each checked against float64 and the whole-table
+    index; K1 and K2 held against their plain versions on one staged tail
+    block; the host-to-card copy rates of tail blocks."""
+    from fastforward_tpu_torch import InMemoryIndex, Mode, Ranking
+    from fastforward_tpu_torch.encoder import LambdaEncoder
+    from fastforward_tpu_torch.ops import stream_kernel as sk
+
+    t0 = time.perf_counter()
+    hyb = InMemoryIndex(query_encoder=LambdaEncoder(by_text.__getitem__), mode=Mode.PASSAGE,
+                        precision="high", hbm_budget=HYBRID_BUDGET)
+    hyb.add(corpus, doc_ids=doc_ids, psg_ids=psg_ids)
+    add_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    view = hyb._device_view()
+    torch.cuda.synchronize()
+    view_s = time.perf_counter() - t0
+    want = hybrid_split(N, DIM * 4, HYBRID_BUDGET)
+    got = (view.tail_start, view.host_tail.shape[0], view.tail_cache_budget)
+    check(view.kind == "hybrid" and got == want == HYBRID_DENSE_SPLIT,
+          f"hybrid split {got}, want {want} and {HYBRID_DENSE_SPLIT}")
+    block_bytes = view.chunk_rows * DIM * 4
+    split = {"resident_rows": got[0], "resident_gb": got[0] * DIM * 4 / 1e9, "tail_rows": got[1],
+             "tail_gb": got[1] * DIM * 4 / 1e9, "cache_bytes": got[2],
+             "cache_blocks": got[2] // block_bytes, "block_rows": view.chunk_rows,
+             "block_mb": block_bytes / 1e6, "add_s": add_s, "view_s": view_s}
+    log(f"[hybrid] {N} x {DIM} fp32 at hbm_budget {HYBRID_BUDGET} B: {json.dumps(split)}")
+    flows = {"hybrid_split": split}
+
+    reset_counts(wrappers)
+    cold_ms, warm_ms, cold, warm, stats = hybrid_calls(hyb, ranking, WARM_CALLS)
+    state = hyb._get_plan(ranking)["hybrid"]
+    cache = check_cache_use(view, state, stats, "hybrid re-rank")
+    check(cold == warm, "hybrid: cold and warm re-rank disagree")
+    check_rerank(warm, exact_p, "hybrid re-rank")
+    t0 = time.perf_counter()
+    hyb.serve(ranking, ALPHA, CUTOFF)
+    torch.cuda.synchronize()
+    serve_first_ms = (time.perf_counter() - t0) * 1e3
+    serve_ms, served = timed_calls(lambda: hyb.serve(ranking, ALPHA, CUTOFF), WARM_CALLS)
+    counts = read_counts(wrappers)
+    per_call = hybrid_launches_per_call(state, "dense")
+    calls = 2 * (1 + WARM_CALLS)
+    check(counts == {k: per_call.get(k, 0) * calls for k in counts},
+          f"hybrid passage launches {counts}, want {per_call} x {calls}")
+    launches["hybrid_dense"] = counts
+    check_serve(served, run, exact_p, "hybrid serve")
+    check_same_top(served, index.serve(ranking, ALPHA, CUTOFF), CHECK_QUERIES, "hybrid serve")
+    flows["hybrid_rerank"] = {"cold_ms": cold_ms, "warm_ms": warm_ms, "qps": QUERIES / warm_ms * 1e3,
+                              "cache": cache, "launches_per_call": per_call}
+    flows["hybrid_serve"] = {"first_ms": serve_first_ms, "warm_ms": serve_ms,
+                             "qps": QUERIES / serve_ms * 1e3}
+    log(f"[hybrid] re-rank cold {cold_ms:.1f} ms, warm median {warm_ms:.2f} ms; serve first "
+        f"{serve_first_ms:.1f} ms, warm median {serve_ms:.2f} ms; {cache['chunks']} tail blocks, "
+        f"{cache['cached']} cached; launches {counts}; the tier's counters by call "
+        f"{json.dumps(stats)}")
+    flows["hybrid_rerank"]["profile"] = profile_flow(lambda: hyb(ranking), CALL_KERNELS["pairwise"])
+    log("[profile hybrid_rerank]", json.dumps(flows["hybrid_rerank"]["profile"]))
+
+    # K1 and K2 (the fp32 block as 3D, K2's entry) on one staged tail block
+    block, chunk = staged_block(view, state)
+    q_dev = state["res_plan"]["q_dev"][1]
+    log(f"[hybrid] K1 and K2 vs plain on a staged tail block {tuple(block.shape)}, layout "
+        f"{tuple(chunk['cand'].shape)}")
+    held["stream_select_pairwise"] += pairwise_variants(
+        sk, block, q_dev, chunk["cand"], chunk["tile"], DIM, ("exact",), True, rates, "fp32 tail block")
+    held["stream_select"] += select_variants(
+        sk, block.view(block.shape[0], DIM // 128, 128), q_dev, chunk["cand"], chunk["tile"], DIM,
+        ("high",), True, rates, "fp32 tail block")
+    del block, chunk
+
+    hyb.mode = Mode.MAXP
+    reset_counts(wrappers)
+    cold_ms, warm_ms, cold, warm, stats = hybrid_calls(hyb, doc_rank, WARM_CALLS)
+    state = hyb._get_plan(doc_rank)["hybrid"]
+    n_pairs = len(doc_rank._df)
+    check(all(st["fetch_floats"] == 2 * n_pairs for st in stats),
+          f"hybrid MAXP fetched {[st['fetch_floats'] for st in stats]} floats, want 2 x {n_pairs}")
+    cache = check_cache_use(view, state, stats, "hybrid MAXP re-rank")
+    check(cold == warm, "hybrid MAXP: cold and warm re-rank disagree")
+    check_rerank(warm, exact_doc["MAXP"], "hybrid MAXP re-rank")
+    counts = read_counts(wrappers)
+    per_call = hybrid_launches_per_call(state, "dense")
+    check(counts == {k: per_call.get(k, 0) * (1 + WARM_CALLS) for k in counts},
+          f"hybrid MAXP launches {counts}, want {per_call} x {1 + WARM_CALLS}")
+    launches["hybrid_dense_maxp"] = counts
+    flows["hybrid_doc_maxp_rerank"] = {"cold_ms": cold_ms, "warm_ms": warm_ms,
+                                       "qps": QUERIES / warm_ms * 1e3, "cache": cache,
+                                       "rows": int(state["res_pos"].shape[0] + state["p_tail"]),
+                                       "pairs": n_pairs, "launches_per_call": per_call}
+    log(f"[hybrid MAXP] cold {cold_ms:.1f} ms, warm median {warm_ms:.2f} ms; "
+        f"{flows['hybrid_doc_maxp_rerank']['rows']} rows of {n_pairs} pairs; {cache['chunks']} tail "
+        f"blocks, {cache['cached']} cached; the tier's counters by call {json.dumps(stats)}")
+
+    hyb.mode = Mode.PASSAGE
+    reset_counts(wrappers)
+    t0 = time.perf_counter()
+    es = hyb(Ranking.from_run(run, queries=queries), **ES_KWARGS)
+    torch.cuda.synchronize()
+    es_ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counts(wrappers)
+    check(counts["stream_select_pairwise"] >= 1 and sum(counts.values()) == counts["stream_select_pairwise"],
+          f"hybrid early stopping launches {counts}")
+    launches["hybrid_dense_es"] = counts
+    check_rerank(es, exact_p, "hybrid early stopping", queries=QUERIES)
+    whole_es = index(Ranking.from_run(run, queries=queries), **ES_KWARGS)
+    check_same_top(es, whole_es, CHECK_QUERIES, "hybrid early stopping", k=CUTOFF)
+    flows["hybrid_es_cold"] = {"cold_ms": es_ms, "rows_scored": len(es._df)}
+    log(f"[hybrid ES] {len(es._df)} rows scored in {es_ms:.1f} ms; launches {counts}")
+
+    link = pcie_line()
+    copy = tail_copy_rates(view)
+    flows["hybrid_tail_copy"] = {"link": link, **copy}
+    log(f"[hybrid] tail block copies to the card ({link} gen/width current, max): {json.dumps(copy)}")
+    del hyb, view, state, es, whole_es, cold, warm, served
+    torch.cuda.empty_cache()
+    return flows
+
+
+def hybrid_quantized_phase(label, kind, source, budget, lifetime_bytes, rankings, exacts, wrappers,
+                           launches, rates, held, doc_ids, psg_ids, by_text) -> dict:
+    """Phase 21 for one quantized index of phases 7 or 9: the same codes
+    behind ``budget``; a passage and a MAXP re-rank (a cold and warm ones),
+    checked against float64 of the decoded rows as phases 7 and 9 check
+    them; the kernels held against their plain versions on one staged tail
+    block."""
+    from fastforward_tpu_torch import convert
+    from fastforward_tpu_torch.encoder import LambdaEncoder
+    from fastforward_tpu_torch.index import Mode
+    from fastforward_tpu_torch.ops import stream_kernel as sk
+    from fastforward_tpu_torch.ops import stream_kernel_pq as skpq
+
+    t0 = time.perf_counter()
+    hyb = convert.index_from_codes(
+        source._store[:N], doc_ids, psg_ids, "PASSAGE", source.quantizer,
+        query_encoder=LambdaEncoder(by_text.__getitem__), precision=source._precision,
+        hbm_budget=budget, init_size=N,
+    )
+    view = hyb._device_view()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    width = source._store.shape[1]
+    want = hybrid_split(N, width, budget, lifetime_bytes)
+    got = (view.tail_start, view.host_tail.shape[0], view.tail_cache_budget)
+    check(view.kind == "hybrid" and view.hybrid_kind == kind and got == want,
+          f"{label} split {got}, want {want}")
+    flows = {f"{label}_split": {"resident_rows": got[0], "tail_rows": got[1], "cache_bytes": got[2],
+                                "row_bytes": width, "build_s": build_s}}
+    log(f"[{label}] {N} rows of {width} B codes at hbm_budget {budget} B: "
+        f"{json.dumps(flows[f'{label}_split'])}")
+    for mode, ranking, exact in zip(("PASSAGE", "MAXP"), rankings, exacts):
+        hyb.mode = Mode[mode]
+        reset_counts(wrappers)
+        cold_ms, warm_ms, cold, warm, stats = hybrid_calls(hyb, ranking, WARM_CALLS)
+        state = hyb._get_plan(ranking)["hybrid"]
+        cache = check_cache_use(view, state, stats, f"{label} {mode}")
+        check(cold == warm, f"{label} {mode}: cold and warm re-rank disagree")
+        check_rerank(warm, exact, f"{label} {mode} re-rank")
+        if mode == "MAXP":
+            check(all(st["fetch_floats"] == 2 * len(ranking._df) for st in stats),
+                  f"{label} MAXP fetched {[st['fetch_floats'] for st in stats]} floats")
+        counts = read_counts(wrappers)
+        per_call = hybrid_launches_per_call(state, kind)
+        check(counts == {k: per_call.get(k, 0) * (1 + WARM_CALLS) for k in counts},
+              f"{label} {mode} launches {counts}, want {per_call} x {1 + WARM_CALLS}")
+        key = f"{label}_{mode.lower()}"
+        launches[key] = counts
+        flows[f"{key}_rerank"] = {"cold_ms": cold_ms, "warm_ms": warm_ms, "qps": QUERIES / warm_ms * 1e3,
+                                  "cache": cache, "launches_per_call": per_call}
+        log(f"[{label} {mode}] cold {cold_ms:.1f} ms, warm median {warm_ms:.2f} ms; "
+            f"{cache['chunks']} tail blocks, {cache['cached']} cached; launches {counts}; the "
+            f"tier's counters by call {json.dumps(stats)}")
+        if mode == "PASSAGE":
+            block, chunk = staged_block(view, state)
+            q_dev = state["res_plan"]["q_dev"][1]
+            log(f"[{label}] kernels vs plain on a staged tail block {tuple(block.shape)}, layout "
+                f"{tuple(chunk['cand'].shape)}")
+            if kind == "pq":
+                held["stream_select_pq_pairwise"] += pq_variants(
+                    skpq, "K3", block, view.codebooks, q_dev, chunk["cand"], chunk["tile"],
+                    ("exact",), True, rates, "pq tail block")
+                held["stream_select_pq"] += pq_variants(
+                    skpq, "K4", block, view.codebooks, q_dev, chunk["cand"], chunk["tile"],
+                    ("exact",), True, rates, "pq tail block")
+            else:
+                held["stream_select"] += select_variants(
+                    sk, block, q_dev, chunk["cand"], chunk["tile"], DIM, ("high",), True, rates,
+                    "int8 tail block")
+            del block, chunk
+    del hyb, view
+    torch.cuda.empty_cache()
+    return flows
+
+
+def device_store_phase(corpus, doc_ids, psg_ids, by_text, ranking, index, wrappers, launches) -> dict:
+    """Phase 22: the flagship corpus added into ``store="device"`` in adds of
+    ``DEVICE_ADD_ROWS`` rows (rows/s); the re-rank and ``serve(refine=22)``
+    equal the whole-table index's; 4,096 rows read back bit for bit."""
+    from fastforward_tpu_torch import InMemoryIndex, Mode
+    from fastforward_tpu_torch.encoder import LambdaEncoder
+
+    dev = InMemoryIndex(query_encoder=LambdaEncoder(by_text.__getitem__), mode=Mode.PASSAGE,
+                        precision="high", store="device", init_size=N)
+    n_adds = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for lo in range(0, N, DEVICE_ADD_ROWS):
+        hi = min(lo + DEVICE_ADD_ROWS, N)
+        dev.add(corpus[lo:hi], doc_ids=doc_ids[lo:hi], psg_ids=psg_ids[lo:hi])
+        n_adds += 1
+    torch.cuda.synchronize()
+    add_s = time.perf_counter() - t0
+    check(dev._store is None and dev._dev_table.device.type == "cuda",
+          "the device store kept a host copy")
+    reset_counts(wrappers)
+    got = dev(ranking)
+    torch.cuda.synchronize()
+    served = dev.serve(ranking, ALPHA, CUTOFF, refine=REFINE)
+    counts = read_counts(wrappers)
+    check(counts["stream_select_pairwise"] == 2 and sum(counts.values()) == 2,
+          f"device store launches {counts}")
+    launches["device_store"] = counts
+    check_same_served([got, served], [index(ranking), index.serve(ranking, ALPHA, CUTOFF, refine=REFINE)],
+                      "device store re-rank and serve(refine) against the whole-table index")
+    rows = np.sort(np.random.default_rng(SEED + 8).choice(N, 4096, replace=False))
+    vecs, ids = dev._get_vectors([psg_ids[r] for r in rows])
+    check(ids == [psg_ids[r] for r in rows] and np.array_equal(vecs, corpus[rows]),
+          "device store rows read back differ from the host rows")
+    out = {"adds": n_adds, "rows_per_add": DEVICE_ADD_ROWS, "add_s": add_s, "rows_per_s": N / add_s}
+    log(f"[device store] {N} rows in {n_adds} adds: {add_s:.2f} s, {out['rows_per_s']:.0f} rows/s; "
+        f"re-rank and serve(refine) equal the whole-table index; 4,096 rows read back bit for bit")
+    del dev
+    torch.cuda.empty_cache()
+    return out
+
+
+def progressive_phase(corpus, doc_ids, psg_ids, by_text, ranking, run, index, corpus_dev, qvecs_dev,
+                      q_index, wrappers, launches, standard_upload_s) -> dict:
+    """Phase 23: ``preload(warm, serve, progressive=True)`` of a fresh
+    flagship fp32 index: the truncated table serves at once (a serve
+    checked against float64 of whichever table it saw), ``preload_join``
+    installs the exact table, whose re-rank equals the whole-table index's;
+    the time to each table beside phase 15's standard upload."""
+    from fastforward_tpu_torch import InMemoryIndex, Mode
+    from fastforward_tpu_torch.encoder import LambdaEncoder
+
+    prog = InMemoryIndex(query_encoder=LambdaEncoder(by_text.__getitem__), mode=Mode.PASSAGE,
+                         precision="high")
+    prog.add(corpus, doc_ids=doc_ids, psg_ids=psg_ids)
+    reset_counts(wrappers)
+    t0 = time.perf_counter()
+    ok = prog.preload(warm=(QUERIES, DEPTH), serve=(ALPHA, CUTOFF, REFINE), progressive=True)
+    preload_s = time.perf_counter() - t0
+    stats = dict(prog._preload_stats)
+    check(ok is True and stats.get("progressive") is True, f"progressive preload: {ok}, {stats}")
+    interim_s = stats["upload_s"] + stats["activate_s"]
+    for _ in range(3):  # a serve that saw one table throughout
+        view = prog._device_view()
+        exact_before = "progressive_exact" in prog._preload_stats
+        served = prog.serve(ranking, ALPHA, CUTOFF)
+        torch.cuda.synchronize()
+        if prog._device_view() is view:
+            break
+    else:
+        raise SmokeFailure("the view changed under three serves in a row")
+    saw = "exact" if exact_before else "interim"
+    if saw == "interim":
+        trunc = (corpus_dev.view(torch.int32) & -65536).view(torch.float32)
+        check_serve(served, run, passage_exact(trunc, qvecs_dev, q_index, DIM),
+                    "progressive serve on the interim table")
+        del trunc
+    else:
+        check_serve(served, run, passage_exact(corpus_dev, qvecs_dev, q_index, DIM),
+                    "progressive serve on the exact table")
+    joined = prog.preload_join(timeout=PROGRESSIVE_JOIN_S)
+    exact_s = time.perf_counter() - t0
+    check(joined and prog._preload_stats.get("progressive_exact") is True,
+          f"preload_join {joined}, stats {prog._preload_stats}")
+    table = prog._device_view().table
+    check(bool(torch.equal(table[:N], corpus_dev)), "the exact table differs from the corpus")
+    got = prog(ranking)
+    counts = read_counts(wrappers)
+    check(counts["stream_select_pairwise"] >= 4 and sum(counts.values()) == counts["stream_select_pairwise"],
+          f"progressive launches {counts}")
+    launches["progressive"] = counts
+    check_same_served([got], [index(ranking)], "progressive re-rank after preload_join")
+    out = {"preload_s": preload_s, "interim_s": interim_s, "exact_s": exact_s,
+           "standard_upload_s": standard_upload_s, "serve_saw": saw, "stats": stats}
+    log(f"[progressive] interim table after {interim_s:.2f} s (hi planes {stats['upload_s']:.2f} s, "
+        f"expand {stats['activate_s']:.2f} s), exact table after {exact_s:.2f} s, preload returned "
+        f"after {preload_s:.2f} s; phase 15's standard upload_s {standard_upload_s:.2f} s; the serve "
+        f"right after it saw the {saw} table")
+    del prog, table
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1545,6 +2038,8 @@ def main() -> int:
     qvecs_dev = torch.from_numpy(qvecs).cuda()
     exact_p = passage_exact(corpus_dev, qvecs_dev, q_index, DIM)
     launches = {}
+    # kernel rows held against their plain versions on staged tail blocks (20, 21)
+    held = {kname: [] for kname in KERNELS}
 
     def k1_phase_launches(phase: str) -> int:
         counts = read_counts(wrappers)
@@ -1965,6 +2460,20 @@ def main() -> int:
     # -- 19. the disk index: its module without h5py, or a round trip with it --------
     flows["disk"] = disk_phase(corpus, qvecs, wrappers, launches)
 
+    # -- 20. the hybrid tier beyond device memory, dense fp32 (K1) --------------------
+    flows.update(hybrid_dense_phase(corpus, doc_ids, psg_ids, by_text, ranking, doc_rank, run, queries,
+                                    index, exact_p, exact_doc, wrappers, launches, rates, held))
+
+    # -- 22. the device store -----------------------------------------------------------
+    flows["device_store"] = device_store_phase(corpus, doc_ids, psg_ids, by_text, ranking, index,
+                                               wrappers, launches)
+
+    # -- 23. the progressive (split-plane) preload ---------------------------------------
+    flows["progressive"] = progressive_phase(
+        corpus, doc_ids, psg_ids, by_text, ranking, run, index, corpus_dev, qvecs_dev, q_index,
+        wrappers, launches, flows["preload"]["stats"]["upload_s"],
+    )
+
     # -- 6. K1 vs plain on the main path's inputs, timed ---------------------
     cand3, tile_idx, q_dev = main_inputs
     table = index._device_view().table
@@ -2043,6 +2552,13 @@ def main() -> int:
     k2_doc_plan = int8_index._get_plan(doc_rank)
     k2_doc_inputs = (int8_index._device_view().table, k2_doc_plan["q_dev"][1],
                      *k2_doc_plan["stream"][:2])
+    # -- 21. the hybrid tier over the same int8 codes (K1, K2) ----------------------
+    flows.update(hybrid_quantized_phase(
+        "hybrid_int8", "scalar", int8_index, HYBRID_INT8_BUDGET, 0, (ranking, doc_rank),
+        (passage_exact(int8_rows, qvecs_dev, q_index, DIM),
+         doc_exact(int8_rows, qvecs_dev, q_index, doc_counts, doc_starts, "max", DIM)),
+        wrappers, launches, rates, held, doc_ids, psg_ids, by_text,
+    ))
     del int8_index, int8_rows, k2_doc_plan
 
     # -- 8. int8 with dense tiles (K2) ----------------------------------------
@@ -2118,6 +2634,14 @@ def main() -> int:
     k4_doc_plan = pq_index._get_plan(doc_rank)
     k4_doc_inputs = (view.table, view.codebooks, k4_doc_plan["q_dev"][1],
                      *k4_doc_plan["stream_pq"][:2])
+    # -- 21. the hybrid tier over the same PQ codes (K3, K4) ------------------------
+    flows.update(hybrid_quantized_phase(
+        "hybrid_pq", "pq", pq_index, HYBRID_PQ_BUDGET, view.codebooks.numel() * 4,
+        (ranking, doc_rank),
+        (passage_exact(pq_ref, qvecs_dev, q_index, DIM),
+         doc_exact(pq_ref, qvecs_dev, q_index, doc_counts, doc_starts, "max", DIM)),
+        wrappers, launches, rates, held, doc_ids, psg_ids, by_text,
+    ))
     del pq_ref, k4_doc_plan
 
     # -- 10. OPQ with dense tiles (K4) -----------------------------------------
@@ -2190,6 +2714,8 @@ def main() -> int:
     small_by_kernel = {"stream_select_pairwise": "K1", "stream_select": "K2",
                        "stream_select_pq_pairwise": "K3", "stream_select_pq": "K4"}
     vet_profiles(flows, variants)
+    for kname, rows_k in held.items():
+        variants[kname] += rows_k
 
     summary = []
     for kname, (source, replaces) in KERNELS.items():

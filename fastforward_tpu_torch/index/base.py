@@ -16,6 +16,13 @@ the flat segment path.  Results are ordered on the host with the native
 segmented sort while the score copy is still in flight; with
 ``score_transport="u16"`` that copy carries 16-bit codes (half the bytes).
 
+A table beyond the index's ``hbm_budget`` is served from a hybrid view
+(:func:`build_hybrid_view`: a device-resident prefix and a host tail
+streamed in candidate blocks through the same kernels, ``ops.host_stream``);
+its scores come back to the host, and the serve tail runs on them on the
+device.  ``preload(progressive=True)`` installs a truncated table first and
+the exact one from a background thread (``preload_join``).
+
 Everything runs on the device of the index's table: the card by default,
 the CPU when the caller asks for it (the plain versions of the kernels
 then run).  Features outside the port so far raise ``NotImplementedError``
@@ -95,7 +102,9 @@ class DeviceView:
     ``(N_pad, dim)``) with the per-dimension ``scales`` folded into the
     queries; ``"pq"`` against ``(N_pad, M)`` uint8 PQ codes and their fp32
     ``codebooks`` ``(M, Ks, Ds)`` (ADC; OPQ's rotation is folded into the
-    queries).
+    queries); ``"hybrid"`` against a device-resident prefix (``table``, laid
+    out as the ``hybrid_kind`` table is) and a host-RAM tail streamed in
+    candidate blocks (``ops.host_stream``: the tier beyond device memory).
     """
 
     kind: str
@@ -103,6 +112,125 @@ class DeviceView:
     precision: str = "exact"
     codebooks: torch.Tensor | None = None
     scales: np.ndarray | None = None
+    #: hybrid tier: the host tail ``(N - tail_start, width)``, the global
+    #: row where it starts, the rows of a streamed block, and the device
+    #: bytes that may keep tail blocks resident across calls
+    host_tail: np.ndarray | None = None
+    tail_start: int = 0
+    chunk_rows: int = 0
+    tail_cache_budget: int = 0
+    #: what the hybrid tier streams: ``"dense"`` fp32/bf16 rows,
+    #: ``"scalar"`` int8 code rows (scales fold into the queries) or
+    #: ``"pq"`` PQ code rows (ADC against ``codebooks``)
+    hybrid_kind: str = "dense"
+    #: view-lifetime cache of table-derived state (the hybrid tier's
+    #: device block cache, its copy stream and the tail as a tensor)
+    aux: dict = dataclasses.field(default_factory=dict)
+
+
+def build_hybrid_view(
+    data: np.ndarray,
+    num: int,
+    dim: int,
+    hbm_budget: int,
+    precision: str,
+    device: torch.device,
+    chunk_rows: int | None = None,
+    bf16: bool = False,
+    kind: str = "dense",
+    codebooks: np.ndarray | None = None,
+    scales: np.ndarray | None = None,
+) -> "DeviceView | None":
+    """Build a hybrid view beyond device memory, or ``None`` when the table
+    fits ``hbm_budget``.
+
+    70% of the budget holds a device-resident prefix of ``data`` (in steps of
+    1,024 rows); the other rows stay in host RAM (a zero-copy view when
+    ``data`` is contiguous in the staged dtype) and stream per call as
+    candidate blocks; what is left of the budget caches tail blocks on the
+    device across calls (``ops.host_stream``).
+
+    The budget is charged only for what the view holds for its lifetime:
+    the prefix, the cached blocks and, for PQ, the fp32 codebooks (the
+    kernels read compact ``(N, M)`` codes, so no lane padding or codebook
+    splits are charged).  Each scoring call adds scratch on top of it: two
+    tail blocks in flight (``2 x chunk_rows x row_bytes``), the kernels'
+    grouping scratch and, for K3/K4, their lookup tables (up to
+    ``ops.stream_kernel_pq.ADC_TABLE_BYTES``).
+
+    :param data: Host rows, ``(num, width)``: vectors, int8 codes or uint8
+        PQ codes.
+    :param num: Number of real rows.
+    :param dim: Vector dimensionality (for ``kind="pq"`` the code width is
+        ``data.shape[1]``).
+    :param hbm_budget: Scoring-memory budget in bytes.
+    :param precision: Dot precision tier.
+    :param device: Device of the resident prefix.
+    :param chunk_rows: Rows of a streamed block (default
+        ``ops.host_stream.HOST_CHUNK_ROWS``).
+    :param bf16: Keep the resident prefix and the streamed blocks in bf16
+        (``kind="dense"`` only).
+    :param kind: ``"dense"``, ``"scalar"`` (int8 codes, ``dim % 128 == 0``)
+        or ``"pq"``.
+    :param codebooks: PQ codebooks ``(M, Ks, Ds)`` fp32 (``kind="pq"``).
+    :param scales: Per-dimension scales (``kind="scalar"``; folded into the
+        queries).
+    """
+    from fastforward_tpu_torch.ops import host_stream
+    from fastforward_tpu_torch.ops.upload import upload_table
+
+    budget = hbm_budget
+    if kind == "pq":
+        width = data.shape[1]
+        row_bytes = width * data.dtype.itemsize
+        stage_dtype = data.dtype
+        mm, ks, ds = codebooks.shape
+        budget = max(0, budget - mm * ks * ds * 4)
+        row_shape: tuple = (width,)
+        table_dtype = torch.from_numpy(np.empty(0, data.dtype)).dtype
+    elif kind == "scalar":
+        row_bytes = dim
+        stage_dtype = np.dtype(np.int8)
+        row_shape = (dim // 128, 128)
+        table_dtype = torch.int8
+    else:
+        row_bytes = dim * (2 if bf16 else 4)
+        stage_dtype = np.dtype(np.float32)
+        row_shape = (dim,)
+        table_dtype = torch.bfloat16 if bf16 else torch.float32
+    n_pad = -(-num // 4096) * 4096
+    if n_pad * row_bytes <= budget:
+        return None
+    resident = (int(budget * 0.7) // row_bytes) // 1024 * 1024
+    if resident >= num:
+        return None
+    res_dev = upload_table(
+        data[:resident], device, shape=(resident, *row_shape), dtype=table_dtype,
+        stage_dtype=stage_dtype,
+    )
+    tail = data[resident:num]
+    if tail.dtype != stage_dtype or not tail.flags["C_CONTIGUOUS"]:
+        tail = np.ascontiguousarray(tail, dtype=stage_dtype)
+    LOGGER.info(
+        "%s table (%d rows x %d B) exceeds the %d-byte budget: serving from the "
+        "hybrid tier (%d resident rows, %d host-streamed)",
+        kind, num, row_bytes, hbm_budget, resident, tail.shape[0],
+    )
+    cb_dev = None
+    if kind == "pq":
+        cb_dev = torch.from_numpy(np.array(codebooks, dtype=np.float32)).to(device)
+    return DeviceView(
+        kind="hybrid",
+        table=res_dev,
+        precision=precision,
+        codebooks=cb_dev,
+        scales=scales,
+        host_tail=tail,
+        tail_start=resident,
+        chunk_rows=chunk_rows or host_stream.HOST_CHUNK_ROWS,
+        tail_cache_budget=max(0, budget - resident * row_bytes),
+        hybrid_kind=kind,
+    )
 
 
 def _cat_from_codes(codes: np.ndarray, like: "pd.Categorical") -> "pd.Categorical":
@@ -389,6 +517,9 @@ class Index(abc.ABC):
     #: per-phase wall times of the last :meth:`preload` (seconds)
     _preload_stats: "dict | None" = None
 
+    #: the background thread of a progressive preload's exact table
+    _progressive_thread: "threading.Thread | None" = None
+
     def __init__(
         self,
         query_encoder: Encoder | None = None,
@@ -634,16 +765,31 @@ class Index(abc.ABC):
 
     # -- preload -------------------------------------------------------------
 
-    def preload_join(self, timeout: "float | None" = None) -> bool:
-        """Wait for a progressive preload's exact tail to land.
+    def _progressive_job(self):
+        """Backend hook: the split-plane upload job of
+        ``preload(progressive=True)``, or ``None`` when this configuration
+        has none (see ``index.memory._ProgressiveUpload``)."""
+        return None
 
-        The port uploads the whole table inside :meth:`preload` (the
-        split-plane upload is ROADMAP Queue 1 item 12b), so nothing is ever
-        pending.
+    def preload_join(self, timeout: "float | None" = None) -> bool:
+        """Wait for a progressive preload's exact table to land.
+
+        After ``preload(..., progressive=True)`` returns, scoring runs
+        against the truncated fp32 table (bf16-magnitude error) while the
+        low 16-bit planes upload on a background thread; this waits until
+        the exact table is installed.  Returns ``True`` at once when nothing
+        is pending.
 
         :param timeout: Seconds to wait (``None`` = forever).
-        :return: Whether the exact table is installed (always ``True``).
+        :return: Whether nothing is pending any more.
         """
+        thread = self._progressive_thread
+        if thread is None:
+            return True
+        thread.join(timeout)
+        if thread.is_alive():
+            return False
+        self._progressive_thread = None
         return True
 
     def preload(
@@ -672,13 +818,20 @@ class Index(abc.ABC):
         (``upload_s``, ``build_s``, ``warm_rerank_s``, ``warm_serve_s``;
         ``overlap`` is ``False``: the warm runs after the upload).
 
-        ``progressive=True`` (the split-plane upload) is not ported: it
-        logs a warning and takes the standard upload.
+        With ``progressive=True`` (dense fp32 tables above 512 MiB, host
+        store, no budget) the upload ships the table's high 16-bit planes
+        only, half the bytes, and installs the truncated fp32 table they
+        make (``activate_s``; ``progressive`` says whether it was
+        installed); the low planes fold in on a background thread, which
+        swaps in the exact table (``progressive_exact``).  Until
+        :meth:`preload_join` returns ``True`` scores carry bf16-magnitude
+        error (about 0.4% relative).  Other configurations log a warning
+        and take the standard upload.
 
         :param warm: Optional ``(num_queries, depth)`` workload shape.
         :param serve: Optional ``(alpha, cutoff[, refine])`` to warm
             :meth:`serve`.
-        :param progressive: Split-plane upload (not ported).
+        :param progressive: Split-plane upload.
         :raises ValueError: When ``serve`` is given without ``warm``.
         :return: Whether a device table exists (``False`` when empty).
         """
@@ -690,24 +843,36 @@ class Index(abc.ABC):
             )
         stats: dict = {"overlap": False}
         self._preload_stats = stats
-        if progressive:
+        job = self._progressive_job() if progressive else None
+        if progressive and job is None:
             LOGGER.warning(
-                "progressive preload (the split-plane upload) is not "
-                "ported; using the standard upload"
+                "progressive preload is not supported for this configuration "
+                "(it needs a dense fp32 host-store table above 512 MiB, no "
+                "hbm_budget and no table on the device yet); using the "
+                "standard upload"
             )
         t0 = perf_counter()
-        view = self._device_view()
-        if view is not None and view.table.device.type == "cuda":
-            torch.cuda.synchronize(view.table.device)
-        stats["upload_s"] = perf_counter() - t0
+        if job is not None:
+            job.upload_hi()
+            stats["upload_s"] = perf_counter() - t0
+            t0 = perf_counter()
+            stats["progressive"] = job.activate()
+            stats["activate_s"] = perf_counter() - t0
+            view = self._device_view()
+        else:
+            view = self._device_view()
+            if view is not None and view.table.device.type == "cuda":
+                torch.cuda.synchronize(view.table.device)
+            stats["upload_s"] = perf_counter() - t0
         if view is None:
             return False
         table = view.table
+        kind = view.hybrid_kind if view.kind == "hybrid" else view.kind
         if table.device.type == "cuda" and (
-            view.kind == "pq" or table.ndim == 3 or table.shape[1] % 128 == 0
+            kind == "pq" or table.ndim == 3 or table.shape[1] % 128 == 0
         ):
             t0 = perf_counter()
-            ops.load_kernels(view.kind)
+            ops.load_kernels(kind)
             stats["build_s"] = perf_counter() - t0
         if warm is None:
             return True
@@ -797,9 +962,10 @@ class Index(abc.ABC):
         """Fold quantizer-specific transforms into the query vectors (numpy
         fp32): OPQ's rotation for PQ codes, the scales for int8 codes."""
         q = np.asarray(query_vectors, dtype=np.float32)
-        if view.kind == "pq" and isinstance(self._quantizer, OPQ):
+        kind = view.hybrid_kind if view.kind == "hybrid" else view.kind
+        if kind == "pq" and isinstance(self._quantizer, OPQ):
             q = self._quantizer.rotate(q)
-        elif view.kind == "scalar":
+        elif kind == "scalar":
             q = q * view.scales
         return q
 
@@ -849,6 +1015,26 @@ class Index(abc.ABC):
             return self._device_score_flat(
                 view, query_vectors, rows, qno, seg, n_pairs, fetch=fetch
             )
+        if view.kind == "hybrid":
+            # the tier beyond device memory: the resident prefix plus tail
+            # blocks streamed from host RAM (ops.host_stream); document modes
+            # take the ragged layout (no K-padding) and reduce on the device
+            # per side, so 2 x n_pairs floats come back
+            if k == 1:
+                rows_flat = rows_mat[:, 0].astype(np.int64)
+                qno_flat = pair_qno.astype(np.int64)
+                reduce_spec = None
+            else:
+                ragged = plan.get("hybrid_ragged") if plan is not None else None
+                if ragged is None:
+                    valid = np.arange(k)[None, :] < counts_pp[:, None]
+                    seg_flat = np.repeat(np.arange(n_pairs, dtype=np.int64), counts_pp)
+                    ragged = (rows_mat[valid].astype(np.int64), pair_qno[seg_flat], seg_flat)
+                    if plan is not None:
+                        plan["hybrid_ragged"] = ragged
+                rows_flat, qno_flat, seg_flat = ragged
+                reduce_spec = (op, seg_flat, n_pairs, counts_pp)
+            return self._hybrid_scores(view, q_pad, rows_flat, qno_flat, plan, reduce_spec)
         table = view.table
         streamable_dense = (
             view.kind in ("dense", "scalar")
@@ -974,6 +1160,24 @@ class Index(abc.ABC):
         queries than the grouped packing holds.  With ``fetch=False`` the
         device tensor is returned (with bucket padding past ``n_pairs``)."""
         op = REDUCE_OP[self.mode]
+        if view.kind == "hybrid":
+            # the resident prefix holds only the first rows: score every row
+            # through the hybrid engine, then reduce on the host (the rare
+            # path of documents with very many passages)
+            row_scores = self._hybrid_scores(
+                view, self._pad_queries(query_vectors, view), rows.astype(np.int64),
+                qno.astype(np.int64), None, None,
+            )
+            seg = np.asarray(seg, dtype=np.int64)
+            if op == "max":
+                out = np.full(n_pairs, -np.inf, dtype=np.float32)
+                np.maximum.at(out, seg, row_scores)
+                return out
+            total = np.zeros(n_pairs, dtype=np.float64)
+            np.add.at(total, seg, row_scores)
+            if op == "mean":
+                total /= np.maximum(np.bincount(seg, minlength=n_pairs), 1)
+            return total.astype(np.float32)
         s_bucket = ops.bucket(n_pairs)
         idx = np.zeros((3, ops.bucket(rows.shape[0])), dtype=np.int32)
         idx[0, : rows.shape[0]] = rows
@@ -992,6 +1196,39 @@ class Index(abc.ABC):
         if not fetch:
             return scores
         return ops.fetch_np(scores)[:n_pairs]
+
+    @staticmethod
+    def _hybrid_scores(view, q_pad, rows, qno, plan, reduce_spec) -> np.ndarray:
+        """Scores of a hybrid view's candidates (``ops.host_stream``), on the
+        host: one per row, or one per pair with ``reduce_spec``."""
+        from fastforward_tpu_torch.ops.host_stream import hybrid_scores
+
+        return hybrid_scores(
+            view.table,
+            view.host_tail,
+            view.tail_start,
+            view.chunk_rows,
+            q_pad,
+            rows,
+            qno,
+            precision=view.precision,
+            plan=plan,
+            cache_device_blocks_budget=view.tail_cache_budget,
+            cache_store=view.aux,
+            reduce=reduce_spec,
+            kind=view.hybrid_kind,
+            codebooks=view.codebooks,
+        )
+
+    @staticmethod
+    def _scores_on(scores: "np.ndarray | torch.Tensor", n_pairs: int, device) -> torch.Tensor:
+        """The per-pair scores as a device tensor for the serve tail (the
+        hybrid tier scores on the host side of the copy)."""
+        if isinstance(scores, torch.Tensor):
+            return scores
+        padded = np.zeros(ops.bucket(n_pairs), dtype=np.float32)
+        padded[:n_pairs] = scores[:n_pairs]
+        return torch.from_numpy(padded).to(device)
 
     # documents with more passages than this take the flat segment path
     # (grouped K-padding would waste too much gather bandwidth)
@@ -1882,6 +2119,7 @@ class Index(abc.ABC):
                 fetch=False,
                 plan=plan,
             )
+        scores_dev = self._scores_on(scores_dev, n_pairs, device)
         sv = plan.get("serve")
         if sv is None:
             n_q = len(q_uniques)
@@ -2074,8 +2312,7 @@ class Index(abc.ABC):
                 scoring_view, query_vectors, rows_mat, pair_qno, counts_pp, k,
                 fetch=False, plan=plan,
             )
-        if not isinstance(scores_dev, torch.Tensor):
-            return None
+        scores_dev = self._scores_on(scores_dev, n_pairs, device)
 
         # slot rows padded to a power of two too: stable shapes across
         # batches with varying request mixes

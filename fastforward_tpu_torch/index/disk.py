@@ -10,9 +10,10 @@ Scoring without ``hbm_cache`` reads the candidates' rows on the host per
 call (sorted HDF5 fancy indexing, or per-chunk memory maps) and uploads
 them to the index's device for that call (``Index._gather_view``); the
 scoring itself runs there.  ``hbm_cache=True`` uploads the whole table to
-the index's device once (as ``InMemoryIndex`` lays it out), while the HDF5
-file stays canonical; ``to_memory()`` copies the index into an
-``InMemoryIndex``.
+the index's device once (as ``InMemoryIndex`` lays it out), or with
+``hbm_budget`` its hybrid view (a resident prefix and a host tail streamed
+in blocks), while the HDF5 file stays canonical; ``to_memory()`` copies the
+index into an ``InMemoryIndex``.
 
 h5py is imported by the functions that read or write a file, never when
 this module is imported: without h5py, ``OnDiskIndex(...)`` and
@@ -31,7 +32,7 @@ import fastforward_tpu_torch
 from fastforward_tpu_torch.device import resolve_device
 from fastforward_tpu_torch.encoder.base import Encoder
 from fastforward_tpu_torch.index.base import DeviceView, IDSequence, Index, not_ported
-from fastforward_tpu_torch.index.memory import InMemoryIndex, build_view
+from fastforward_tpu_torch.index.memory import InMemoryIndex, build_view, hybrid_view
 from fastforward_tpu_torch.index.mode import Mode
 from fastforward_tpu_torch.quantizer import PQ, Quantizer
 
@@ -53,11 +54,9 @@ def _h5py():
     return h5py
 
 
-def _check_options(precision: str, mesh_config, hbm_budget, stream_chunk_rows) -> None:
+def _check_options(precision: str, mesh_config) -> None:
     if mesh_config is not None:
         raise not_ported("mesh_config (multi-device tables)", "14")
-    if hbm_budget is not None or stream_chunk_rows is not None:
-        raise not_ported("hbm_budget / stream_chunk_rows (the hybrid tier)", "13")
     if precision not in ("exact", "high", "fast"):
         raise ValueError(f"precision must be 'exact', 'high' or 'fast', got {precision!r}")
 
@@ -103,8 +102,11 @@ class OnDiskIndex(Index):
             the first scoring call (invalidated by ``add``).
         :param precision: Scoring precision tier (see ``InMemoryIndex``).
         :param mesh_config: Must be ``None`` (not ported yet).
-        :param hbm_budget: Must be ``None`` (not ported yet).
-        :param stream_chunk_rows: Must be ``None`` (not ported yet).
+        :param hbm_budget: With ``hbm_cache``, the scoring-memory budget in
+            bytes: a larger table is served from the hybrid tier (a
+            resident prefix and a host tail streamed in blocks, see
+            ``InMemoryIndex``).
+        :param stream_chunk_rows: Rows of a streamed tail block.
         :param score_transport: ``"f32"`` or ``"u16"`` (see
             ``InMemoryIndex``).
         :param device: Torch device the index scores on; ``None`` means
@@ -114,7 +116,7 @@ class OnDiskIndex(Index):
         :raises RuntimeError: When the device is CUDA and none is available.
         """
         h5py = _h5py()
-        _check_options(precision, mesh_config, hbm_budget, stream_chunk_rows)
+        _check_options(precision, mesh_config)
         index_file = Path(index_file)
         if index_file.exists() and not overwrite:
             raise ValueError(f"File {index_file} exists.")
@@ -126,6 +128,8 @@ class OnDiskIndex(Index):
         self._memory_mapped = memory_mapped
         self._max_indexing_size = max_indexing_size
         self._hbm_cache = hbm_cache
+        self._hbm_budget = hbm_budget
+        self._stream_chunk_rows = stream_chunk_rows
         self._precision = precision
         self._dev_view: DeviceView | None = None
         self._view_lock = threading.Lock()
@@ -319,8 +323,10 @@ class OnDiskIndex(Index):
 
     def _device_view(self) -> DeviceView | None:
         """The whole table on the index's device (``hbm_cache=True``), laid
-        out as ``InMemoryIndex`` lays it out; ``None`` without
-        ``hbm_cache`` or while the index is empty."""
+        out as ``InMemoryIndex`` lays it out, or its hybrid view when it
+        exceeds ``hbm_budget`` (the tail stays in host RAM, read from the
+        file once); ``None`` without ``hbm_cache`` or while the index is
+        empty."""
         if not self._hbm_cache:
             return None
         view = self._dev_view
@@ -333,9 +339,15 @@ class OnDiskIndex(Index):
                     return None
                 with _h5py().File(self._index_file, "r") as fp:
                     raw = fp["vectors"][:num]
-                self._dev_view = build_view(
-                    raw, self._quantizer, self._device, precision=self._precision
-                )
+                view = None
+                if self._hbm_budget is not None:
+                    view = hybrid_view(
+                        raw, self._quantizer, self._device, self._hbm_budget,
+                        self._precision, self._stream_chunk_rows,
+                    )
+                if view is None:
+                    view = build_view(raw, self._quantizer, self._device, precision=self._precision)
+                self._dev_view = view
             return self._dev_view
 
     # -- conversion / loading ------------------------------------------------
@@ -400,8 +412,9 @@ class OnDiskIndex(Index):
             scoring.
         :param precision: Scoring precision tier (see ``InMemoryIndex``).
         :param mesh_config: Must be ``None`` (not ported yet).
-        :param hbm_budget: Must be ``None`` (not ported yet).
-        :param stream_chunk_rows: Must be ``None`` (not ported yet).
+        :param hbm_budget: With ``hbm_cache``, the scoring-memory budget in
+            bytes (the hybrid tier beyond it).
+        :param stream_chunk_rows: Rows of a streamed tail block.
         :param score_transport: ``"f32"`` or ``"u16"``.
         :param device: Torch device the index scores on (and a loaded PQ
             quantizer encodes on); ``None`` means ``"cuda"``.
@@ -410,7 +423,7 @@ class OnDiskIndex(Index):
         :return: The index.
         """
         h5py = _h5py()
-        _check_options(precision, mesh_config, hbm_budget, stream_chunk_rows)
+        _check_options(precision, mesh_config)
         index_file = Path(index_file)
         LOGGER.debug("reading file %s", index_file)
         index = cls.__new__(cls)
@@ -426,6 +439,8 @@ class OnDiskIndex(Index):
         index._memory_mapped = memory_mapped
         index._max_indexing_size = max_indexing_size
         index._hbm_cache = hbm_cache
+        index._hbm_budget = hbm_budget
+        index._stream_chunk_rows = stream_chunk_rows
         index._precision = precision
         index._dev_view = None
         index._view_lock = threading.Lock()

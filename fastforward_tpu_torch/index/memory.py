@@ -1,12 +1,21 @@
-"""In-memory index: host-canonical store + device scoring table.
+"""In-memory index: a canonical store and a scoring table on the device.
 
-The port of ``fastforward_tpu/index/memory.py`` with ``store="host"``: the
+The port of ``fastforward_tpu/index/memory.py``.  With ``store="host"`` the
 canonical copy is one growable host array (vectors as added, or the
 quantizer's codes), and the scoring copy is a zero-padded table on the
-index's device, uploaded lazily in row chunks and invalidated on ``add``:
-``(N_pad, dim)`` fp32 or bf16 vectors; int8 codes, ``(N_pad, dim/128, 128)``
-when ``dim % 128 == 0``; or ``(N_pad, M)`` uint8 PQ codes with their fp32
-codebooks beside them.
+index's device, uploaded lazily in row chunks (``ops.upload``) and
+invalidated on ``add``: ``(N_pad, dim)`` fp32 or bf16 vectors; int8 codes,
+``(N_pad, dim/128, 128)`` when ``dim % 128 == 0``; or ``(N_pad, M)`` uint8 PQ
+codes with their fp32 codebooks beside them.  With ``hbm_budget`` a table
+larger than the budget is served from the hybrid tier (a resident prefix
+and a host tail streamed in blocks, ``ops.host_stream``).
+
+With ``store="device"`` each ``add`` ships only its own rows into a growable
+buffer on the device, which is the canonical copy and the scoring table at
+once: nothing is mirrored on the host, and host reads fetch rows back.
+
+``preload(progressive=True)`` uploads a large dense fp32 table as two 16-bit
+planes (:class:`_ProgressiveUpload`).
 """
 
 import logging
@@ -18,8 +27,21 @@ import torch
 
 from fastforward_tpu_torch.device import resolve_device
 from fastforward_tpu_torch.encoder.base import Encoder
-from fastforward_tpu_torch.index.base import DeviceView, IDSequence, Index, not_ported
+from fastforward_tpu_torch.index.base import (
+    DeviceView,
+    IDSequence,
+    Index,
+    build_hybrid_view,
+    not_ported,
+)
 from fastforward_tpu_torch.index.mode import Mode
+from fastforward_tpu_torch.ops.upload import (
+    combine_lo,
+    expand_hi,
+    upload_into,
+    upload_plane,
+    upload_table,
+)
 from fastforward_tpu_torch.quantizer import PQ, Quantizer, ScalarQuantizer
 
 LOGGER = logging.getLogger(__name__)
@@ -28,14 +50,110 @@ LOGGER = logging.getLogger(__name__)
 # the kernel's tile rows), so the layout changes only on growth
 _ROW_PAD = 4096
 
-# rows per host->device upload step (bounds the staging copies)
-_UPLOAD_ROWS = 1 << 16
+# tables at or below this skip the progressive (split-plane) preload: the
+# split pays only when the upload dominates the cold start
+_MIN_PROGRESSIVE_BYTES = 512 << 20
 
 _DEVICE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
+def _sync(device: torch.device) -> None:
+    """Wait for the work queued on ``device``'s current stream."""
+    if device.type == "cuda":
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(device))
+        done.synchronize()
+
+
+class _ProgressiveUpload:
+    """One split-plane upload of a dense fp32 host-store table.
+
+    :meth:`upload_hi` ships the high 16-bit planes (half the table's bytes);
+    :meth:`activate` expands them into the truncated fp32 table, installs it
+    as the serving view and starts a daemon thread that ships the low
+    planes and swaps in the exact table (``ops.upload.combine_lo``; on an
+    out-of-memory error, a fresh ``upload_table`` of the exact rows).
+
+    Each swap checks the index's generation under its view lock, which
+    ``add`` takes to bump it, so a table of rows an ``add`` has changed is
+    never installed.  The table being replaced is never written: calls in
+    flight keep reading it.
+    """
+
+    def __init__(self, index: "InMemoryIndex") -> None:
+        self._index = index
+        self._gen = index._table_gen
+        self._host = index._store[: index._num]  # no padded host copy
+        self._n_pad = -(-index._num // _ROW_PAD) * _ROW_PAD
+        self._hi: "torch.Tensor | None" = None
+
+    def upload_hi(self) -> None:
+        """Ship the hi planes and wait for them to land."""
+        device = self._index._device
+        self._hi = upload_plane(self._host, "hi", device, total_rows=self._n_pad)
+        _sync(device)
+
+    def activate(self) -> bool:
+        """Install the truncated fp32 table and start the exact tail.
+
+        :return: Whether the interim table was installed (``False`` when an
+            ``add`` overlapped the upload, or the hi planes are missing).
+        """
+        index = self._index
+        if self._hi is None:
+            return False
+        trunc = expand_hi(self._hi)
+        self._hi = None  # the truncated table holds the plane's bits
+        _sync(index._device)
+        with index._view_lock:
+            if index._table_gen != self._gen:
+                LOGGER.warning("progressive preload overlapped an add(); discarding")
+                self._host = None
+                return False
+            index._dev_view = DeviceView("dense", trunc, precision=index._precision)
+            thread = threading.Thread(
+                target=self._exact_tail, args=(trunc,), name="ff-progressive-lo", daemon=True
+            )
+            index._progressive_thread = thread
+        thread.start()
+        return True
+
+    def _exact_tail(self, trunc: torch.Tensor) -> None:
+        """Fold the lo planes in and swap the exact table into the view."""
+        index = self._index
+        device = index._device
+        try:
+            try:
+                lo = upload_plane(self._host, "lo", device, total_rows=self._n_pad)
+                full = combine_lo(trunc, lo)
+                del lo
+            except torch.OutOfMemoryError:
+                LOGGER.warning(
+                    "no device memory for the split-plane exact table; uploading "
+                    "the exact fp32 table instead", exc_info=True,
+                )
+                del trunc  # the serving view still holds it: old + new table
+                full = upload_table(
+                    self._host, device, shape=(self._n_pad, self._host.shape[1]),
+                    dtype=torch.float32,
+                )
+            _sync(device)
+            with index._view_lock:
+                if index._table_gen != self._gen:
+                    LOGGER.warning("progressive exact table overlapped an add(); discarding")
+                    return
+                index._dev_view = DeviceView("dense", full, precision=index._precision)
+                stats = index._preload_stats
+                if stats is not None:
+                    stats["progressive_exact"] = True
+            LOGGER.info("progressive preload: exact fp32 table installed")
+        finally:
+            self._host = None
+
+
 class InMemoryIndex(Index):
-    """Fast-Forward index held in memory (host canonical, device for scoring)."""
+    """Fast-Forward index held in memory (canonical store on the host or the
+    device, scoring table on the device)."""
 
     def __init__(
         self,
@@ -64,31 +182,44 @@ class InMemoryIndex(Index):
         :param init_size: Initially allocated capacity (number of vectors).
         :param alloc_size: Capacity growth granularity (number of vectors).
         :param device_dtype: Dtype of the device scoring table
-            (``"float32"`` or ``"bfloat16"``; the host copy stays as added;
-            ignored for quantized indexes).
+            (``"float32"`` or ``"bfloat16"``; ignored for quantized indexes).
+            With ``store="device"`` the device buffer is the canonical copy,
+            so bf16 rounds the stored vectors themselves.
         :param mesh_config: Must be ``None`` (not ported yet).
         :param precision: ``"exact"`` or ``"high"`` (true fp32 dots) or
             ``"fast"`` (bf16-rounded operands, fp32 accumulation); PQ
             tables at dense tiles take K4's tiers (``"high"`` rounds the
             codewords to bf16).
-        :param store: Must be ``"host"`` (``"device"`` is not ported yet).
-        :param hbm_budget: Must be ``None`` (not ported yet).
-        :param stream_chunk_rows: Must be ``None`` (not ported yet).
+        :param store: ``"host"`` keeps the canonical copy in host RAM and
+            uploads a scoring copy; ``"device"`` appends each ``add``
+            straight into a growable device buffer (host memory O(batch));
+            pre-size it with ``init_size`` to avoid regrowth copies.
+        :param hbm_budget: Scoring-memory budget in bytes (``store="host"``;
+            dense, int8 or PQ tables).  A table larger than it is served
+            from the hybrid tier: 70% of the budget holds a device-resident
+            prefix, the rest caches tail blocks streamed from host RAM, and
+            each call adds two blocks in flight and the kernels' scratch
+            (``build_hybrid_view``).  ``None``: the whole table goes to the
+            device.
+        :param stream_chunk_rows: Rows of a streamed tail block (default
+            ``ops.host_stream.HOST_CHUNK_ROWS``).
         :param score_transport: ``"f32"`` (exact scores) or ``"u16"``
             (the re-rank path copies 16-bit codes of the scores: half the
             bytes, at most ``score_range / 131070`` added to each score).
         :param device: Torch device of the scoring table; ``None`` means
             ``"cuda"``.
+        :raises ValueError: On ``store="device"`` with ``hbm_budget``.
         :raises RuntimeError: When the device is CUDA and none is available.
         """
         if store not in ("host", "device"):
             raise ValueError(f"store must be 'host' or 'device', got {store!r}")
-        if store == "device":
-            raise not_ported("store='device'", "12b")
         if mesh_config is not None:
             raise not_ported("mesh_config (multi-device tables)", "14")
-        if hbm_budget is not None or stream_chunk_rows is not None:
-            raise not_ported("hbm_budget / stream_chunk_rows (the hybrid tier)", "13")
+        if hbm_budget is not None and store == "device":
+            raise ValueError(
+                "hbm_budget requires store='host' (the hybrid tier streams from "
+                "the host canonical copy)"
+            )
         if device_dtype not in _DEVICE_DTYPES:
             raise ValueError(
                 f"device_dtype must be 'float32' or 'bfloat16', got {device_dtype!r}"
@@ -97,8 +228,19 @@ class InMemoryIndex(Index):
             raise ValueError(
                 f"precision must be 'exact', 'high' or 'fast', got {precision!r}"
             )
+        if store == "device" and device_dtype == "bfloat16":
+            LOGGER.warning(
+                "store='device' with device_dtype='bfloat16' stores the canonical "
+                "vectors in bf16: reads, iteration and quantizer fits see rounded "
+                "values (store='host' keeps an fp32 canonical copy)"
+            )
         self._device = resolve_device(device)
+        self._store_mode = store
+        self._hbm_budget = hbm_budget
+        self._stream_chunk_rows = stream_chunk_rows
         self._store: np.ndarray | None = None
+        self._dev_table: torch.Tensor | None = None  # growable buffer (store="device")
+        self._dev_width: int | None = None
         self._num = 0
         self._init_size = init_size
         self._alloc_size = alloc_size
@@ -106,8 +248,11 @@ class InMemoryIndex(Index):
         self._precision = precision
         self._dev_view: DeviceView | None = None
         # one upload when several threads (a server's resolver pool, the
-        # preload warms) ask for the table at once
+        # preload warms) ask for the table at once; add() takes it too, so a
+        # progressive swap never installs a table of rows an add changed
         self._view_lock = threading.Lock()
+        # bumped by every add(): in-flight progressive uploads compare it
+        self._table_gen = 0
         super().__init__(
             query_encoder=query_encoder,
             quantizer=quantizer,
@@ -122,6 +267,8 @@ class InMemoryIndex(Index):
         return self._num
 
     def _get_internal_dim(self) -> int | None:
+        if self._store_mode == "device":
+            return self._dev_width if self._dev_table is not None else None
         if self._store is None:
             return None
         return self._store.shape[1]
@@ -145,17 +292,70 @@ class InMemoryIndex(Index):
         self, vectors: np.ndarray, doc_ids: IDSequence, psg_ids: IDSequence
     ) -> None:
         num_new = vectors.shape[0]
-        start = self._num
-        self._ids.add(doc_ids, psg_ids, start)
-        self._grow_to(start + num_new, vectors.shape[1], vectors.dtype)
-        self._store[start : start + num_new] = vectors
-        self._num += num_new
-        self._dev_view = None  # device table is stale
+        with self._view_lock:
+            start = self._num
+            self._ids.add(doc_ids, psg_ids, start)
+            if self._store_mode == "device":
+                self._append_device(vectors, start)
+            else:
+                self._grow_to(start + num_new, vectors.shape[1], vectors.dtype)
+                self._store[start : start + num_new] = vectors
+            self._num += num_new
+            self._dev_view = None  # the device table is stale
+            self._table_gen += 1  # and so is any progressive upload in flight
 
     def consolidate(self) -> None:
-        """Trim the host store to exactly the used capacity."""
+        """Trim the host store to exactly the used capacity (no-op for
+        ``store="device"``: the device buffer stays padded to the scoring
+        row granularity)."""
         if self._store is not None:
             self._store = self._store[: self._num].copy()
+
+    # -- the device store (store="device") -------------------------------------
+
+    def _device_layout(self, width: int) -> tuple[tuple[int, ...], torch.dtype]:
+        """Row shape and dtype of the growable device buffer (the scoring
+        table's layout)."""
+        if isinstance(self._quantizer, PQ):
+            if self._quantizer.dtype != np.uint8:
+                raise not_ported("PQ codes wider than uint8 (Ks > 256)", "10")
+            return (width,), torch.uint8
+        if isinstance(self._quantizer, ScalarQuantizer):
+            return ((width // 128, 128) if width % 128 == 0 else (width,)), torch.int8
+        return (width,), _DEVICE_DTYPES[self._device_dtype]
+
+    def _append_device(self, data: np.ndarray, start: int) -> None:
+        """Write the new rows straight into the growable device buffer.
+
+        Only these rows cross the link; growth reallocates on the device
+        (transiently both buffers).
+        """
+        n_new, width = data.shape
+        row_shape, dtype = self._device_layout(width)
+        self._dev_width = width
+        need = start + n_new
+        if self._dev_table is None:
+            cap = -(-max(self._init_size, need) // _ROW_PAD) * _ROW_PAD
+            self._dev_table = torch.zeros((cap, *row_shape), dtype=dtype, device=self._device)
+        elif need > self._dev_table.shape[0]:
+            cur = self._dev_table.shape[0]
+            extra = -(-(need - cur) // self._alloc_size) * self._alloc_size
+            cap = -(-(cur + extra) // _ROW_PAD) * _ROW_PAD
+            LOGGER.debug("growing device store from %s to %s rows", cur, cap)
+            grown = torch.zeros((cap, *row_shape), dtype=dtype, device=self._device)
+            grown[:cur] = self._dev_table
+            self._dev_table = grown
+        host_dtype = np.float32 if self._quantizer is None else None
+        upload_into(self._dev_table, data, start, stage_dtype=host_dtype)
+
+    def _fetch_device_rows(self, rows: np.ndarray) -> np.ndarray:
+        """Rows of the device store on the host, ``(n, width)`` (bf16 as
+        fp32)."""
+        idx = torch.from_numpy(np.ascontiguousarray(rows, dtype=np.int64)).to(self._device)
+        sub = self._dev_table[idx]
+        if sub.dtype == torch.bfloat16:
+            sub = sub.float()
+        return sub.cpu().numpy().reshape(rows.shape[0], -1)
 
     # -- host reads ----------------------------------------------------------
 
@@ -165,6 +365,8 @@ class InMemoryIndex(Index):
         if rows.shape[0] == 0:
             return np.array([]), []
         out_ids = [i for i, c in zip(ids, counts) for _ in range(c)]
+        if self._store_mode == "device":
+            return self._fetch_device_rows(rows), out_ids
         return self._store[rows], out_ids
 
     def _batch_iter(
@@ -173,7 +375,11 @@ class InMemoryIndex(Index):
         doc_list, psg_list = self._ids.inverse(self._num)
         for i in range(0, self._num, batch_size):
             j = min(i + batch_size, self._num)
-            yield self._store[i:j], doc_list[i:j], psg_list[i:j]
+            if self._store_mode == "device":
+                batch = self._fetch_device_rows(np.arange(i, j))
+            else:
+                batch = self._store[i:j]
+            yield batch, doc_list[i:j], psg_list[i:j]
 
     # -- device table --------------------------------------------------------
 
@@ -189,28 +395,98 @@ class InMemoryIndex(Index):
             return self._dev_view
 
     def _build_view(self) -> DeviceView:
-        """Upload the host store into a new device view."""
+        """The device view of the store: the device buffer itself
+        (``store="device"``), a hybrid view when the table exceeds
+        ``hbm_budget``, else an upload of the host store."""
+        if self._store_mode == "device":
+            return device_view(self._dev_table, self._quantizer, self._precision)
+        data = self._store[: self._num]
+        if self._hbm_budget is not None:
+            view = self._hybrid_view(data)
+            if view is not None:
+                return view
         return build_view(
-            self._store[: self._num],
+            data,
             self._quantizer,
             self._device,
             precision=self._precision,
             device_dtype=self._device_dtype,
         )
 
+    def _hybrid_view(self, data: np.ndarray) -> DeviceView | None:
+        """The hybrid tier's view of ``data``, or ``None`` when the table fits
+        the budget (``build_hybrid_view``)."""
+        return hybrid_view(
+            data, self._quantizer, self._device, self._hbm_budget, self._precision,
+            self._stream_chunk_rows, self._device_dtype,
+        )
 
-def upload_rows(
-    rows: np.ndarray, shape: tuple, dtype: torch.dtype, device: torch.device, host_dtype=None
-) -> torch.Tensor:
-    """Zero-padded device copy of host rows, uploaded in row chunks (each
-    chunk converted to ``host_dtype`` on the host, then cast on the device;
-    bf16 rounds to nearest even).  No padded host copy is made."""
-    table = torch.zeros(shape, dtype=dtype, device=device)
-    flat = table.view(shape[0], -1)
-    for lo in range(0, rows.shape[0], _UPLOAD_ROWS):
-        chunk = np.ascontiguousarray(rows[lo : lo + _UPLOAD_ROWS], dtype=host_dtype)
-        flat[lo : lo + chunk.shape[0]] = torch.from_numpy(chunk).to(device)
-    return table
+    def _progressive_job(self) -> "_ProgressiveUpload | None":
+        """The split-plane upload job, for dense fp32 host-store tables above
+        ``_MIN_PROGRESSIVE_BYTES`` without a budget and not yet uploaded;
+        ``None`` otherwise."""
+        if (
+            self._num == 0
+            or self._dev_view is not None
+            or self._store_mode != "host"
+            or self._hbm_budget is not None
+            or self._quantizer is not None
+            or self._device_dtype != "float32"
+            or self._store.dtype != np.float32
+            or self._store[: self._num].nbytes <= _MIN_PROGRESSIVE_BYTES
+        ):
+            return None
+        return _ProgressiveUpload(self)
+
+
+def hybrid_view(
+    data: np.ndarray,
+    quantizer: "Quantizer | None",
+    device: torch.device,
+    hbm_budget: int,
+    precision: str,
+    chunk_rows: "int | None" = None,
+    device_dtype: str = "float32",
+) -> DeviceView | None:
+    """The hybrid view of stored rows (vectors or the quantizer's codes), or
+    ``None`` when the table fits ``hbm_budget`` or its dimensionality is not
+    a multiple of 128 (vectors and int8 codes; a warning says so).
+
+    :raises NotImplementedError: For PQ codes wider than uint8.
+    """
+    num, width = data.shape
+    kwargs = dict(chunk_rows=chunk_rows)
+    if isinstance(quantizer, PQ):
+        if data.dtype != np.uint8:
+            raise not_ported("PQ codes wider than uint8 (Ks > 256)", "10")
+        kwargs.update(kind="pq", codebooks=np.asarray(quantizer.codewords, dtype=np.float32))
+        dim = quantizer.dims[0]
+    else:
+        dim = width
+        if dim % 128:
+            LOGGER.warning(
+                "hbm_budget is ignored: the hybrid tier needs dim %% 128 == 0 (got %d); "
+                "the whole table goes to the device", dim,
+            )
+            return None
+        if isinstance(quantizer, ScalarQuantizer):
+            kwargs.update(kind="scalar", scales=quantizer.scales)
+        else:
+            kwargs.update(bf16=device_dtype == "bfloat16")
+    return build_hybrid_view(data, num, dim, hbm_budget, precision, device, **kwargs)
+
+
+def device_view(table: torch.Tensor, quantizer: "Quantizer | None", precision: str) -> DeviceView:
+    """The view of a device buffer already laid out as a scoring table."""
+    if isinstance(quantizer, PQ):
+        codebooks = np.array(quantizer.codewords, dtype=np.float32)
+        return DeviceView(
+            "pq", table, precision=precision,
+            codebooks=torch.from_numpy(codebooks).to(table.device),
+        )
+    if isinstance(quantizer, ScalarQuantizer):
+        return DeviceView("scalar", table, precision=precision, scales=quantizer.scales)
+    return DeviceView("dense", table, precision=precision)
 
 
 def build_view(
@@ -234,27 +510,15 @@ def build_view(
         if data.dtype != np.uint8:
             raise not_ported("PQ codes wider than uint8 (Ks > 256)", "10")
         # compact (N_pad, M) codes; the fp32 codebooks stay in L2
-        codebooks = np.array(quantizer.codewords, dtype=np.float32)
-        return DeviceView(
-            kind="pq",
-            table=upload_rows(data, (n_pad, width), torch.uint8, device),
-            precision=precision,
-            codebooks=torch.from_numpy(codebooks).to(device),
-        )
-    if isinstance(quantizer, ScalarQuantizer):
+        table = upload_table(data, device, shape=(n_pad, width))
+    elif isinstance(quantizer, ScalarQuantizer):
         # 3D int8 layout when the lanes divide (the streamed kernels'
         # table form); the scales fold into the queries
         shape = (n_pad, width // 128, 128) if width % 128 == 0 else (n_pad, width)
-        return DeviceView(
-            kind="scalar",
-            table=upload_rows(data, shape, torch.int8, device),
-            precision=precision,
-            scales=quantizer.scales,
+        table = upload_table(data, device, shape=shape, dtype=torch.int8)
+    else:
+        table = upload_table(
+            data, device, shape=(n_pad, width), dtype=_DEVICE_DTYPES[device_dtype],
+            stage_dtype=np.float32,
         )
-    return DeviceView(
-        kind="dense",
-        table=upload_rows(
-            data, (n_pad, width), _DEVICE_DTYPES[device_dtype], device, np.float32
-        ),
-        precision=precision,
-    )
+    return device_view(table, quantizer, precision)

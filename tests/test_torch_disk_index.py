@@ -737,12 +737,27 @@ def test_host_gather_scores_on_the_index_device(tmp_path):
 
 
 def test_unported_options_and_no_card(tmp_path):
+    """``mesh_config`` raises naming ROADMAP item 14; ``hbm_budget`` and
+    ``stream_chunk_rows`` (the hybrid tier, ported since) build a hybrid
+    view of the file's table, for a new index and a loaded one, whose
+    scores equal the whole table's."""
     with pytest.raises(NotImplementedError, match="item 14"):
         _disk(tmp_path / "a.h5", mesh_config=object())
-    with pytest.raises(NotImplementedError, match="item 13"):
-        _disk(tmp_path / "b.h5", hbm_budget=1 << 20)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        OnDiskIndex.load(tmp_path / "b.h5", device="cpu", stream_chunk_rows=1024)
+    rng = np.random.default_rng(11)
+    vectors = rng.standard_normal((6000, 128), dtype=np.float32)
+    q = rng.standard_normal(128, dtype=np.float32)
+    encoder = LambdaEncoder(lambda _t: q)
+    hybrid_kw = {"hbm_cache": True, "hbm_budget": 1 << 20, "stream_chunk_rows": 1024}
+    new = _disk(tmp_path / "b.h5", encoder, mode=Mode.PASSAGE, **hybrid_kw)
+    new.add(vectors, psg_ids=[f"p{i}" for i in range(6000)])
+    loaded = _load(tmp_path / "b.h5", query_encoder=encoder, mode=Mode.PASSAGE, **hybrid_kw)
+    plain = _load(tmp_path / "b.h5", query_encoder=encoder, mode=Mode.PASSAGE, hbm_cache=True)
+    ranking = Ranking.from_run({"q0": {f"p{i}": float(i) for i in range(0, 6000, 3)}}, queries={"q0": "x"})
+    want = plain(ranking)
+    for index in (new, loaded):
+        view = index._device_view()
+        assert view.kind == "hybrid" and view.tail_start == 1024 and view.chunk_rows == 1024
+        assert index(ranking) == want
     with pytest.raises(ValueError, match="exists"):
         _disk(tmp_path / "c.h5")
         _disk(tmp_path / "c.h5")

@@ -622,3 +622,205 @@ def test_cuda_tct_encoder_rerank_launches_k1(cuda, tmp_path):
         for pid, score in out[q].items():
             want = float(corpus[int(pid[1:])].astype(np.float64) @ qvecs[qi])
             assert abs(score - want) <= 1e-4 * (1 + abs(want)), (q, pid, score, want)
+
+
+# -- the hybrid tier, the device store and the 16-bit planes ------------------------
+
+
+def _hybrid_pair(kind: str, mode: str, device, budget: int, chunk_rows: int):
+    """A hybrid index of ``kind`` on ``device`` over a 32,768-row
+    ``_doc_workload`` corpus (quantizers fitted on the CPU, so both devices
+    hold one set of codes), with a run for ``mode``: 24 queries x 1,000
+    passages, or x 300 documents."""
+    corpus, doc_ids, by_text, ranking = _doc_workload(5, n=HYBRID_N, depth=300)
+    quantizer = None
+    if kind != "dense":
+        quantizer = ScalarQuantizer() if kind == "int8" else PQ(M_PQ, KS, device="cpu")
+        quantizer.fit(corpus[:4096])
+        if kind == "pq":
+            quantizer.device = device
+    index = InMemoryIndex(
+        query_encoder=LambdaEncoder(by_text.__getitem__), quantizer=quantizer, mode=Mode[mode],
+        device=device, hbm_budget=budget, stream_chunk_rows=chunk_rows,
+    )
+    index.add(corpus, doc_ids=doc_ids, psg_ids=[f"p{i}" for i in range(HYBRID_N)])
+    if mode == "PASSAGE":
+        rng = np.random.default_rng(6)
+        run = {
+            q: {f"p{c}": float(1000 - j) for j, c in enumerate(rng.choice(HYBRID_N, 1000, replace=False))}
+            for q in ranking.q_ids
+        }
+        ranking = ft.Ranking.from_run(run, queries={q: f"query {q[1:]}" for q in run})
+    return index, ranking
+
+
+HYBRID_N = 32768
+
+#: per kind, a budget that leaves a resident prefix of 1,024 rows and a
+#: device cache of two 512-row blocks
+HYBRID_BUDGETS = {"dense": 2 << 20, "int8": 512 << 10, "pq": (256 << 10) + (64 << 10)}
+
+
+@pytest.mark.parametrize("mode", ["PASSAGE", "MAXP"])
+@pytest.mark.parametrize("kind", list(HYBRID_BUDGETS))
+def test_cuda_hybrid_tail_blocks_match_cpu(cuda, kind, mode):
+    """The hybrid tier on the card at 512-row blocks (dozens of chunks, so a
+    staging buffer refilled before its copy landed would show) against the
+    same hybrid index on the CPU (the plain versions): cold and warm
+    re-ranks, scores at atol 1e-4, rtol 1e-5.  On the card every tail block
+    launches the kernel its layout routes to (K1 for fp32 rows; K2 or K4 at
+    ``cap > r``, K1 or K3 below), warm calls hit the device cache, and
+    further calls reserve no more device memory."""
+    from fastforward_tpu_torch.ops import host_stream
+
+    wrappers = {
+        "stream_select_pairwise": sk.stream_select_pairwise, "stream_select": sk.stream_select,
+        "stream_select_pq_pairwise": skpq.stream_select_pq_pairwise,
+        "stream_select_pq": skpq.stream_select_pq,
+    }
+    out = {}
+    for device in ("cpu", "cuda"):
+        index, ranking = _hybrid_pair(kind, mode, device, HYBRID_BUDGETS[kind], 512)
+        view = index._device_view()
+        assert view.kind == "hybrid" and view.tail_start == 1024
+        before = {k: w.launches for k, w in wrappers.items()}
+        host_stream.reset_stats()
+        cold = index(ranking)
+        warm = index(ranking)
+        launched = {k: w.launches - before[k] for k, w in wrappers.items()}
+        chunks = index._get_plan(ranking)["hybrid"]["chunks"]
+        assert len(chunks) >= 24
+        if device == "cuda":
+            wide = [c["cand"].shape[1] * 128 > sk.KERNEL_TILE_ROWS for c in chunks]
+            if kind == "dense":
+                tail_kernels = {"stream_select_pairwise": len(chunks)}
+            else:
+                narrow_k, wide_k = (
+                    ("stream_select_pairwise", "stream_select") if kind == "int8"
+                    else ("stream_select_pq_pairwise", "stream_select_pq")
+                )
+                tail_kernels = {wide_k: sum(wide), narrow_k: len(chunks) - sum(wide)}
+            for name, count in tail_kernels.items():
+                assert launched[name] >= 2 * count, (name, launched)
+            assert host_stream.STATS["block_cache_hits"] > 0
+            # one copy stream for the view: later calls reuse its blocks
+            reserved = torch.cuda.memory_reserved()
+            for _ in range(3):
+                index(ranking)
+            assert torch.cuda.memory_reserved() == reserved
+        else:
+            assert not any(launched.values())
+        _assert_pairs_close(cold, warm)
+        out[device] = warm
+    _assert_pairs_close(out["cpu"], out["cuda"])
+
+
+def _assert_pairs_close(cpu_r, cuda_r):
+    """The same (query, id) pairs, scores at atol 1e-4, rtol 1e-5, compared
+    pair by pair (PQ codes tie often, and fp32 sums in another order may
+    swap two tied rows)."""
+    a, b = (r._df.sort_values(["q_id", "id"]) for r in (cpu_r, cuda_r))
+    for col in ("q_id", "id"):
+        np.testing.assert_array_equal(a[col].astype(str), b[col].astype(str))
+    np.testing.assert_allclose(b["score"], a["score"], atol=1e-4, rtol=1e-5)
+
+
+def test_cuda_hybrid_contiguous_tail_blocks(cuda):
+    """A candidate set of every row streams contiguous blocks (views of the
+    tail, copied through the staging buffers): scores equal the
+    whole-table index on the card, cold and warm."""
+    from fastforward_tpu_torch.ops import host_stream
+
+    rng = np.random.default_rng(7)
+    n = 8192
+    corpus = rng.standard_normal((n, DIM), dtype=np.float32)
+    q = rng.standard_normal(DIM, dtype=np.float32)
+    run = {"q0": {f"p{i}": float(i) for i in range(n)}}
+    ranking = ft.Ranking.from_run(run, queries={"q0": "x"})
+    results = []
+    for kwargs in ({}, {"hbm_budget": 4 << 20, "stream_chunk_rows": 1024}):
+        index = InMemoryIndex(query_encoder=LambdaEncoder(lambda _t: q), mode=Mode.PASSAGE, **kwargs)
+        index.add(corpus, psg_ids=[f"p{i}" for i in range(n)])
+        results.append(index(ranking))
+    chunks = index._get_plan(ranking)["hybrid"]["chunks"]
+    assert len(chunks) >= 4 and all(host_stream._chunk_contiguous(c) for c in chunks)
+    _assert_rankings_close(*results)
+    _assert_rankings_close(results[0], index(ranking))
+
+
+def test_cuda_planes_round_trip(cuda):
+    """The 16-bit planes on the card: hi | lo rebuilds every fp32 bit
+    pattern (infinities, NaN, signed zeros, subnormals), hi alone is the
+    truncation, and padded rows are zero."""
+    from fastforward_tpu_torch.ops.upload import combine_lo, expand_hi, upload_plane
+
+    host = np.random.default_rng(8).standard_normal((1000, DIM)).astype(np.float32)
+    host[0, :6] = [np.inf, -np.inf, np.nan, 0.0, -0.0, np.float32(1e-42)]
+    hi = upload_plane(host, "hi", cuda, total_rows=1024, chunk_bytes=100 * DIM * 2)
+    lo = upload_plane(host, "lo", cuda, total_rows=1024, chunk_bytes=100 * DIM * 2)
+    trunc = expand_hi(hi)
+    full = combine_lo(trunc, lo).cpu().numpy()
+    np.testing.assert_array_equal(full[:1000].view(np.uint32), host.view(np.uint32))
+    np.testing.assert_array_equal(full[1000:], 0.0)
+    want = host.view(np.uint32) & np.uint32(0xFFFF0000)
+    np.testing.assert_array_equal(trunc.cpu().numpy()[:1000].view(np.uint32), want)
+
+
+@pytest.mark.parametrize("kind", ["dense", "int8", "pq"])
+def test_cuda_device_store_adds_and_reads_back(cuda, kind):
+    """``store="device"``: adds in batches that grow the device buffer; the
+    rows read back bit for bit, and re-rank and serve equal the host store's
+    index on the card."""
+    corpus, doc_ids, by_text, ranking = _doc_workload(9)
+    n = corpus.shape[0]
+    quantizer = None
+    if kind != "dense":
+        quantizer = ScalarQuantizer() if kind == "int8" else PQ(M_PQ, KS, device="cpu")
+        quantizer.fit(corpus[:4096])
+        if kind == "pq":
+            quantizer.device = cuda
+    out = {}
+    for store in ("host", "device"):
+        index = InMemoryIndex(
+            query_encoder=LambdaEncoder(by_text.__getitem__), quantizer=quantizer, mode=Mode.MAXP,
+            store=store, init_size=1000, alloc_size=3000,
+        )
+        for lo in range(0, n, 1500):
+            index.add(corpus[lo : lo + 1500], doc_ids=doc_ids[lo : lo + 1500])
+        out[store] = index
+    host, dev = out["host"], out["device"]
+    assert dev._store is None and dev._dev_table.device.type == "cuda"
+    ids = sorted(set(doc_ids))[::7]
+    np.testing.assert_array_equal(dev._get_vectors(ids)[0], host._get_vectors(ids)[0])
+    _assert_rankings_close(host(ranking), dev(ranking))
+    _assert_rankings_close(host.serve(ranking, 0.2, 10), dev.serve(ranking, 0.2, 10))
+
+
+def test_cuda_progressive_preload(cuda, monkeypatch):
+    """``preload(progressive=True)`` on the card: the truncated table serves
+    first (within the bf16 tier's error), then ``preload_join`` installs the
+    exact table, whose scores equal the standard upload's."""
+    import fastforward_tpu_torch.index.memory as memory
+
+    monkeypatch.setattr(memory, "_MIN_PROGRESSIVE_BYTES", 0)
+    corpus, doc_ids, by_text, ranking = _doc_workload(10)
+    indexes = []
+    for _ in range(2):
+        index = InMemoryIndex(query_encoder=LambdaEncoder(by_text.__getitem__), mode=Mode.MAXP)
+        index.add(corpus, doc_ids=doc_ids)
+        indexes.append(index)
+    want = indexes[0](ranking)
+    index = indexes[1]
+    assert index.preload(warm=(8, 50), progressive=True)
+    assert index._preload_stats["progressive"] is True
+    interim = index(ranking)
+
+    def by_pair(r):
+        return r._df.sort_values(["q_id", "id"])["score"].to_numpy()
+
+    np.testing.assert_allclose(by_pair(interim), by_pair(want), rtol=5e-3, atol=5e-2)
+    assert index.preload_join(timeout=60)
+    assert index._preload_stats["progressive_exact"] is True
+    table = index._device_view().table[: corpus.shape[0]].cpu().numpy()
+    np.testing.assert_array_equal(table, corpus)
+    _assert_rankings_close(want, index(ranking))

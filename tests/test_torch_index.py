@@ -192,10 +192,10 @@ def test_convert_carries_rows_and_ids(data):
 @pytest.mark.parametrize(
     "kwargs, err",
     [
-        ({"store": "device"}, NotImplementedError),
-        ({"hbm_budget": 1 << 30}, NotImplementedError),
+        ({"store": "device"}, None),
+        ({"hbm_budget": 4 << 20}, None),
         ({"mesh_config": object()}, NotImplementedError),
-        ({"stream_chunk_rows": 1 << 16}, NotImplementedError),
+        ({"hbm_budget": 4 << 20, "stream_chunk_rows": 1024}, None),
         ({"score_transport": "u16"}, None),
         ({"score_transport": "f16"}, ValueError),
         ({"store": "disk"}, ValueError),
@@ -204,11 +204,13 @@ def test_convert_carries_rows_and_ids(data):
     ],
 )
 def test_unported_options_raise(data, kwargs, err):
-    """What the port still lacks raises; an option ported since (``err`` is
-    ``None``: the u16 score transport) constructs and scores within its
-    bound, ``(max - min) / 131070`` of the f32 port's scores."""
+    """What the port still lacks raises (``mesh_config``, ROADMAP item 14);
+    an option ported since (``err`` is ``None``: the device store, the
+    hybrid tier at a budget of half the table, the u16 score transport)
+    constructs and scores within the u16 transport's bound, ``(max - min) /
+    131070`` of the f32 port's scores (the other options score exactly)."""
     if err is not None:
-        with pytest.raises(err):
+        with pytest.raises(err, match="item 14" if "mesh_config" in kwargs else None):
             InMemoryIndex(device="cpu", **kwargs)
         return
     corpus, by_text, queries, runs = data
@@ -225,6 +227,11 @@ def test_unported_options_raise(data, kwargs, err):
     span = max(want.values()) - min(want.values())
     err_max = max(abs(got[key] - s) for key, s in want.items())
     assert err_max <= span / 131070 * (1 + 1e-3) + 1e-5
+    if "score_transport" not in kwargs:
+        assert err_max == 0.0
+        view = indexes[0]._device_view()
+        assert (view.kind == "hybrid") == ("hbm_budget" in kwargs)
+        assert (indexes[0]._store is None) == ("store" in kwargs)
 
 
 def test_quantizer_must_be_a_trained_quantizer():

@@ -74,16 +74,19 @@ class TestTorchInMemoryIndex(unittest.TestCase):
     """``tests/test_index.py``'s ``TestIndex`` host-read cases and
     ``TestInMemoryIndex.test_consolidate``, on the port."""
 
+    #: the index factory of the cases (the device store's class overrides it)
+    _new = staticmethod(_index)
+
     @classmethod
     def setUpClass(cls):
-        cls.index = _index(init_size=32, alloc_size=32)
-        cls.doc_psg_index = _index(DUMMY_ENCODER)
-        cls.index_partial_ids = _index(DUMMY_ENCODER)
-        cls.doc_index = _index(DUMMY_ENCODER)
-        cls.psg_index = _index(DUMMY_ENCODER)
-        cls.iter_indexes = [_index(init_size=2, alloc_size=2), _index(init_size=5)]
-        cls.quantized_index = _index(quantizer=DUMMY_QUANTIZER)
-        cls.coalesced_indexes = [_index(mode=Mode.MAXP), _index(mode=Mode.MAXP)]
+        cls.index = cls._new(init_size=32, alloc_size=32)
+        cls.doc_psg_index = cls._new(DUMMY_ENCODER)
+        cls.index_partial_ids = cls._new(DUMMY_ENCODER)
+        cls.doc_index = cls._new(DUMMY_ENCODER)
+        cls.psg_index = cls._new(DUMMY_ENCODER)
+        cls.iter_indexes = [cls._new(init_size=2, alloc_size=2), cls._new(init_size=5)]
+        cls.quantized_index = cls._new(quantizer=DUMMY_QUANTIZER)
+        cls.coalesced_indexes = [cls._new(mode=Mode.MAXP), cls._new(mode=Mode.MAXP)]
 
         cls.doc_psg_index.add(vectors=DUMMY_VECTORS, doc_ids=DUMMY_DOC_IDS, psg_ids=DUMMY_PSG_IDS)
 
@@ -201,7 +204,7 @@ class TestTorchInMemoryIndex(unittest.TestCase):
         )
 
     def test_consolidate(self):
-        index = _index(init_size=8, alloc_size=4, mode=Mode.PASSAGE)
+        index = self._new(init_size=8, alloc_size=4, mode=Mode.PASSAGE)
         data = np.random.default_rng(3).normal(size=(32, 16))
         psg_ids = [f"psg_{i}" for i in range(32)]
 
@@ -214,6 +217,38 @@ class TestTorchInMemoryIndex(unittest.TestCase):
         index.consolidate()
         vecs, ids = index._get_vectors(psg_ids)
         _assert_vectors_match(vecs, ids, data, psg_ids)
+
+
+class TestTorchInMemoryIndexDeviceStore(TestTorchInMemoryIndex):
+    """The same contract with ``store="device"`` (``tests/test_index.py``'s
+    ``TestInMemoryIndexDeviceStore``): adds append straight into the
+    growable device buffer (a CPU tensor here) and host reads fetch rows
+    back from it; ``consolidate`` leaves the buffer as it is."""
+
+    @staticmethod
+    def _new(*args, **kwargs) -> InMemoryIndex:
+        return _index(*args, store="device", **kwargs)
+
+    def test_growth_across_row_pad(self):
+        """Appends crossing the buffer's growth boundary stay intact."""
+        index = self._new(init_size=8, alloc_size=4, mode=Mode.PASSAGE)
+        data = np.random.default_rng(4).normal(size=(48, 16)).astype(np.float32)
+        psg_ids = [f"psg_{i}" for i in range(48)]
+        index.add(data[:20], psg_ids=psg_ids[:20])
+        index.add(data[20:], psg_ids=psg_ids[20:])
+        vecs, ids = index._get_vectors(psg_ids)
+        _assert_vectors_match(vecs, ids, data, psg_ids)
+        assert index._store is None and index._dev_table.shape[0] % 4096 == 0
+
+    def test_device_store_option_validation(self):
+        with self.assertRaises(ValueError):
+            self._new(hbm_budget=1 << 20)
+        with self.assertRaisesRegex(NotImplementedError, "item 14"):
+            self._new(mesh_config=object())
+
+    def test_bad_store_rejected(self):
+        with self.assertRaises(ValueError):
+            _index(store="hbm")
 
 
 #: rows of the differential cases: 2-4 passages a document, a few rows with
@@ -283,6 +318,41 @@ def test_host_reads_match_jax(quantized):
     assert port_index._store.shape[0] == N_ROWS
     port_index.mode, jax_index.mode = Mode.MAXP, JaxMode.MAXP
     np.testing.assert_array_equal(port_index._get_vectors(docs)[0], jax_index._get_vectors(docs)[0])
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["fp32", "pq"])
+def test_device_store_reads_match_jax(quantized):
+    """``store="device"`` in both packages, the same adds: the port's host
+    reads equal the JAX device store's (vectors as fp32 of the device
+    buffer, codes as stored), and its own host store's bit for bit."""
+    vectors, doc_ids, psg_ids = _rows()
+    indexes = {}
+    for name, cls, kw in (
+        ("jax", JaxInMemoryIndex, {}), ("port", InMemoryIndex, {"device": "cpu"}),
+        ("host", InMemoryIndex, {"device": "cpu", "store": "host"}),
+    ):
+        kw = {"store": "device", **kw}
+        if quantized:
+            jq = JaxNanoPQ(4, 8)
+            jq.fit(vectors)
+            kw["quantizer"] = jq if name == "jax" else convert.quantizer_from_state(*jq.serialize(), device="cpu")
+        indexes[name] = cls(init_size=8, alloc_size=8, **kw)
+        for lo, hi in ((0, 5), (5, 29), (29, N_ROWS)):
+            indexes[name].add(vectors[lo:hi], doc_ids=doc_ids[lo:hi], psg_ids=psg_ids[lo:hi])
+    jax_index, port_index, host_index = indexes["jax"], indexes["port"], indexes["host"]
+    assert port_index._store is None
+    docs = list(dict.fromkeys(doc_ids))[::-1]
+    psgs = [p for p in psg_ids if p is not None][::2]
+    for mode, ids in (("PASSAGE", psgs), ("MAXP", docs), ("FIRSTP", docs)):
+        jax_index.mode, port_index.mode, host_index.mode = JaxMode[mode], Mode[mode], Mode[mode]
+        want_vecs, want_ids = jax_index._get_vectors(ids)
+        got_vecs, got_ids = port_index._get_vectors(ids)
+        assert got_ids == want_ids, mode
+        np.testing.assert_array_equal(got_vecs, want_vecs, err_msg=mode)
+        np.testing.assert_array_equal(got_vecs, host_index._get_vectors(ids)[0], err_msg=mode)
+    for (gv, gd, gp), (wv, wd, wp) in zip(port_index, jax_index, strict=True):
+        assert (gd, gp) == (wd, wp)
+        np.testing.assert_allclose(gv, wv, rtol=1e-6, atol=1e-6)
 
 
 @pytest.mark.parametrize("quantized", [False, True], ids=["fp32", "pq"])

@@ -7,8 +7,10 @@ XLA compile-cache case, which has no counterpart: the kernels' build
 directory is keyed by source hash) and
 ``tests/test_preload_overlap.py::test_preload_stats_phases_recorded`` (with
 ``overlap`` False: the port uploads before it warms).  Beside them:
-``preload_join`` is a no-op, ``progressive=True`` warns and takes the
-standard upload, the warms run K1's wrapper in both tiers, the stats carry
+``preload_join`` is a no-op without a pending upload, ``progressive=True``
+on a table below its 512 MiB size gate warns and takes the standard upload
+(the split-plane upload itself: ``tests/test_torch_preload_progressive.py``),
+the warms run K1's wrapper in both tiers, the stats carry
 the JAX package's keys, and a preloaded index serves what a fresh one does.
 """
 
