@@ -2,7 +2,9 @@
 """GPU smoke run of fastforward_tpu_torch: kernels, re-rank, fused serve,
 document ranking, early stopping, preload, the u16 score transport, the
 batching server, the transformer query towers, the disk index, the hybrid
-tier beyond device memory, the device store and the progressive preload.
+tier beyond device memory, the device store, the progressive preload, PQ
+codes wider than uint8, and multi-device tables (sharded scoring in one
+process and across two).
 
 Run from the repository root on a machine with one NVIDIA GPU::
 
@@ -155,10 +157,40 @@ Phases, each of which must pass (any failure exits non-zero):
     9, 10 and 13 (K2 int8 and K4 PQ in ``Mode.MAXP``), timed (every launch
     of one wrapper call), with their bounds; one traced call of each
     splits its time by kernel (memset, grouping, scoring), and each is
-    timed back to back.
+    timed back to back;
+24. PQ codes wider than uint8: ``PQ(96, 1024)`` (10-bit codes, stored as
+    uint16) fitted on the card on the first 2^16 vectors of the flagship
+    corpus, 4,096 of its codes against a CPU encode; the passage re-rank
+    and serve must launch K3, MAXP K4, each checked against float64
+    ``q . decode(codes)``; K3 and K4 held against their plain versions on
+    these layouts (timed, traced, back to back, ``pq_bound``) and on one
+    small layout of random ``PQ(96, 32768)`` codebooks, whose 128 KB
+    tables take the global-memory table body; the hybrid tier over the
+    same codes at ``hbm_budget=128 MiB`` (tail blocks of uint16 rows),
+    passage and MAXP, as phase 21;
+25. sharded scoring on the card in one process: ``MeshConfig(data=1,
+    shard=2).build(devices=[cuda:0, cuda:0])``;
+    ``parallel.sharded.streamed_scores_sharded`` on the flagship fp32
+    table split in two, with the flagship run's rows and with phase 12's
+    MAXP layout and its K-reduce (K1 once per shard each),
+    ``score_pairs_sharded`` on the 3,200-pair sparse run (no kernel), and
+    ``streamed_scores_sharded_pq`` on phase 9's PQ codes (K3 once per
+    shard), each against the single-table program and float64, timed
+    beside it;
+26. two processes on the card through the public API: this script starts
+    itself twice (``--multiprocess-child RANK PORT N``, one time limit);
+    each joins a gloo job on one free local port
+    (``parallel.multihost.initialize(backend="gloo")``), builds
+    ``InMemoryIndex(mesh_config=MeshConfig(data=1, shard=2))`` over the
+    flagship corpus (its one card is its whole local device set, so the
+    mesh has two devices), calls ``preload()`` and ``narrow_to_shard()``,
+    re-ranks and serves the flagship run and phase 12's MAXP run, checks
+    them against float64, counts its own K1 launches (one a call) and
+    prints a digest; both must exit 0 with the same digest (NCCL across
+    cards is not run: the machine has one card).
 
-The phases run in the order 1-5, 12, 14-20, 22, 23, 6-11 (phases 13 and
-21 inside 7 and 9, while their indexes exist).  After phases 12 (for 4 and 12 together),
+The phases run in the order 1-5, 12, 14-20, 22, 23, 6-11, 24-26 (phases 13
+and 21 inside 7 and 9, while their indexes exist).  After phases 12 (for 4 and 12 together),
 14 and 7-10, one warm call of each flow (and one cold early-stopping call)
 runs under
 ``torch.profiler`` (device busy time, idle share, largest device items;
@@ -245,6 +277,17 @@ RATE_BLOCKS = 16
 DEVICE_ADD_ROWS = 32_768
 #: phase 23: seconds ``preload_join`` may take for the exact table
 PROGRESSIVE_JOIN_S = 120
+
+#: phase 24: PQ codes wider than uint8 (10-bit codes, stored as uint16), the
+#: hybrid tier's budget over them, and the (M, Ks) of the random codebooks
+#: whose lookup tables exceed what a block stages (the global-memory body)
+PQ_WIDE_KS = 1024
+HYBRID_PQ_WIDE_BUDGET = 128 << 20
+PQ_GLOBAL_SHAPE = (96, 32_768)
+#: phase 26: rows of the two processes' corpus (the flagship's unless the
+#: time limit forces a cut) and the seconds the job may take
+MP_N = N
+MP_TIMEOUT_S = 420
 
 QUANT_FIT = 1 << 16  # training vectors of the quantizers
 DENSE_N = 262_144  # rows of the dense-tile phases: ~1,000 pairs per 512-row tile
@@ -455,46 +498,54 @@ def k1_bound(table, q, cand3, tile_idx, dim, r, rates) -> dict:
     once, against the fp32 rate for one ``dim``-long dot per slot (each
     slot is a distinct (row, query) pair: no product is shared)."""
     return stream_bound(
-        dim * table.element_size(), 0, q, cand3, tile_idx, r, lambda slots, _: 2.0 * dim * slots,
-        rates,
+        dim * table.element_size(), lambda _rows: 0, q, cand3, tile_idx, r,
+        lambda per_query: 2.0 * dim * float(per_query.sum()), rates,
     )
 
 
 def pq_bound(codes, codebooks, q, cand3, tile_idx, r, rates) -> dict:
-    """The same for K3/K4: each needed code row (M bytes) and the codebooks
-    moved once, against the least ADC arithmetic.  Slots of one query share
-    its lookup table (the query's subvector dotted with every codeword:
-    2 * Ds flops for each of M * Ks entries), so a slot costs only its M
-    table entries' adds; the tables are counted once per query the slots
-    use."""
+    """The same for K3/K4: each needed code row (``M`` codes) moved once,
+    and of the codebooks only the codewords those rows use (at most the
+    whole codebooks), against the least ADC arithmetic.  A query with ``n``
+    slots needs at most ``min(Ks, n)`` codewords of each subspace dotted
+    with its subvector (``2 Ds`` flops each: a full lookup table only pays
+    when the query has at least ``Ks`` slots), and each slot adds its
+    ``M`` terms."""
+    from fastforward_tpu_torch.ops.stream_kernel_pq import gather_codes
+
     m, ks, ds = codebooks.shape
-    return stream_bound(
-        m * codes.element_size(), codebooks.numel() * 4, q, cand3, tile_idx, r,
-        lambda slots, n_queries: n_queries * m * ks * 2.0 * ds + slots * m, rates,
-    )
+
+    def codeword_bytes(rows):
+        used = gather_codes(codes, rows) + torch.arange(m, device=codes.device) * ks
+        return min(codebooks.numel(), torch.unique(used).numel() * ds) * 4
+
+    def flops(per_query):
+        return float(per_query.clamp(max=ks).sum()) * m * 2.0 * ds + float(per_query.sum()) * m
+
+    return stream_bound(m * codes.element_size(), codeword_bytes, q, cand3, tile_idx, r, flops, rates)
 
 
-def stream_bound(row_bytes, extra_bytes, q, cand3, tile_idx, r, flops_of, rates) -> dict:
+def stream_bound(row_bytes, extra_bytes_of, q, cand3, tile_idx, r, flops_of, rates) -> dict:
     """Least time for a streamed kernel's work: the distinct rows its slots
-    read (``row_bytes`` each), ``extra_bytes``, the query block, slots, tile
-    indices and outputs each moved once, or its flops
-    (``flops_of(slots, distinct queries)``) at the fp32 rate.  ``q`` is the
+    read (``row_bytes`` each), ``extra_bytes_of(distinct rows)``, the query
+    block, slots, tile indices and outputs each moved once, or its flops
+    (``flops_of(slots of each query)``) at the fp32 rate.  ``q`` is the
     row-major ``(Qb, dim)`` block."""
     bw, fp32_rate = rates
     qb = q.shape[0]
     cand = cand3.reshape(cand3.shape[0], -1).long()
-    rows = tile_idx.long()[:, None] * r + cand // qb
-    n_rows = torch.unique(rows).numel()
-    n_queries = torch.unique(cand % qb).numel()
+    rows = torch.unique(tile_idx.long()[:, None] * r + cand // qb)
+    per_query = torch.bincount((cand % qb).reshape(-1), minlength=qb)
+    n_rows = rows.numel()
     nbytes = (
         n_rows * row_bytes
-        + extra_bytes
+        + extra_bytes_of(rows)
         + q.numel() * 4
         + cand3.numel() * 4
         + tile_idx.numel() * 4
         + cand3.numel() * 4
     )
-    flops = flops_of(cand3.numel(), n_queries)
+    flops = flops_of(per_query)
     t_bytes, t_ops = nbytes / bw * 1e3, flops / fp32_rate * 1e3
     return {
         "bound_ms": max(t_bytes, t_ops),
@@ -893,6 +944,10 @@ FLOW_VARIANTS = {
     "int8_doc_maxp_serve": "K2 int8 doc high",
     "pq_doc_maxp_rerank": "K4 pq doc exact",
     "pq_doc_maxp_serve": "K4 pq doc exact",
+    "pq1024_rerank": "K3 pq1024 exact",
+    "pq1024_serve": "K3 pq1024 exact",
+    "pq1024_doc_maxp_rerank": "K4 pq1024 doc exact",
+    "pq1024_doc_maxp_serve": "K4 pq1024 doc exact",
 }
 
 
@@ -1177,10 +1232,12 @@ def scalar_rows(codes: np.ndarray, scales: np.ndarray) -> DecodedRows:
 
 def pq_rows(codes: np.ndarray, codewords: np.ndarray) -> DecodedRows:
     """PQ decode without OPQ's inverse rotation (the queries get ``R``)."""
+    from fastforward_tpu_torch.ops.stream_kernel_pq import gather_codes
+
     codes_dev = torch.from_numpy(codes).cuda()
     cb = torch.from_numpy(codewords).cuda().double()
     sub = torch.arange(cb.shape[0], device="cuda")[None, :]
-    return DecodedRows(lambda rows: cb[sub, codes_dev[rows].long()].reshape(rows.shape[0], -1))
+    return DecodedRows(lambda rows: cb[sub, gather_codes(codes_dev, rows)].reshape(rows.shape[0], -1))
 
 
 def check_encode(label: str, quantizer, codes: np.ndarray, vectors: np.ndarray) -> float:
@@ -1790,7 +1847,7 @@ def hybrid_quantized_phase(label, kind, source, budget, lifetime_bytes, rankings
     view = hyb._device_view()
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
-    width = source._store.shape[1]
+    width = source._store.shape[1] * source._store.dtype.itemsize  # bytes a row
     want = hybrid_split(N, width, budget, lifetime_bytes)
     got = (view.tail_start, view.host_tail.shape[0], view.tail_cache_budget)
     check(view.kind == "hybrid" and view.hybrid_kind == kind and got == want,
@@ -1829,10 +1886,10 @@ def hybrid_quantized_phase(label, kind, source, budget, lifetime_bytes, rankings
             if kind == "pq":
                 held["stream_select_pq_pairwise"] += pq_variants(
                     skpq, "K3", block, view.codebooks, q_dev, chunk["cand"], chunk["tile"],
-                    ("exact",), True, rates, "pq tail block")
+                    ("exact",), True, rates, f"{label.removeprefix('hybrid_')} tail block")
                 held["stream_select_pq"] += pq_variants(
                     skpq, "K4", block, view.codebooks, q_dev, chunk["cand"], chunk["tile"],
-                    ("exact",), True, rates, "pq tail block")
+                    ("exact",), True, rates, f"{label.removeprefix('hybrid_')} tail block")
             else:
                 held["stream_select"] += select_variants(
                     sk, block, q_dev, chunk["cand"], chunk["tile"], DIM, ("high",), True, rates,
@@ -1944,6 +2001,395 @@ def progressive_phase(corpus, doc_ids, psg_ids, by_text, ranking, run, index, co
     del prog, table
     torch.cuda.empty_cache()
     return out
+
+
+def pq_wide_phase(corpus, doc_ids, psg_ids, by_text, ranking, doc_rank, run, doc_run, q_index,
+                  qvecs_dev, doc_counts, doc_starts, wrappers, launches, rates, held) -> dict:
+    """Phase 24: ``PQ(96, 1024)`` (10-bit codes, stored as uint16) on the
+    flagship corpus: fitted on the card on the first 2^16 vectors, 4,096
+    codes against a CPU encode; the passage re-rank and serve launch K3,
+    MAXP launches K4, each checked against float64 ``q . decode(codes)``;
+    K3 and K4 held against their plain versions on these layouts (timed,
+    one traced call, back to back) and on one small layout of random
+    ``PQ_GLOBAL_SHAPE`` codebooks (the global-memory table body); then the
+    hybrid tier over the same codes (2-byte code rows in the tail's
+    blocks)."""
+    from fastforward_tpu_torch import InMemoryIndex, Mode
+    from fastforward_tpu_torch.encoder import LambdaEncoder
+    from fastforward_tpu_torch.ops import stream_kernel_pq as skpq
+    from fastforward_tpu_torch.quantizer import PQ
+
+    t0 = time.perf_counter()
+    pq = PQ(PQ_M, PQ_WIDE_KS)
+    pq.fit(corpus[:QUANT_FIT])
+    fit_s = time.perf_counter() - t0
+    index = InMemoryIndex(
+        query_encoder=LambdaEncoder(by_text.__getitem__), quantizer=pq, mode=Mode.PASSAGE,
+        precision="exact", init_size=N,
+    )
+    add_in_chunks(index, corpus, psg_ids, doc_ids)
+    codes = index._store[:N]
+    encode_s = time.perf_counter() - t0 - fit_s
+    check(codes.dtype == np.uint16 and int(codes.max()) >= 256,
+          f"PQ({PQ_M}, {PQ_WIDE_KS}) codes are {codes.dtype}, largest {int(codes.max())}")
+    log(f"[setup] PQ({PQ_M}, {PQ_WIDE_KS}) fitted on the card in {fit_s:.1f} s; {N} rows encoded "
+        f"in {encode_s:.1f} s ({codes.dtype}, {int(np.unique(codes[:4096]).shape[0])} distinct "
+        "codes in the first 4,096 rows)")
+    flows = {"pq1024_setup": {"fit_s": fit_s, "encode_s": encode_s,
+                              "encode_agree": check_encode("PQ(96, 1024)", pq, codes, corpus)}}
+    ref = pq_rows(codes, pq.codewords)
+    exact_psg = passage_exact(ref, qvecs_dev, q_index, DIM)
+    exact_max = doc_exact(ref, qvecs_dev, q_index, doc_counts, doc_starts, "max", DIM)
+    phase, launches["pq1024"] = index_phase(
+        "pq1024", index, ranking, wrappers, want="stream_select_pq_pairwise",
+        forbid=("stream_select_pq",), kernels=CALL_KERNELS["adc"], exact=exact_psg, run=run,
+    )
+    flows.update(phase)
+    view = index._device_view()
+    check(view.table.dtype == torch.uint16, f"the PQ(96, 1024) table is {view.table.dtype}")
+    plan = index._get_plan(ranking)
+    k3_in = (view.table, view.codebooks, plan["q_dev"][1], *plan["stream_pq"][:2])
+    index.mode = Mode.MAXP
+    phase, launches["pq1024_doc_maxp"] = index_phase(
+        "pq1024_doc_maxp", index, doc_rank, wrappers, want="stream_select_pq",
+        forbid=("stream_select_pq_pairwise",), kernels=CALL_KERNELS["adc"], exact=exact_max,
+        run=doc_run,
+    )
+    flows.update(phase)
+    doc_plan = index._get_plan(doc_rank)
+    k4_in = (view.table, view.codebooks, doc_plan["q_dev"][1], *doc_plan["stream_pq"][:2])
+    log(f"[kernel-pq1024] K3 on {tuple(k3_in[3].shape)}, K4 on {tuple(k4_in[3].shape)} "
+        f"(uint16 codes, {skpq.adc_table_width(PQ_WIDE_KS, torch.uint16)}-entry tables, "
+        f"{skpq.adc_table_queries(k3_in[2].shape[0], PQ_M, PQ_WIDE_KS)} queries a table group)")
+    for kernel, kname, inputs, label in (("K3", "stream_select_pq_pairwise", k3_in, "pq1024"),
+                                         ("K4", "stream_select_pq", k4_in, "pq1024 doc")):
+        row = pq_variants(skpq, kernel, *inputs, ("exact",), True, rates, label)[0]
+        c, cb, q, cand, tile = inputs
+        call = getattr(skpq, kname)
+        split_call(row, lambda call=call, c=c, cb=cb, q=q if kernel == "K3" else q.t(), cand=cand,
+                   tile=tile: call(c, cb, q, cand, tile), CALL_KERNELS["adc"])
+        held[kname].append(row)
+    m, ks = PQ_GLOBAL_SHAPE
+    rng = np.random.default_rng(SEED + 7)
+    n_pad, r = 4096, skpq.KERNEL_PQ_TILE_ROWS
+    codes_g = torch.from_numpy(rng.integers(0, ks, size=(n_pad, m)).astype(np.uint16)).cuda()
+    cb_g = torch.from_numpy(rng.standard_normal((m, ks, DIM // m), dtype=np.float32)).cuda()
+    q_g = torch.from_numpy(rng.standard_normal((64, DIM), dtype=np.float32)).cuda()
+    log(f"[kernel-pq-global] K3 and K4 on random PQ({m}, {ks}) codebooks: one subspace's table is "
+        f"{ks * 4} B, past the {96 * 1024} B a block stages (the global-memory table body)")
+    for kernel, kname, cap in (("K3", "stream_select_pq_pairwise", 512), ("K4", "stream_select_pq", 1024)):
+        lay = small_case_layout(rng, n_pad, 64, "uniform", kernel, cap, r)
+        held[kname] += pq_variants(skpq, kernel, codes_g, cb_g, q_g, *lay, ("exact",), True, rates,
+                                   f"pq({m},{ks}) global table")
+    del codes_g, cb_g
+    index.mode = Mode.PASSAGE
+    flows.update(hybrid_quantized_phase(
+        "hybrid_pq1024", "pq", index, HYBRID_PQ_WIDE_BUDGET, view.codebooks.numel() * 4,
+        (ranking, doc_rank), (exact_psg, exact_max), wrappers, launches, rates, held, doc_ids,
+        psg_ids, by_text,
+    ))
+    del index, view, ref
+    torch.cuda.empty_cache()
+    return flows
+
+
+def pairs_exact(rows_ref, q_dev, rows_mat, counts, qno, op: str, dim: int):
+    """Float64 scores of the pairs of the first ``CHECK_QUERIES`` queries of
+    a ``(pairs, K)`` layout (``op`` ``max`` over each pair's ``counts`` rows,
+    or ``first``), their sum-order tolerance, and the pairs' positions, on
+    the card."""
+    sel = np.flatnonzero(np.asarray(qno) < CHECK_QUERIES)
+    rows_mat, counts, qno = rows_mat[sel], np.asarray(counts)[sel], np.asarray(qno)[sel]
+    rows_t = torch.from_numpy(np.ascontiguousarray(rows_mat, dtype=np.int64)).cuda()
+    k = rows_t.shape[1]
+    q_rows = q_dev[torch.from_numpy(np.asarray(qno, dtype=np.int64)).cuda()].double()
+    prods = rows_ref[rows_t.reshape(-1)].double().view(rows_t.shape[0], k, -1) * q_rows[:, None, :]
+    dots, tol = prods.sum(-1), sum_order_tol(prods.abs().sum(-1), dim)
+    if op == "first" or k == 1:
+        return dots[:, 0], tol[:, 0], sel
+    valid = torch.arange(k, device="cuda")[None, :] < torch.from_numpy(counts).cuda()[:, None]
+    return (torch.where(valid, dots, -torch.inf).amax(1),
+            torch.where(valid, tol, 0.0).amax(1), sel)
+
+
+def check_pairs(got: np.ndarray, ref_tol_sel, what) -> float:
+    """The checked pairs' scores against their float64 reference and
+    tolerance (``pairs_exact``)."""
+    ref, tol, sel = ref_tol_sel
+    check(len(sel) > 0 and bool(np.isfinite(got).all()), f"{what}: no checked pairs, or non-finite scores")
+    err = (torch.from_numpy(np.asarray(got, dtype=np.float64)[sel]).cuda() - ref).abs()
+    check(bool((err <= tol).all()), f"{what}: max err {err.max().item():.3e} against float64")
+    return err.max().item()
+
+
+def sharded_phase(index, pq_index, ranking, doc_rank, sparse, corpus, corpus_dev, qvecs_dev,
+                  wrappers, launches, rates) -> dict:
+    """Phase 25: sharded scoring on the card in one process, two shards on
+    ``cuda:0`` (``MeshConfig(data=1, shard=2).build(devices=[cuda:0,
+    cuda:0])``): ``streamed_scores_sharded`` on the flagship fp32 table
+    split in two with the flagship run's rows (K1 once per shard) and with
+    phase 12's MAXP layout and its K-reduce; ``score_pairs_sharded`` on the
+    3,200-pair sparse run (no kernel); ``streamed_scores_sharded_pq`` on
+    phase 9's PQ codes (K3 once per shard); each against the single-table
+    program and float64, and timed beside it (CUDA events)."""
+    from fastforward_tpu_torch import Mode
+    from fastforward_tpu_torch.ops import scoring
+    from fastforward_tpu_torch.parallel import MeshConfig, multihost, sharded
+
+    mesh = MeshConfig(data=1, shard=2).build(devices=["cuda:0", "cuda:0"])
+    view = index._device_view()
+    n_pad = view.table.shape[0]
+    t0 = time.perf_counter()
+    table = multihost.put_row_sharded(mesh, corpus, shape=(n_pad, DIM))
+    torch.cuda.synchronize()
+    flows = {"sharded_setup": {"upload_s": time.perf_counter() - t0, "n_local": table.n_local}}
+    log(f"[sharded] {mesh}; the flagship table in 2 shards of {table.n_local} rows, uploaded in "
+        f"{flows['sharded_setup']['upload_s']:.2f} s")
+
+    def run_sharded(label, fn, single, want_counts, ref_tol):
+        reset_counts(wrappers)
+        got = fn()
+        torch.cuda.synchronize()
+        counts = read_counts(wrappers)
+        launches[f"sharded_{label}"] = counts
+        check(counts == {k: want_counts.get(k, 0) for k in counts},
+              f"sharded {label} launches {counts}, want {want_counts}")
+        want = single()
+        torch.cuda.synchronize()
+        err_single = float(np.abs(np.asarray(scoring.fetch_np(got), dtype=np.float64)
+                                  - np.asarray(scoring.fetch_np(want), dtype=np.float64)).max())
+        err = check_pairs(np.asarray(scoring.fetch_np(got)), ref_tol, f"sharded {label}")
+        flows[f"sharded_{label}"] = {
+            "ms": median_ms(fn, WARM_CALLS), "single_table_ms": median_ms(single, WARM_CALLS),
+            "launches": counts, "max_err_float64": err, "max_diff_single_table": err_single,
+        }
+        log(f"[sharded {label}] {json.dumps(flows[f'sharded_{label}'])}")
+
+    # passage: the flagship run's rows, one K1 launch a shard (the plans of
+    # phases 3 and 12 are made again: later phases' plans evict them)
+    index.mode = Mode.PASSAGE
+    index(ranking)
+    plan = index._get_plan(ranking)
+    q_pad = index._pad_queries(index.encode_queries(plan["queries"]), view)
+    rows, qno = plan["rows_mat"][:, 0].astype(np.int64), plan["pair_qno"]
+    # the plan numbers queries by first appearance: its query block is the reference's
+    ref = pairs_exact(corpus_dev, torch.from_numpy(q_pad).cuda(), plan["rows_mat"], plan["counts_pp"],
+                      qno, "first", DIM)
+    sh_plan: dict = {}
+    one_plan: dict = {}  # the single table's layout, kept as the sharded one is
+    run_sharded(
+        "passage",
+        lambda: sharded.streamed_scores_sharded(mesh, table, q_pad, rows, qno, precision="high",
+                                                plan=sh_plan, fetch=False),
+        lambda: scoring.streamed_scores(view.table, q_pad, rows, qno, precision="high", plan=one_plan,
+                                        fetch=False),
+        {"stream_select_pairwise": 2}, ref,
+    )
+    # MAXP: phase 12's layout with the K-reduce after the combine
+    index.mode = Mode.MAXP
+    index(doc_rank)
+    dplan = index._get_plan(doc_rank)
+    k = dplan["k"]
+    rows_d = dplan["rows_mat"].reshape(-1).astype(np.int64)
+    qno_d = np.repeat(dplan["pair_qno"], k)
+    counts_dev = torch.from_numpy(dplan["counts_pp"].astype(np.int32)).cuda()
+    q_doc = index._pad_queries(index.encode_queries(dplan["queries"]), view)
+    ref_d = pairs_exact(corpus_dev, torch.from_numpy(q_doc).cuda(), dplan["rows_mat"],
+                        dplan["counts_pp"], dplan["pair_qno"], "max", DIM)
+    sh_doc: dict = {}
+    one_doc: dict = {}
+    run_sharded(
+        "doc_maxp",
+        lambda: sharded.streamed_scores_sharded(mesh, table, q_doc, rows_d, qno_d, precision="high",
+                                                plan=sh_doc, reduce=("max", k, counts_dev),
+                                                fetch=False),
+        lambda: scoring.streamed_scores(view.table, q_doc, rows_d, qno_d, precision="high",
+                                        plan=one_doc, reduce=("max", k, counts_dev), fetch=False),
+        {"stream_select_pairwise": 2}, ref_d,
+    )
+    index.mode = Mode.PASSAGE
+    # the sparse run: the gather path on each shard's rows, no kernel
+    sp = index._candidate_arrays(sparse._df)
+    _, sp_rows, sp_counts, sp_k = sp
+    sp_qno = sparse._df["q_id"].map(lambda q: int(q[1:])).to_numpy(dtype=np.int64)
+    q_sp = np.zeros((scoring.bucket(QUERIES), DIM), dtype=np.float32)
+    q_sp[:QUERIES] = qvecs_dev.cpu().numpy()
+    idx = np.zeros((sp_k + 1, scoring.bucket(sp_rows.shape[0])), dtype=np.int32)
+    idx[:sp_k, : sp_rows.shape[0]] = sp_rows.T
+    idx[sp_k, : sp_rows.shape[0]] = (sp_qno.astype(np.int32) << 8) | sp_counts
+    ref_s = pairs_exact(corpus_dev, qvecs_dev, sp_rows, sp_counts, sp_qno, "first", DIM)
+    run_sharded(
+        "sparse",
+        lambda: sharded.score_pairs_sharded(mesh, table, q_sp, idx, "first", precision="high"),
+        lambda: scoring.score_pairs_grouped(view.table, torch.from_numpy(q_sp).cuda(),
+                                            torch.from_numpy(idx).cuda(), "first", precision="high"),
+        {}, ref_s,
+    )
+    del table, sh_plan, sh_doc
+    torch.cuda.empty_cache()
+    # phase 9's PQ codes in two shards: one K3 launch a shard
+    pq_view = pq_index._device_view()
+    codes = pq_index._store[:N]
+    pq_table = multihost.put_row_sharded(mesh, codes, shape=(pq_view.table.shape[0], codes.shape[1]))
+    pq_cb = multihost.put_replicated(mesh, np.asarray(pq_index.quantizer.codewords, dtype=np.float32))
+    pq_index.mode = Mode.PASSAGE
+    pq_index(ranking)
+    pq_plan = pq_index._get_plan(ranking)
+    q_pq = pq_index._pad_queries(pq_index.encode_queries(pq_plan["queries"]), pq_view)
+    pq_rows_, pq_qno = pq_plan["rows_mat"][:, 0].astype(np.int64), pq_plan["pair_qno"]
+    ref_pq = pairs_exact(pq_rows(codes, pq_index.quantizer.codewords), torch.from_numpy(q_pq).cuda(),
+                         pq_plan["rows_mat"], pq_plan["counts_pp"], pq_qno, "first", DIM)
+    sh_pq: dict = {}
+    one_pq: dict = {}
+    run_sharded(
+        "pq",
+        lambda: sharded.streamed_scores_sharded_pq(mesh, pq_table, pq_cb, q_pq, pq_rows_, pq_qno,
+                                                   plan=sh_pq, fetch=False),
+        lambda: scoring.streamed_scores_pq(pq_view.table, pq_view.codebooks, q_pq, pq_rows_, pq_qno,
+                                           plan=one_pq, fetch=False),
+        {"stream_select_pq_pairwise": 2}, ref_pq,
+    )
+    del pq_table
+    torch.cuda.empty_cache()
+    return flows
+
+
+def multiprocess_child(rank: int, port: int, n: int) -> int:
+    """One of phase 26's two processes (``chip_smoke.py --multiprocess-child
+    RANK PORT N``): joins the gloo job, builds ``InMemoryIndex(mesh_config=
+    MeshConfig(data=1, shard=2))`` over the flagship corpus (its card is its
+    whole local device set, so the mesh has two devices, one a process),
+    ``preload()`` then ``narrow_to_shard()``, then the passage re-rank,
+    ``serve()`` and MAXP, each checked against float64; prints
+    ``MP_RESULT {json}`` with its K1 launches, times and digest."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from fastforward_tpu_torch import InMemoryIndex, Mode, Ranking
+    from fastforward_tpu_torch.encoder import LambdaEncoder
+    from fastforward_tpu_torch.ops import stream_kernel as sk
+    from fastforward_tpu_torch.ops import stream_kernel_pq as skpq
+    from fastforward_tpu_torch.parallel import MeshConfig, multihost
+
+    wrappers = {"stream_select_pairwise": sk.stream_select_pairwise, "stream_select": sk.stream_select,
+                "stream_select_pq_pairwise": skpq.stream_select_pq_pairwise,
+                "stream_select_pq": skpq.stream_select_pq}
+    torch.backends.cuda.matmul.allow_tf32 = True
+    multihost.initialize(f"localhost:{port}", num_processes=2, process_id=rank, backend="gloo")
+    t0 = time.perf_counter()
+    corpus, qvecs, run, queries = make_workload(n, QUERIES, DEPTH, SEED)
+    doc_counts, doc_starts, doc_ids = make_doc_ids(n, SEED + 3)
+    doc_run = make_run(doc_counts.shape[0], "d", QUERIES, DEPTH, SEED + 4)
+    by_text = {f"query {i}": qvecs[i] for i in range(QUERIES)}
+    q_index = {f"q{i}": i for i in range(QUERIES)}
+    data_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    index = InMemoryIndex(query_encoder=LambdaEncoder(by_text.__getitem__), mode=Mode.PASSAGE,
+                          precision="high", mesh_config=MeshConfig(data=1, shard=2))
+    index.add(corpus, doc_ids=doc_ids, psg_ids=[f"p{i}" for i in range(n)])
+    add_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    check(index.preload(), "preload found no table")
+    preload_s = time.perf_counter() - t0
+    table = index._device_view().table
+    check(table.local_shards() == [rank], f"process {rank} holds shards {table.local_shards()}")
+    before = index._store.nbytes
+    band = index.narrow_to_shard()
+    # the host keeps its shard's rows only: rows [rank * n_local, ...) of the padded table
+    check(band == (rank * table.n_local, min((rank + 1) * table.n_local, n))
+          and index._store.shape[0] == band[1] - band[0],
+          f"process {rank} narrowed to rows {band}, {index._store.nbytes} of {before} B")
+    # the float64 references read the checked rows from the host corpus
+    rows_ref = DecodedRows(lambda rows: torch.from_numpy(corpus[rows.cpu().numpy()]).cuda())
+    qvecs_dev = torch.from_numpy(qvecs).cuda()
+    exact_p = passage_exact(rows_ref, qvecs_dev, q_index, DIM)
+    exact_d = doc_exact(rows_ref, qvecs_dev, q_index, doc_counts, doc_starts, "max", DIM)
+    ranking = Ranking.from_run(run, queries=queries)
+    doc_rank = Ranking.from_run(doc_run, queries=queries)
+    result = {"rank": rank, "band": list(band), "data_s": data_s, "add_s": add_s,
+              "preload_s": preload_s, "host_bytes": [before, index._store.nbytes]}
+    digest = []
+    reset_counts(wrappers)
+    for label, mode, rk, rn, exact in (("rerank", Mode.PASSAGE, ranking, run, exact_p),
+                                       ("doc_maxp", Mode.MAXP, doc_rank, doc_run, exact_d)):
+        index.mode = mode
+        t0 = time.perf_counter()
+        cold = index(rk)
+        torch.cuda.synchronize()
+        cold_ms = (time.perf_counter() - t0) * 1e3
+        warm_ms, warm = timed_calls(lambda: index(rk), WARM_CALLS)
+        check(cold == warm and len(warm._df) == len(rk._df), f"process {rank} {label} re-rank")
+        check_rerank(warm, exact, f"process {rank} {label} re-rank")
+        serve_ms, served = timed_calls(lambda: index.serve(rk, ALPHA, CUTOFF), WARM_CALLS)
+        check_serve(served, rn, exact, f"process {rank} {label} serve")
+        result[label] = {"cold_ms": cold_ms, "warm_ms": warm_ms, "serve_ms": serve_ms,
+                         "qps": QUERIES / warm_ms * 1e3, "serve_qps": QUERIES / serve_ms * 1e3}
+        df = warm._df
+        digest.append(round(float(df["score"].to_numpy(np.float64).sum()), 2))
+        digest.append(round(float(served._df["score"].to_numpy(np.float64).sum()), 3))
+    counts = read_counts(wrappers)
+    # one K1 launch a call (this process's shard): 2 flows x (1 + warm) re-ranks
+    # and warm serves
+    want = 2 * (1 + 2 * WARM_CALLS)
+    check(counts["stream_select_pairwise"] == want and sum(counts.values()) == want,
+          f"process {rank} launches {counts}, want {want} of K1")
+    result["launches"] = counts
+    result["digest"] = digest
+    import torch.distributed as dist
+
+    dist.barrier()
+    print("MP_RESULT " + json.dumps(result), flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
+def multiprocess_phase(n: int) -> dict:
+    """Phase 26: two processes on the card through the public API (each
+    ``multiprocess_child``), started with a time limit on one free local
+    port (a race for the port retries once on another); both must exit 0
+    with the same digest."""
+    import os
+    import socket
+
+    if n != N:
+        log(f"[multiprocess] N cut to {n} rows (the flagship's is {N}) by the time limit")
+    for attempt in range(2):
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        env = dict(os.environ, OMP_NUM_THREADS="4")
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--multiprocess-child",
+                                   str(rank), str(port), str(n)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True, env=env) for rank in (0, 1)]
+        outs = []
+        try:
+            for proc in procs:
+                outs.append(proc.communicate(timeout=MP_TIMEOUT_S)[0])
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        wall_s = time.perf_counter() - t0
+        raced = any(proc.returncode != 0 and ("EADDRINUSE" in out or "Address already in use" in out)
+                    for proc, out in zip(procs, outs))
+        if not raced or attempt == 1:
+            break
+    results = []
+    for rank, (proc, out) in enumerate(zip(procs, outs)):
+        lines = [ln for ln in out.splitlines() if ln.startswith("MP_RESULT ")]
+        if proc.returncode != 0 or len(lines) != 1:
+            log(f"[multiprocess] process {rank} output:\n" + "\n".join(out.splitlines()[-40:]))
+        check(proc.returncode == 0 and len(lines) == 1,
+              f"multiprocess child {rank} exited {proc.returncode}")
+        results.append(json.loads(lines[0][len("MP_RESULT "):]))
+        for ln in out.splitlines():
+            if ln.startswith("  process"):
+                log(ln)
+    check(results[0]["digest"] == results[1]["digest"],
+          f"the two processes' digests differ: {results[0]['digest']} vs {results[1]['digest']}")
+    log(f"[multiprocess] both processes exit 0 with digest {results[0]['digest']} in {wall_s:.1f} s: "
+        f"{json.dumps(results)}")
+    return {"wall_s": wall_s, "n": n, "processes": results}
 
 
 def main() -> int:
@@ -2516,7 +2962,8 @@ def main() -> int:
     variants["stream_select_pairwise"] += [doc_row, unpadded]
     log(f"  K-padding: {doc_row['ms']:.4f} ms padded ({cand_d.numel()} slots) against "
         f"{unpadded['ms']:.4f} ms for the real rows alone ({real_layout[0].numel()} slots)")
-    del index, table, table3, t8, corpus_dev, main_inputs, cand3, tile_idx, q_dev, plan
+    # the flagship index and the corpus on the card stay for phase 25
+    del table, table3, t8, main_inputs, cand3, tile_idx, q_dev, plan
     del doc_plan, doc_inputs, cand_d, tile_d, q_d, real_layout, real_plan, exact_p, exact_doc
     torch.cuda.empty_cache()
 
@@ -2711,11 +3158,28 @@ def main() -> int:
         q_arg = q_m if kname == "stream_select_pq_pairwise" else q_m.t()
         split_call(row, lambda call=call, c=codes_m, cb=cb_m, q=q_arg, cd=cand_m, t=tile_m: call(
             c, cb, q, cd, t), CALL_KERNELS["adc"])
+
+    # -- 24. PQ codes wider than uint8: PQ(96, 1024) (K3, K4), its hybrid tier ------------
+    flows.update(pq_wide_phase(corpus, doc_ids, psg_ids, by_text, ranking, doc_rank, run, doc_run,
+                               q_index, qvecs_dev, doc_counts, doc_starts, wrappers, launches, rates,
+                               held))
+
+    # -- 25. sharded scoring on the card, one process, two shards (K1, K3) -----------------
+    flows.update(sharded_phase(index, pq_index, ranking, doc_rank, sparse, corpus, corpus_dev,
+                               qvecs_dev, wrappers, launches, rates))
+    del index, corpus_dev
+    torch.cuda.empty_cache()
+
+    # -- 26. two processes on the card through the public API (K1) ---------------------
+    flows["multiprocess"] = multiprocess_phase(MP_N)
+    for res in flows["multiprocess"]["processes"]:
+        launches[f"multiprocess_rank{res['rank']}"] = res["launches"]
+
     small_by_kernel = {"stream_select_pairwise": "K1", "stream_select": "K2",
                        "stream_select_pq_pairwise": "K3", "stream_select_pq": "K4"}
-    vet_profiles(flows, variants)
     for kname, rows_k in held.items():
         variants[kname] += rows_k
+    vet_profiles(flows, variants)
 
     summary = []
     for kname, (source, replaces) in KERNELS.items():
@@ -2757,4 +3221,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 5 and sys.argv[1] == "--multiprocess-child":
+        if not torch.cuda.is_available():
+            print("chip_smoke: no CUDA device is available", file=sys.stderr)
+            sys.exit(2)
+        sys.exit(multiprocess_child(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4])))
     sys.exit(main())

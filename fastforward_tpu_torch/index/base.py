@@ -1,6 +1,6 @@
-"""The index layer: vector store + scoring engine on one device.
+"""The index layer: vector store + scoring engine.
 
-The port of the ``fastforward_tpu/index/base.py`` single-device paths:
+The port of ``fastforward_tpu/index/base.py``:
 re-rank (``__call__``, ``submit``, with ``batch_size`` and early stopping),
 fused serve (``serve``, ``submit_serve``, with early stopping), the merged
 array path a ``BatchingServer`` drives (``_serve_prep``, ``_serve_arrays``)
@@ -23,10 +23,16 @@ its scores come back to the host, and the serve tail runs on them on the
 device.  ``preload(progressive=True)`` installs a truncated table first and
 the exact one from a background thread (``preload_join``).
 
+A table row-sharded over a mesh of devices (``mesh_config``) scores
+through the sharded programs (``parallel.sharded``): the streamed path one
+kernel launch per shard, the gather path per position, documents with more
+than 64 passages in chunks of 64; a mesh serves fused, without the refine
+rescore (single device only), and under several processes the server's
+array path steps aside.
+
 Everything runs on the device of the index's table: the card by default,
 the CPU when the caller asks for it (the plain versions of the kernels
-then run).  Features outside the port so far raise ``NotImplementedError``
-naming the ROADMAP item that brings them.
+then run).
 """
 
 import abc
@@ -50,6 +56,9 @@ from fastforward_tpu_torch.encoder.base import Encoder
 from fastforward_tpu_torch.index.mode import GROUPED_OP, REDUCE_OP, Mode
 from fastforward_tpu_torch.index.util import expand_pairs, expand_pairs_grouped
 from fastforward_tpu_torch.ops.scoring import _cached_q_upload
+from fastforward_tpu_torch.parallel import sharded
+from fastforward_tpu_torch.parallel.mesh import Mesh
+from fastforward_tpu_torch.parallel.sharded import Replicated, ShardedTable
 from fastforward_tpu_torch.quantizer import OPQ, Quantizer
 from fastforward_tpu_torch.ranking import Ranking
 from fastforward_tpu_torch.utils.tracing import annotate
@@ -61,14 +70,6 @@ IDSequence = Sequence[str | None]
 #: the grouped gather packs a query number into 22 bits (``qno << 8 |
 #: count``); more queries than this take the flat segment path
 _MAX_PACKED_QUERIES = 1 << 22
-
-
-def not_ported(what: str, item: str) -> NotImplementedError:
-    """The error for a feature of ``fastforward_tpu`` the port lacks yet."""
-    return NotImplementedError(
-        f"{what} is not ported to fastforward_tpu_torch yet "
-        f"(ROADMAP.md, Queue 1 item {item})"
-    )
 
 
 def check_ids(
@@ -100,18 +101,24 @@ class DeviceView:
     zero-padded ``(N_pad, dim)`` fp32 or bf16 table; ``"scalar"`` against
     int8 codes (``(N_pad, dim/128, 128)`` when ``dim % 128 == 0``, else
     ``(N_pad, dim)``) with the per-dimension ``scales`` folded into the
-    queries; ``"pq"`` against ``(N_pad, M)`` uint8 PQ codes and their fp32
+    queries; ``"pq"`` against ``(N_pad, M)`` PQ codes (uint8, or uint16 and
+    uint32 for Ks > 256) and their fp32
     ``codebooks`` ``(M, Ks, Ds)`` (ADC; OPQ's rotation is folded into the
     queries); ``"hybrid"`` against a device-resident prefix (``table``, laid
     out as the ``hybrid_kind`` table is) and a host-RAM tail streamed in
     candidate blocks (``ops.host_stream``: the tier beyond device memory).
+    When ``mesh`` is set the table (for ``"hybrid"``, its prefix) is a
+    ``parallel.sharded.ShardedTable`` row-sharded over the mesh's ``shard``
+    axis, the codebooks are replicated, and scoring runs the sharded
+    programs (``fastforward_tpu_torch.parallel.sharded``).
     """
 
     kind: str
-    table: torch.Tensor
+    table: "torch.Tensor | ShardedTable"
     precision: str = "exact"
-    codebooks: torch.Tensor | None = None
+    codebooks: "torch.Tensor | Replicated | None" = None
     scales: np.ndarray | None = None
+    mesh: "Mesh | None" = None
     #: hybrid tier: the host tail ``(N - tail_start, width)``, the global
     #: row where it starts, the rows of a streamed block, and the device
     #: bytes that may keep tail blocks resident across calls
@@ -140,6 +147,7 @@ def build_hybrid_view(
     kind: str = "dense",
     codebooks: np.ndarray | None = None,
     scales: np.ndarray | None = None,
+    mesh: "Mesh | None" = None,
 ) -> "DeviceView | None":
     """Build a hybrid view beyond device memory, or ``None`` when the table
     fits ``hbm_budget``.
@@ -158,8 +166,8 @@ def build_hybrid_view(
     grouping scratch and, for K3/K4, their lookup tables (up to
     ``ops.stream_kernel_pq.ADC_TABLE_BYTES``).
 
-    :param data: Host rows, ``(num, width)``: vectors, int8 codes or uint8
-        PQ codes.
+    :param data: Host rows, ``(num, width)``: vectors, int8 codes or PQ
+        codes (uint8, uint16 or uint32: a row costs ``M * itemsize``).
     :param num: Number of real rows.
     :param dim: Vector dimensionality (for ``kind="pq"`` the code width is
         ``data.shape[1]``).
@@ -175,6 +183,12 @@ def build_hybrid_view(
     :param codebooks: PQ codebooks ``(M, Ks, Ds)`` fp32 (``kind="pq"``).
     :param scales: Per-dimension scales (``kind="scalar"``; folded into the
         queries).
+    :param mesh: When set, ``hbm_budget`` is per physical device (a device
+        that holds several shards splits it between them): the resident
+        prefix is row-sharded over the mesh's ``shard`` axis (capacity:
+        shards x budget on distinct devices) and scored by the sharded
+        programs; only a table beyond the whole mesh's budget streams a host
+        tail (single process).
     """
     from fastforward_tpu_torch.ops import host_stream
     from fastforward_tpu_torch.ops.upload import upload_table
@@ -198,16 +212,31 @@ def build_hybrid_view(
         stage_dtype = np.dtype(np.float32)
         row_shape = (dim,)
         table_dtype = torch.bfloat16 if bf16 else torch.float32
+    num_shards = mesh.shape["shard"] if mesh is not None else 1
+    # the budget is per physical device: a mesh that names a device twice
+    # holds two shards there, each charged its share
+    held = mesh.shards_per_device if mesh is not None else 1
     n_pad = -(-num // 4096) * 4096
-    if n_pad * row_bytes <= budget:
-        return None
-    resident = (int(budget * 0.7) // row_bytes) // 1024 * 1024
+    if n_pad * row_bytes * held <= budget * num_shards:
+        return None  # fits: the plain (possibly sharded) table
+    per_shard = (int(budget * 0.7) // held // row_bytes) // 1024 * 1024
+    resident = per_shard * num_shards
     if resident >= num:
         return None
-    res_dev = upload_table(
-        data[:resident], device, shape=(resident, *row_shape), dtype=table_dtype,
-        stage_dtype=stage_dtype,
-    )
+    if resident == 0:
+        mesh = None  # nothing to shard: an all-tail view is single-device
+    if mesh is not None:
+        from fastforward_tpu_torch.parallel.multihost import put_replicated, put_row_sharded
+
+        res_dev = put_row_sharded(
+            mesh, data[:resident], shape=(resident, *row_shape), dtype=table_dtype,
+            stage_dtype=stage_dtype,
+        )
+    else:
+        res_dev = upload_table(
+            data[:resident], device, shape=(resident, *row_shape), dtype=table_dtype,
+            stage_dtype=stage_dtype,
+        )
     tail = data[resident:num]
     if tail.dtype != stage_dtype or not tail.flags["C_CONTIGUOUS"]:
         tail = np.ascontiguousarray(tail, dtype=stage_dtype)
@@ -218,19 +247,37 @@ def build_hybrid_view(
     )
     cb_dev = None
     if kind == "pq":
-        cb_dev = torch.from_numpy(np.array(codebooks, dtype=np.float32)).to(device)
+        cb_np = np.array(codebooks, dtype=np.float32)
+        cb_dev = put_replicated(mesh, cb_np) if mesh is not None else torch.from_numpy(cb_np).to(device)
     return DeviceView(
         kind="hybrid",
         table=res_dev,
         precision=precision,
         codebooks=cb_dev,
         scales=scales,
+        mesh=mesh,
         host_tail=tail,
         tail_start=resident,
         chunk_rows=chunk_rows or host_stream.HOST_CHUNK_ROWS,
-        tail_cache_budget=max(0, budget - resident * row_bytes),
+        # the leftover budget caches tail blocks: per device, as the budget is
+        tail_cache_budget=max(0, budget - held * per_shard * row_bytes),
         hybrid_kind=kind,
     )
+
+
+def _multiprocess(view: DeviceView) -> bool:
+    """Whether the view's mesh spans several processes (their calls must
+    then run in one order, each through the collectives)."""
+    return view.mesh is not None and view.mesh.multiprocess
+
+
+def _synchronize(view: DeviceView) -> None:
+    """Wait for the work queued on the view's cards (each local device of
+    its mesh)."""
+    devices = view.mesh.local_devices if view.mesh is not None else [view.table.device]
+    for dev in devices:
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
 
 
 def _cat_from_codes(codes: np.ndarray, like: "pd.Categorical") -> "pd.Categorical":
@@ -861,8 +908,8 @@ class Index(abc.ABC):
             view = self._device_view()
         else:
             view = self._device_view()
-            if view is not None and view.table.device.type == "cuda":
-                torch.cuda.synchronize(view.table.device)
+            if view is not None:
+                _synchronize(view)
             stats["upload_s"] = perf_counter() - t0
         if view is None:
             return False
@@ -912,6 +959,9 @@ class Index(abc.ABC):
             LOGGER.info("warming the scoring path for Q=%d depth=%d", num_q, depth)
             serve_thread: "threading.Thread | None" = None
             serve_err: list[BaseException] = []
+            # several processes run their collectives in one order: the
+            # serve warm then follows the re-rank warm instead of overlapping
+            concurrent = not _multiprocess(view)
             if serve is not None:
                 # a ranking of its own (a fresh frame, so a fresh plan key):
                 # the two warms never share a plan
@@ -932,18 +982,20 @@ class Index(abc.ABC):
                         stats["warm_serve_s"] = perf_counter() - t0
 
                 serve_thread = threading.Thread(target=_serve_warm, name="ff-preload-serve-warm")
-                serve_thread.start()
+                if concurrent:
+                    serve_thread.start()
             t0 = perf_counter()
             try:
                 self(ranking)
             finally:
                 stats["warm_rerank_s"] = perf_counter() - t0
                 if serve_thread is not None:
+                    if not concurrent:
+                        serve_thread.start()
                     serve_thread.join()
             if serve_err:
                 raise serve_err[0]
-            if table.device.type == "cuda":
-                torch.cuda.synchronize(table.device)
+            _synchronize(view)
         finally:
             self._query_encoder = encoder
             self._plans.pop((id(ranking._df), self._mode), None)
@@ -1046,6 +1098,8 @@ class Index(abc.ABC):
         )
         if (streamable_dense or streamable_pq) and table.shape[0] % ops.KERNEL_TILE_ROWS == 0:
             layout_key = "stream_pq" if streamable_pq else "stream"
+            if view.mesh is not None:
+                layout_key = "stream_sharded_pq" if streamable_pq else "stream_sharded"
             reduce = None
             if plan is not None and layout_key in plan:
                 # the plan holds the layout: the flat candidate arrays are
@@ -1063,7 +1117,17 @@ class Index(abc.ABC):
                     if plan is not None:
                         plan["counts_dev"] = counts_dev
                 reduce = (op, k, counts_dev)
-            if streamable_pq:
+            if streamable_pq and view.mesh is not None:
+                row_scores = sharded.streamed_scores_sharded_pq(
+                    view.mesh, table, view.codebooks, q_pad, rows_flat, qno_flat, plan=plan,
+                    reduce=reduce, precision=view.precision, fetch=fetch,
+                )
+            elif view.mesh is not None:
+                row_scores = sharded.streamed_scores_sharded(
+                    view.mesh, table, q_pad, rows_flat, qno_flat, precision=view.precision,
+                    plan=plan, reduce=reduce, fetch=fetch,
+                )
+            elif streamable_pq:
                 row_scores = ops.streamed_scores_pq(
                     table,
                     view.codebooks,
@@ -1097,6 +1161,7 @@ class Index(abc.ABC):
 
         if (
             k == 1
+            and view.mesh is None
             and view.kind in ("dense", "scalar")
             and (n_pairs == 0 or (np.diff(pair_qno) >= 0).all())
         ):
@@ -1130,9 +1195,21 @@ class Index(abc.ABC):
                 idx = np.zeros((k + 1, ops.bucket(n_pairs)), dtype=np.int32)
                 idx[:k, :n_pairs] = rows_mat.T
                 idx[k, :n_pairs] = (pair_qno.astype(np.int32) << 8) | counts_pp
-                idx_dev = torch.from_numpy(idx).to(table.device)
+                # a sharded table's positions each take their own rows:
+                # the host array stays in the plan
+                idx_dev = idx if view.mesh is not None else torch.from_numpy(idx).to(table.device)
                 if plan is not None:
                     plan["grouped_idx"] = idx_dev
+            if view.mesh is not None:
+                if view.kind == "pq":
+                    scores = sharded.score_pairs_sharded_pq(
+                        view.mesh, table, view.codebooks, q_pad, idx_dev, op
+                    )
+                else:
+                    scores = sharded.score_pairs_sharded(
+                        view.mesh, table, q_pad, idx_dev, op, precision=view.precision
+                    )
+                return scores if not fetch else ops.fetch_np(scores)[:n_pairs]
             q_dev = _cached_q_upload(q_pad, plan, "q_dev", table.device)
             if view.kind == "pq":
                 scores = ops.score_pairs_grouped_pq(table, view.codebooks, q_dev, idx_dev, op)
@@ -1179,6 +1256,15 @@ class Index(abc.ABC):
                 total /= np.maximum(np.bincount(seg, minlength=n_pairs), 1)
             return total.astype(np.float32)
         s_bucket = ops.bucket(n_pairs)
+        if view.mesh is not None:
+            # per-row scores over the shards, then the segment reduce
+            row_scores = sharded.row_scores_sharded(
+                view.mesh, view.table, self._pad_queries(query_vectors, view), rows, qno,
+                view.precision, codebooks=view.codebooks if view.kind == "pq" else None,
+            )
+            seg_dev = torch.from_numpy(np.asarray(seg, dtype=np.int64)).to(row_scores.device)
+            scores = ops.scoring._segment_reduce(row_scores, seg_dev, s_bucket, op)
+            return scores if not fetch else ops.fetch_np(scores)[:n_pairs]
         idx = np.zeros((3, ops.bucket(rows.shape[0])), dtype=np.int32)
         idx[0, : rows.shape[0]] = rows
         idx[1, : qno.shape[0]] = qno
@@ -1218,6 +1304,7 @@ class Index(abc.ABC):
             reduce=reduce_spec,
             kind=view.hybrid_kind,
             codebooks=view.codebooks,
+            mesh=view.mesh,
         )
 
     @staticmethod
@@ -2100,7 +2187,8 @@ class Index(abc.ABC):
         # (cutoff + margin) per query (fast-tier indexes still get exact
         # final scores) -- dense tables only; quantized tables serve without
         # it, as in fastforward_tpu
-        refine_live = refine is not None and k == 1 and view.kind == "dense"
+        # (single device only: a mesh serves without it, as fastforward_tpu)
+        refine_live = refine is not None and k == 1 and view.kind == "dense" and view.mesh is None
         scoring_view = (
             dataclasses.replace(view, precision="fast") if refine_live else view
         )
@@ -2217,7 +2305,10 @@ class Index(abc.ABC):
         :meth:`submit_serve`.
         """
         df = ranking._df
-        if not len(df) or self._device_view() is None:
+        view = self._device_view() if len(df) else None
+        if view is None or _multiprocess(view):
+            # several processes must run every call in the same order: the
+            # server serves such requests through submit_serve
             return None
         with annotate("ff.prep"):
             prep = self._candidate_arrays(df)
@@ -2285,7 +2376,7 @@ class Index(abc.ABC):
         through the array path (the caller then serves per request).
         """
         view = self._device_view()
-        if view is None:
+        if view is None or _multiprocess(view):
             return None
         device = view.table.device
         k = max(p["k"] for p in preps)
@@ -2303,7 +2394,7 @@ class Index(abc.ABC):
         pair_qno = np.concatenate([p["pair_qno"] + off for p, off in zip(preps, q_offs)])
         query_vectors = self.encode_queries([q for p in preps for q in p["queries"]])
 
-        refine_live = refine is not None and view.kind == "dense" and k == 1
+        refine_live = refine is not None and view.kind == "dense" and k == 1 and view.mesh is None
         scoring_view = dataclasses.replace(view, precision="fast") if refine_live else view
         # a plan of the batch's own: concurrent batches share nothing
         plan: dict = {"_call_tok": 1}

@@ -31,10 +31,17 @@ import torch
 import fastforward_tpu_torch
 from fastforward_tpu_torch.device import resolve_device
 from fastforward_tpu_torch.encoder.base import Encoder
-from fastforward_tpu_torch.index.base import DeviceView, IDSequence, Index, not_ported
-from fastforward_tpu_torch.index.memory import InMemoryIndex, build_view, hybrid_view
+from fastforward_tpu_torch.index.base import DeviceView, IDSequence, Index
+from fastforward_tpu_torch.index.memory import (
+    InMemoryIndex,
+    _padded_rows,
+    build_view,
+    device_view,
+    hybrid_view,
+)
 from fastforward_tpu_torch.index.mode import Mode
-from fastforward_tpu_torch.quantizer import PQ, Quantizer
+from fastforward_tpu_torch.parallel.mesh import MeshConfig, process_count
+from fastforward_tpu_torch.quantizer import PQ, Quantizer, ScalarQuantizer
 
 LOGGER = logging.getLogger(__name__)
 
@@ -54,11 +61,16 @@ def _h5py():
     return h5py
 
 
-def _check_options(precision: str, mesh_config) -> None:
-    if mesh_config is not None:
-        raise not_ported("mesh_config (multi-device tables)", "14")
+def _check_options(precision: str, mesh_config, hbm_budget) -> None:
     if precision not in ("exact", "high", "fast"):
         raise ValueError(f"precision must be 'exact', 'high' or 'fast', got {precision!r}")
+    if hbm_budget is not None and mesh_config is not None and process_count() > 1:
+        raise ValueError(
+            "hbm_budget + mesh_config (the sharded hybrid tier) is single-process "
+            "only: the host tail streams through this process's devices.  Several "
+            "processes shard the whole table instead (each reads its shards' rows "
+            "from HDF5)."
+        )
 
 
 class OnDiskIndex(Index):
@@ -79,7 +91,7 @@ class OnDiskIndex(Index):
         max_indexing_size: int = 2**10,
         hbm_cache: bool = False,
         precision: str = "exact",
-        mesh_config=None,
+        mesh_config: "MeshConfig | None" = None,
         hbm_budget: int | None = None,
         stream_chunk_rows: int | None = None,
         score_transport: str = "f32",
@@ -101,7 +113,9 @@ class OnDiskIndex(Index):
         :param hbm_cache: Upload the full table to the index's device on
             the first scoring call (invalidated by ``add``).
         :param precision: Scoring precision tier (see ``InMemoryIndex``).
-        :param mesh_config: Must be ``None`` (not ported yet).
+        :param mesh_config: With ``hbm_cache``, row-shard the table over a
+            mesh of devices (see ``InMemoryIndex``); under several processes
+            each reads only its shards' rows from the file.
         :param hbm_budget: With ``hbm_cache``, the scoring-memory budget in
             bytes: a larger table is served from the hybrid tier (a
             resident prefix and a host tail streamed in blocks, see
@@ -116,11 +130,12 @@ class OnDiskIndex(Index):
         :raises RuntimeError: When the device is CUDA and none is available.
         """
         h5py = _h5py()
-        _check_options(precision, mesh_config)
+        _check_options(precision, mesh_config, hbm_budget)
         index_file = Path(index_file)
         if index_file.exists() and not overwrite:
             raise ValueError(f"File {index_file} exists.")
         self._device = resolve_device(device)
+        self._mesh = mesh_config.build(device=self._device) if mesh_config else None
         self._index_file = index_file.absolute()
         self._init_size = init_size
         self._chunk_size = chunk_size
@@ -337,18 +352,62 @@ class OnDiskIndex(Index):
                 num = len(self)
                 if num == 0:
                     return None
-                with _h5py().File(self._index_file, "r") as fp:
-                    raw = fp["vectors"][:num]
-                view = None
-                if self._hbm_budget is not None:
-                    view = hybrid_view(
-                        raw, self._quantizer, self._device, self._hbm_budget,
-                        self._precision, self._stream_chunk_rows,
-                    )
+                view = self._lazy_sharded_view(num)
                 if view is None:
-                    view = build_view(raw, self._quantizer, self._device, precision=self._precision)
+                    with _h5py().File(self._index_file, "r") as fp:
+                        raw = fp["vectors"][:num]
+                    if self._hbm_budget is not None:
+                        view = hybrid_view(
+                            raw, self._quantizer, self._device, self._hbm_budget,
+                            self._precision, self._stream_chunk_rows, mesh=self._mesh,
+                        )
+                if view is None:
+                    view = build_view(
+                        raw, self._quantizer, self._device, precision=self._precision,
+                        mesh=self._mesh,
+                    )
                 self._dev_view = view
             return self._dev_view
+
+    def _lazy_sharded_view(self, num: int) -> "DeviceView | None":
+        """Under several processes, the sharded table read straight from
+        the file, shard by shard: each process reads only its shards' rows,
+        so the whole table never sits in one host's memory (dense vectors,
+        int8 codes, PQ codes; the codebooks replicate).  ``None`` in one
+        process, with ``hbm_budget``, for another quantizer, or where the
+        rows are not whole 128-lane rows."""
+        from fastforward_tpu_torch.parallel.multihost import put_row_sharded_lazy
+
+        mesh = self._mesh
+        if mesh is None or not mesh.multiprocess or self._hbm_budget is not None:
+            return None
+        is_pq = isinstance(self._quantizer, PQ)
+        is_scalar = isinstance(self._quantizer, ScalarQuantizer)
+        if self._quantizer is not None and not (is_pq or is_scalar):
+            return None
+        with _h5py().File(self._index_file, "r") as fp:
+            width = fp["vectors"].shape[1]
+            stored = fp["vectors"].dtype
+        if not is_pq and width % 128:
+            return None
+        n_pad = _padded_rows(num, mesh)
+        if is_pq:
+            shape, dtype = (n_pad, width), stored
+        elif is_scalar:
+            shape, dtype = (n_pad, width // 128, 128), np.dtype(np.int8)
+        else:
+            shape, dtype = (n_pad, width), np.dtype(np.float32)
+        path = self._index_file
+
+        def read_rows(start: int, stop: int) -> np.ndarray:
+            hi = min(stop, num)
+            if hi <= start:
+                return np.zeros((0, width), dtype=dtype)
+            with _h5py().File(path, "r") as fp:
+                return np.asarray(fp["vectors"][start:hi], dtype=dtype)
+
+        table = put_row_sharded_lazy(mesh, shape, dtype, read_rows)
+        return device_view(table, self._quantizer, self._precision, mesh=mesh)
 
     # -- conversion / loading ------------------------------------------------
 
@@ -393,7 +452,7 @@ class OnDiskIndex(Index):
         max_indexing_size: int = 2**10,
         hbm_cache: bool = False,
         precision: str = "exact",
-        mesh_config=None,
+        mesh_config: "MeshConfig | None" = None,
         hbm_budget: int | None = None,
         stream_chunk_rows: int | None = None,
         score_transport: str = "f32",
@@ -411,7 +470,9 @@ class OnDiskIndex(Index):
         :param hbm_cache: Upload the table to the index's device for
             scoring.
         :param precision: Scoring precision tier (see ``InMemoryIndex``).
-        :param mesh_config: Must be ``None`` (not ported yet).
+        :param mesh_config: With ``hbm_cache``, row-shard the table over a
+            mesh of devices (see ``InMemoryIndex``); under several processes
+            each reads only its shards' rows from the file.
         :param hbm_budget: With ``hbm_cache``, the scoring-memory budget in
             bytes (the hybrid tier beyond it).
         :param stream_chunk_rows: Rows of a streamed tail block.
@@ -423,11 +484,12 @@ class OnDiskIndex(Index):
         :return: The index.
         """
         h5py = _h5py()
-        _check_options(precision, mesh_config)
+        _check_options(precision, mesh_config, hbm_budget)
         index_file = Path(index_file)
         LOGGER.debug("reading file %s", index_file)
         index = cls.__new__(cls)
         index._device = resolve_device(device)
+        index._mesh = mesh_config.build(device=index._device) if mesh_config else None
         super(OnDiskIndex, index).__init__(
             query_encoder=query_encoder,
             quantizer=None,

@@ -5,8 +5,9 @@ canonical copy is one growable host array (vectors as added, or the
 quantizer's codes), and the scoring copy is a zero-padded table on the
 index's device, uploaded lazily in row chunks (``ops.upload``) and
 invalidated on ``add``: ``(N_pad, dim)`` fp32 or bf16 vectors; int8 codes,
-``(N_pad, dim/128, 128)`` when ``dim % 128 == 0``; or ``(N_pad, M)`` uint8 PQ
-codes with their fp32 codebooks beside them.  With ``hbm_budget`` a table
+``(N_pad, dim/128, 128)`` when ``dim % 128 == 0``; or ``(N_pad, M)`` PQ
+codes (uint8, or uint16/uint32 for Ks > 256) with their fp32 codebooks beside
+them.  With ``hbm_budget`` a table
 larger than the budget is served from the hybrid tier (a resident prefix
 and a host tail streamed in blocks, ``ops.host_stream``).
 
@@ -14,11 +15,18 @@ With ``store="device"`` each ``add`` ships only its own rows into a growable
 buffer on the device, which is the canonical copy and the scoring table at
 once: nothing is mirrored on the host, and host reads fetch rows back.
 
+With ``mesh_config`` the table is row-sharded over a mesh of devices
+(``parallel``): the device store grows shard by shard, the hybrid tier's
+budget is per device, and under several processes each process uploads
+only its shards' rows; :meth:`InMemoryIndex.narrow_to_shard` then frees the
+host rows outside them.
+
 ``preload(progressive=True)`` uploads a large dense fp32 table as two 16-bit
 planes (:class:`_ProgressiveUpload`).
 """
 
 import logging
+import math
 import threading
 from collections.abc import Iterable, Iterator
 
@@ -32,7 +40,6 @@ from fastforward_tpu_torch.index.base import (
     IDSequence,
     Index,
     build_hybrid_view,
-    not_ported,
 )
 from fastforward_tpu_torch.index.mode import Mode
 from fastforward_tpu_torch.ops.upload import (
@@ -42,6 +49,9 @@ from fastforward_tpu_torch.ops.upload import (
     upload_plane,
     upload_table,
 )
+from fastforward_tpu_torch.parallel.mesh import Mesh, MeshConfig, process_count
+from fastforward_tpu_torch.parallel.multihost import put_replicated, put_row_sharded
+from fastforward_tpu_torch.parallel.sharded import ShardedTable
 from fastforward_tpu_torch.quantizer import PQ, Quantizer, ScalarQuantizer
 
 LOGGER = logging.getLogger(__name__)
@@ -55,6 +65,22 @@ _ROW_PAD = 4096
 _MIN_PROGRESSIVE_BYTES = 512 << 20
 
 _DEVICE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _padded_rows(num: int, mesh: "Mesh | None" = None) -> int:
+    """Rows of a table of ``num`` rows: a multiple of ``_ROW_PAD`` (and of
+    the shard count on a mesh)."""
+    step = _ROW_PAD if mesh is None else math.lcm(_ROW_PAD, mesh.shape["shard"])
+    return -(-num // step) * step
+
+
+def _check_sharded_width(width: int, quantizer) -> None:
+    """Sharded vector and int8 tables need whole 128-lane rows.
+
+    :raises ValueError: Otherwise (as ``fastforward_tpu`` does).
+    """
+    if not isinstance(quantizer, PQ) and width % 128:
+        raise ValueError(f"Sharded tables require dim % 128 == 0 (got {width}); pad the embeddings.")
 
 
 def _sync(device: torch.device) -> None:
@@ -164,7 +190,7 @@ class InMemoryIndex(Index):
         init_size: int = 2**16,
         alloc_size: int = 2**16,
         device_dtype: str = "float32",
-        mesh_config=None,
+        mesh_config: "MeshConfig | None" = None,
         precision: str = "exact",
         store: str = "host",
         hbm_budget: int | None = None,
@@ -185,7 +211,11 @@ class InMemoryIndex(Index):
             (``"float32"`` or ``"bfloat16"``; ignored for quantized indexes).
             With ``store="device"`` the device buffer is the canonical copy,
             so bf16 rounds the stored vectors themselves.
-        :param mesh_config: Must be ``None`` (not ported yet).
+        :param mesh_config: When set, the table is row-sharded over a mesh
+            of devices (``parallel.MeshConfig``; its default devices follow
+            ``device``: the cards, or CPU slots) and scoring runs the
+            sharded programs; dense and int8 tables need ``dim % 128 ==
+            0``.
         :param precision: ``"exact"`` or ``"high"`` (true fp32 dots) or
             ``"fast"`` (bf16-rounded operands, fp32 accumulation); PQ
             tables at dense tiles take K4's tiers (``"high"`` rounds the
@@ -208,13 +238,28 @@ class InMemoryIndex(Index):
             bytes, at most ``score_range / 131070`` added to each score).
         :param device: Torch device of the scoring table; ``None`` means
             ``"cuda"``.
-        :raises ValueError: On ``store="device"`` with ``hbm_budget``.
+        :raises ValueError: On ``store="device"`` with ``hbm_budget``; on a
+            mesh with more devices than exist; under several processes, on
+            ``store="device"`` or ``hbm_budget`` with ``mesh_config``.
         :raises RuntimeError: When the device is CUDA and none is available.
         """
         if store not in ("host", "device"):
             raise ValueError(f"store must be 'host' or 'device', got {store!r}")
-        if mesh_config is not None:
-            raise not_ported("mesh_config (multi-device tables)", "14")
+        if store == "device" and mesh_config is not None and process_count() > 1:
+            raise ValueError(
+                "store='device' is not supported under several processes: the "
+                "growable device buffer is process-local.  Use store='host' (each "
+                "process uploads its shards' rows when the view is built)."
+            )
+        if hbm_budget is not None and mesh_config is not None and process_count() > 1:
+            raise ValueError(
+                "hbm_budget + mesh_config (the sharded hybrid tier) is single-process: "
+                "the tail beyond device memory streams host->device per call, and "
+                "every process would stream the same tail rows in lockstep.  Shard "
+                "the whole table instead (quantize it to fit the devices, then "
+                "narrow_to_shard() frees each host's other rows), or use an "
+                "OnDiskIndex with mesh_config (per-shard HDF5 reads)."
+            )
         if hbm_budget is not None and store == "device":
             raise ValueError(
                 "hbm_budget requires store='host' (the hybrid tier streams from "
@@ -235,6 +280,11 @@ class InMemoryIndex(Index):
                 "values (store='host' keeps an fp32 canonical copy)"
             )
         self._device = resolve_device(device)
+        self._mesh_config = mesh_config
+        # the mesh, built once (its default devices follow self._device)
+        self._mesh: "Mesh | None" = mesh_config.build(device=self._device) if mesh_config else None
+        # the canonical row band kept after narrow_to_shard (None: all rows)
+        self._narrow: "tuple[int, int] | None" = None
         self._store_mode = store
         self._hbm_budget = hbm_budget
         self._stream_chunk_rows = stream_chunk_rows
@@ -292,6 +342,11 @@ class InMemoryIndex(Index):
         self, vectors: np.ndarray, doc_ids: IDSequence, psg_ids: IDSequence
     ) -> None:
         num_new = vectors.shape[0]
+        if self._narrow is not None:
+            raise RuntimeError(
+                "cannot add to a narrowed index: shard row boundaries move with N "
+                "(narrow_to_shard is a step after the build)"
+            )
         with self._view_lock:
             start = self._num
             self._ids.add(doc_ids, psg_ids, start)
@@ -307,9 +362,47 @@ class InMemoryIndex(Index):
     def consolidate(self) -> None:
         """Trim the host store to exactly the used capacity (no-op for
         ``store="device"``: the device buffer stays padded to the scoring
-        row granularity)."""
-        if self._store is not None:
+        row granularity) and after :meth:`narrow_to_shard` (the store is the
+        shard band already)."""
+        if self._store is not None and self._narrow is None:
             self._store = self._store[: self._num].copy()
+
+    def narrow_to_shard(self) -> tuple[int, int]:
+        """Free the host rows outside this process's shards.
+
+        Under several processes every process ``add``s the whole corpus, so
+        each host holds the whole canonical table while its devices score
+        only their shards.  Once the sharded view is built (``preload()``),
+        this drops the other rows: each host then keeps about ``1 /
+        processes`` of the table.  Host reads (:meth:`_get_vectors`)
+        serve only the kept rows and raise for others, iteration and
+        ``add`` raise; device scoring is unaffected.
+
+        :raises ValueError: Without a mesh-sharded resident view (the
+            hybrid tier streams from the whole host copy).
+        :return: The kept row range ``(start, stop)``.
+        """
+        if self._store_mode != "host" or self._store is None:
+            raise ValueError("narrow_to_shard requires store='host' with vectors added")
+        view = self._device_view()
+        if view is None or view.mesh is None or view.kind == "hybrid":
+            raise ValueError(
+                "narrow_to_shard requires a mesh-sharded resident device view "
+                "(configure mesh_config and call preload() first); the hybrid tier "
+                "streams from the whole host copy and cannot narrow"
+            )
+        if self._narrow is not None:
+            return self._narrow
+        lo, hi = view.table.row_band()
+        start, stop = min(lo, self._num), min(hi, self._num)
+        before = self._store.nbytes
+        self._store = np.ascontiguousarray(self._store[start:stop])
+        self._narrow = (start, stop)
+        LOGGER.info(
+            "narrowed the host store to rows [%d, %d): %.1f -> %.1f MiB",
+            start, stop, before / 2**20, self._store.nbytes / 2**20,
+        )
+        return self._narrow
 
     # -- the device store (store="device") -------------------------------------
 
@@ -317,9 +410,10 @@ class InMemoryIndex(Index):
         """Row shape and dtype of the growable device buffer (the scoring
         table's layout)."""
         if isinstance(self._quantizer, PQ):
-            if self._quantizer.dtype != np.uint8:
-                raise not_ported("PQ codes wider than uint8 (Ks > 256)", "10")
-            return (width,), torch.uint8
+            # the quantizer's code type: uint8, uint16 or uint32 by Ks
+            return (width,), torch.from_numpy(np.empty(0, self._quantizer.dtype)).dtype
+        if self._mesh is not None:
+            _check_sharded_width(width, self._quantizer)
         if isinstance(self._quantizer, ScalarQuantizer):
             return ((width // 128, 128) if width % 128 == 0 else (width,)), torch.int8
         return (width,), _DEVICE_DTYPES[self._device_dtype]
@@ -334,6 +428,10 @@ class InMemoryIndex(Index):
         row_shape, dtype = self._device_layout(width)
         self._dev_width = width
         need = start + n_new
+        host_dtype = np.float32 if self._quantizer is None else None
+        if self._mesh is not None:
+            self._append_sharded(data, start, need, row_shape, dtype, host_dtype)
+            return
         if self._dev_table is None:
             cap = -(-max(self._init_size, need) // _ROW_PAD) * _ROW_PAD
             self._dev_table = torch.zeros((cap, *row_shape), dtype=dtype, device=self._device)
@@ -345,14 +443,34 @@ class InMemoryIndex(Index):
             grown = torch.zeros((cap, *row_shape), dtype=dtype, device=self._device)
             grown[:cur] = self._dev_table
             self._dev_table = grown
-        host_dtype = np.float32 if self._quantizer is None else None
         upload_into(self._dev_table, data, start, stage_dtype=host_dtype)
+
+    def _append_sharded(self, data, start, need, row_shape, dtype, host_dtype) -> None:
+        """The device store on a mesh: a row-sharded buffer; growth moves
+        the rows to their new shards device to device."""
+        table = self._dev_table
+        if table is None or need > table.shape[0]:
+            cur = 0 if table is None else table.shape[0]
+            if table is None:
+                cap = max(self._init_size, need)
+            else:
+                cap = cur + -(-(need - cur) // self._alloc_size) * self._alloc_size
+            grown = ShardedTable.zeros(self._mesh, (_padded_rows(cap, self._mesh), *row_shape), dtype)
+            if table is not None:
+                LOGGER.debug("growing the sharded device store from %s to %s rows", cur, grown.shape[0])
+                for s in table.local_shards():
+                    grown.write_rows(s * table.n_local, table.shard(s))
+            self._dev_table = table = grown
+        table.write_rows(start, data, stage_dtype=host_dtype)
 
     def _fetch_device_rows(self, rows: np.ndarray) -> np.ndarray:
         """Rows of the device store on the host, ``(n, width)`` (bf16 as
         fp32)."""
-        idx = torch.from_numpy(np.ascontiguousarray(rows, dtype=np.int64)).to(self._device)
-        sub = self._dev_table[idx]
+        if isinstance(self._dev_table, ShardedTable):
+            sub = self._dev_table.take_rows(rows)
+        else:
+            idx = torch.from_numpy(np.ascontiguousarray(rows, dtype=np.int64)).to(self._device)
+            sub = self._dev_table[idx]
         if sub.dtype == torch.bfloat16:
             sub = sub.float()
         return sub.cpu().numpy().reshape(rows.shape[0], -1)
@@ -367,11 +485,25 @@ class InMemoryIndex(Index):
         out_ids = [i for i, c in zip(ids, counts) for _ in range(c)]
         if self._store_mode == "device":
             return self._fetch_device_rows(rows), out_ids
+        if self._narrow is not None:
+            start, stop = self._narrow
+            if rows.size and (rows.min() < start or rows.max() >= stop):
+                raise IndexError(
+                    f"host row read outside this process's shard band [{start}, {stop}): "
+                    "the host store was narrowed by narrow_to_shard(); only device "
+                    "scoring covers the whole corpus"
+                )
+            return self._store[rows - start], out_ids
         return self._store[rows], out_ids
 
     def _batch_iter(
         self, batch_size: int
     ) -> Iterator[tuple[np.ndarray, IDSequence, IDSequence]]:
+        if self._narrow is not None:
+            raise RuntimeError(
+                "cannot iterate a narrowed index: the host store holds only this "
+                "process's shard band (narrow_to_shard)"
+            )
         doc_list, psg_list = self._ids.inverse(self._num)
         for i in range(0, self._num, batch_size):
             j = min(i + batch_size, self._num)
@@ -399,7 +531,7 @@ class InMemoryIndex(Index):
         (``store="device"``), a hybrid view when the table exceeds
         ``hbm_budget``, else an upload of the host store."""
         if self._store_mode == "device":
-            return device_view(self._dev_table, self._quantizer, self._precision)
+            return device_view(self._dev_table, self._quantizer, self._precision, mesh=self._mesh)
         data = self._store[: self._num]
         if self._hbm_budget is not None:
             view = self._hybrid_view(data)
@@ -411,6 +543,7 @@ class InMemoryIndex(Index):
             self._device,
             precision=self._precision,
             device_dtype=self._device_dtype,
+            mesh=self._mesh,
         )
 
     def _hybrid_view(self, data: np.ndarray) -> DeviceView | None:
@@ -418,7 +551,7 @@ class InMemoryIndex(Index):
         the budget (``build_hybrid_view``)."""
         return hybrid_view(
             data, self._quantizer, self._device, self._hbm_budget, self._precision,
-            self._stream_chunk_rows, self._device_dtype,
+            self._stream_chunk_rows, self._device_dtype, mesh=self._mesh,
         )
 
     def _progressive_job(self) -> "_ProgressiveUpload | None":
@@ -429,6 +562,7 @@ class InMemoryIndex(Index):
             self._num == 0
             or self._dev_view is not None
             or self._store_mode != "host"
+            or self._mesh is not None
             or self._hbm_budget is not None
             or self._quantizer is not None
             or self._device_dtype != "float32"
@@ -447,22 +581,22 @@ def hybrid_view(
     precision: str,
     chunk_rows: "int | None" = None,
     device_dtype: str = "float32",
+    mesh: "Mesh | None" = None,
 ) -> DeviceView | None:
     """The hybrid view of stored rows (vectors or the quantizer's codes), or
     ``None`` when the table fits ``hbm_budget`` or its dimensionality is not
-    a multiple of 128 (vectors and int8 codes; a warning says so).
-
-    :raises NotImplementedError: For PQ codes wider than uint8.
+    a multiple of 128 (vectors and int8 codes; a warning says so).  With
+    ``mesh`` the budget is per device and the prefix row-shards.
     """
     num, width = data.shape
-    kwargs = dict(chunk_rows=chunk_rows)
+    kwargs = dict(chunk_rows=chunk_rows, mesh=mesh)
     if isinstance(quantizer, PQ):
-        if data.dtype != np.uint8:
-            raise not_ported("PQ codes wider than uint8 (Ks > 256)", "10")
         kwargs.update(kind="pq", codebooks=np.asarray(quantizer.codewords, dtype=np.float32))
         dim = quantizer.dims[0]
     else:
         dim = width
+        if mesh is not None:
+            _check_sharded_width(dim, quantizer)
         if dim % 128:
             LOGGER.warning(
                 "hbm_budget is ignored: the hybrid tier needs dim %% 128 == 0 (got %d); "
@@ -476,17 +610,22 @@ def hybrid_view(
     return build_hybrid_view(data, num, dim, hbm_budget, precision, device, **kwargs)
 
 
-def device_view(table: torch.Tensor, quantizer: "Quantizer | None", precision: str) -> DeviceView:
-    """The view of a device buffer already laid out as a scoring table."""
+def device_view(
+    table: "torch.Tensor | ShardedTable",
+    quantizer: "Quantizer | None",
+    precision: str,
+    mesh: "Mesh | None" = None,
+) -> DeviceView:
+    """The view of a device buffer already laid out as a scoring table
+    (row-sharded over ``mesh`` when it is set; PQ codebooks are then
+    replicated)."""
     if isinstance(quantizer, PQ):
         codebooks = np.array(quantizer.codewords, dtype=np.float32)
-        return DeviceView(
-            "pq", table, precision=precision,
-            codebooks=torch.from_numpy(codebooks).to(table.device),
-        )
+        cb = put_replicated(mesh, codebooks) if mesh is not None else torch.from_numpy(codebooks).to(table.device)
+        return DeviceView("pq", table, precision=precision, codebooks=cb, mesh=mesh)
     if isinstance(quantizer, ScalarQuantizer):
-        return DeviceView("scalar", table, precision=precision, scales=quantizer.scales)
-    return DeviceView("dense", table, precision=precision)
+        return DeviceView("scalar", table, precision=precision, scales=quantizer.scales, mesh=mesh)
+    return DeviceView("dense", table, precision=precision, mesh=mesh)
 
 
 def build_view(
@@ -495,30 +634,38 @@ def build_view(
     device: torch.device,
     precision: str = "exact",
     device_dtype: str = "float32",
+    mesh: "Mesh | None" = None,
 ) -> DeviceView:
     """The device view of stored rows (vectors as added, or the
-    quantizer's codes), zero-padded to a multiple of ``_ROW_PAD`` rows:
-    ``(N_pad, M)`` uint8 PQ codes with their fp32 codebooks; int8 codes,
-    ``(N_pad, dim/128, 128)`` when the lanes divide; or ``(N_pad, dim)``
-    vectors in ``device_dtype``.
+    quantizer's codes), zero-padded to a multiple of ``_ROW_PAD`` rows (and
+    row-sharded over ``mesh`` when it is set):
+    ``(N_pad, M)`` PQ codes of the quantizer's type (uint8, uint16 or
+    uint32) with their fp32 codebooks; int8 codes, ``(N_pad, dim/128, 128)``
+    when the lanes divide; or ``(N_pad, dim)`` vectors in ``device_dtype``.
 
-    :raises NotImplementedError: For PQ codes wider than uint8.
+    :raises ValueError: On a mesh, for vectors or int8 codes whose
+        dimensionality is not a multiple of 128.
     """
-    n_pad = -(-data.shape[0] // _ROW_PAD) * _ROW_PAD
+    n_pad = _padded_rows(data.shape[0], mesh)
     width = data.shape[1]
+    if mesh is not None:
+        _check_sharded_width(width, quantizer)
+
+        def place(shape, dtype=None, stage_dtype=None):
+            return put_row_sharded(mesh, data, shape=shape, dtype=dtype, stage_dtype=stage_dtype)
+    else:
+
+        def place(shape, dtype=None, stage_dtype=None):
+            return upload_table(data, device, shape=shape, dtype=dtype, stage_dtype=stage_dtype)
+
     if isinstance(quantizer, PQ):
-        if data.dtype != np.uint8:
-            raise not_ported("PQ codes wider than uint8 (Ks > 256)", "10")
         # compact (N_pad, M) codes; the fp32 codebooks stay in L2
-        table = upload_table(data, device, shape=(n_pad, width))
+        table = place((n_pad, width))
     elif isinstance(quantizer, ScalarQuantizer):
         # 3D int8 layout when the lanes divide (the streamed kernels'
         # table form); the scales fold into the queries
         shape = (n_pad, width // 128, 128) if width % 128 == 0 else (n_pad, width)
-        table = upload_table(data, device, shape=shape, dtype=torch.int8)
+        table = place(shape, dtype=torch.int8)
     else:
-        table = upload_table(
-            data, device, shape=(n_pad, width), dtype=_DEVICE_DTYPES[device_dtype],
-            stage_dtype=np.float32,
-        )
-    return device_view(table, quantizer, precision)
+        table = place((n_pad, width), dtype=_DEVICE_DTYPES[device_dtype], stage_dtype=np.float32)
+    return device_view(table, quantizer, precision, mesh=mesh)

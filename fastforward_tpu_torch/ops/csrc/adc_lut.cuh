@@ -34,29 +34,36 @@
 //      query's LUT into shared memory and scores the item's slots.
 // Padding slots are scored like any other slot, as the contract says.
 //
-// The tables.  Each subspace's table is kKsMax = 256 entries wide whatever
-// Ks (entries k >= Ks are zero, so any uint8 code stays inside it).  The
-// wrapper's scratch holds lut_queries queries' tables (50 MB for Qb = 512
-// at PQ(96, 256); the wrapper caps it and the groups come in turn), written
-// once and read by each work item of its query: ~770 x 96 KB at the
-// flagship sizes, mostly from L2.  Rebuilding the table in every work item
-// from the codebooks instead (the first form of this design) read the 786 KB
-// of codebooks from L2 per item, ~0.6 GB per call.  A block stages at most
-// kLutSubspaces subspaces (96 KB, two blocks per SM); where M exceeds that
-// (PQ(384, 256) at dim 768 is 384 KB) it stages and consumes the table in
-// chunks of subspaces and carries each slot's partial sum in a register
-// across chunks.
+// The tables.  Each subspace's table is `width` entries wide: 256 for
+// uint8 codes whatever Ks (entries k >= Ks are zero, so any uint8 code stays
+// inside it), Ks rounded up to a multiple of 4 for uint16 and uint32 codes
+// (the float4 staging).  The wrapper's scratch holds lut_queries queries'
+// tables (50 MB for Qb = 512 at PQ(96, 256); the wrapper caps it and the
+// groups come in turn: at PQ(96, 1024) a query's table is 393 KB, 170 of
+// them a group), written once and read by each work item of its query,
+// mostly from L2.  Rebuilding the table in every work item from the
+// codebooks instead (the first form of this design) read the 786 KB of
+// codebooks from L2 per item, ~0.6 GB per call.  A block stages at most
+// kLutBytes (96 KB, two blocks per SM): 96 subspaces at width 256, 24 at
+// width 1024; where M exceeds that (PQ(384, 256) at dim 768 is 384 KB) it
+// stages and consumes the table in chunks of subspaces and carries each
+// slot's partial sum in a register across chunks.  Where one subspace's
+// table alone exceeds kLutBytes (Ks > 24,576) the score kernel reads the
+// table from global memory (L2) instead of staging it: the same contract
+// and the same sums, a second body that the launcher picks from the
+// geometry.
 //
 // Scoring.  One slot per thread (lane-per-slot, no shuffles), kSlotsPerThread
-// slots per thread, whose code loads are issued together.  A thread reads
-// its slots' code rows with 16-byte loads where M % 16 == 0 and the codes are
-// 16-byte aligned (a row starts at row * M), else 4-byte or single-byte
-// loads.  The 32 lanes of a warp read 32 random codes of one subspace, so
+// slots per thread, whose code loads are issued together.  Codes are uint8,
+// uint16 or uint32.  A thread reads its slots' code rows with 16-byte loads
+// (16, 8 or 4 codes) where the row's bytes and the staged chunk divide into
+// them and the codes are 16-byte aligned (a row starts at row * M), else
+// 4-byte loads (4 or 2 codes), else one code at a time.  The 32 lanes of a warp read 32 random codes of one subspace, so
 // their table reads land on random banks (bank = code % 32): about 3.5-way
 // conflicts on average.
 //
 // Bound on the H100: the bytes a call must move are the code rows its
-// slots read (M bytes each), the codebooks, queries, cand, tile_idx and out
+// slots read (M codes each), the codebooks, queries, cand, tile_idx and out
 // (chip_smoke.py's pq_bound, 0.010-0.016 ms at the flagship layouts).  The
 // design adds the table's round trip (written once, read per work item),
 // the grouping's passes over cand, and the shared-memory table reads.
@@ -80,13 +87,14 @@ constexpr int kAdcThreads = 256;
 constexpr int kScoreThreads = 512;
 constexpr int kSlotsPerThread = 4;
 constexpr int kAdcMaxItemSlots = kScoreThreads * kSlotsPerThread;
-constexpr int kKsMax = 256;
-constexpr int kLutSubspaces = 96;  // 96 KB of fp32 table per block
+// the width of a uint8 code's table, and the table bytes a block stages
+constexpr int kU8Width = 256;
+constexpr int kLutBytes = 96 * 1024;
 constexpr int kTableQueries = 8;  // queries per thread of the table kernel
-static_assert(kAdcThreads == kKsMax, "a table thread owns one codeword");
 
 struct AdcArgs {
-  const uint8_t* codes;  // (N_pad, m) uint8
+  const void* codes;  // (N_pad, m) uint8, uint16 or uint32
+  int code_bytes;     // 1, 2 or 4
   int m;
   const float* codebooks;  // (m, ks, ds) fp32
   int ks, ds;
@@ -100,8 +108,10 @@ struct AdcArgs {
   u64* scratch;         // the grouping's, 3 * qb + 2 + n_slots words
   int item_slots;       // slots per work item, <= kAdcMaxItemSlots
   long long max_items;  // a bound on the work items of the whole call
-  float* lut;           // lut_queries * m * kKsMax fp32
+  float* lut;           // lut_queries * m * width fp32
   int lut_queries;
+  int width;  // entries of one subspace's table: 256 for uint8 codes, else
+              // Ks rounded up to a multiple of 4
 };
 
 namespace adc {
@@ -111,13 +121,15 @@ __device__ __forceinline__ float round_bf16(float x) {
 }
 
 // 5. lut[(q - g0) * m + sub][k] for the queries [g0, g1) of one group: block
-// (sub, query tile), thread k holds codeword k of subspace sub and dots it
-// with up to kTableQueries queries (fp32 FMAs in element order); entries
-// k >= ks are zero.
+// (sub, query tile, codeword tile), thread k holds codeword k of subspace
+// sub and dots it with up to kTableQueries queries (fp32 FMAs in element
+// order); entries k >= ks are zero.
 template <bool kRoundCodewords, bool kRoundQuery>
 __global__ void __launch_bounds__(kAdcThreads)
     adc_table_kernel(AdcArgs a, int g0, int g1) {
-  const int sub = blockIdx.x, k = threadIdx.x;
+  const int sub = blockIdx.x;
+  const int k = blockIdx.z * kAdcThreads + threadIdx.x;
+  if (k >= a.width) return;
   const int q0 = g0 + blockIdx.y * kTableQueries;
   float acc[kTableQueries];
 #pragma unroll
@@ -167,21 +179,38 @@ __global__ void __launch_bounds__(kAdcThreads)
 #pragma unroll
   for (int j = 0; j < kTableQueries; ++j) {
     if (q0 + j < g1) {
-      a.lut[((static_cast<long long>(q0 + j - g0)) * a.m + sub) * kKsMax + k] =
+      a.lut[((static_cast<long long>(q0 + j - g0)) * a.m + sub) * a.width + k] =
           acc[j];
     }
   }
 }
 
+// A table entry: staged in shared memory, or read through L2.
+template <bool kGlobal>
+__device__ __forceinline__ float entry(const float* lut, int i) {
+  if (kGlobal) return __ldg(lut + i);
+  return lut[i];
+}
+
+// The code of bits [shift, shift + 8 * sizeof(Code)) of a loaded word.
+template <typename Code>
+__device__ __forceinline__ unsigned field(unsigned word, int shift) {
+  return (word >> shift) & (0xffffffffu >> (32 - 8 * sizeof(Code)));
+}
+
 // Add the table entries of subspaces [m0, m0 + mc) of each slot's code row
 // to its sum, in subspace order; the loads of all slots go out together
-// (kVec bytes each).
-template <int kVec>
-__device__ __forceinline__ void add_rows(const uint8_t* const* rows, int m0,
-                                         const float* lut, int mc,
+// (kBytes bytes each: 16, 4, or one code).  `lut` holds the mc subspaces'
+// tables, `width` entries each (a constant 256 for uint8 codes).
+template <typename Code, int kBytes, bool kGlobal>
+__device__ __forceinline__ void add_rows(const Code* const* rows, int m0,
+                                         const float* lut, int width, int mc,
                                          float* acc) {
-  for (int g = 0; g < mc; g += kVec) {
-    if (kVec == 16) {
+  constexpr int kBits = 8 * sizeof(Code);
+  constexpr int kPer = kBytes / sizeof(Code);  // codes a load
+  const int w = sizeof(Code) == 1 ? kU8Width : width;
+  for (int g = 0; g < mc; g += kPer) {
+    if (kBytes == 16) {
       uint4 v[kSlotsPerThread];
 #pragma unroll
       for (int i = 0; i < kSlotsPerThread; ++i) {
@@ -189,13 +218,14 @@ __device__ __forceinline__ void add_rows(const uint8_t* const* rows, int m0,
       }
 #pragma unroll
       for (int i = 0; i < kSlotsPerThread; ++i) {
-        const unsigned w[4] = {v[i].x, v[i].y, v[i].z, v[i].w};
+        const unsigned wd[4] = {v[i].x, v[i].y, v[i].z, v[i].w};
 #pragma unroll
-        for (int b = 0; b < 16; ++b) {
-          acc[i] += lut[(g + b) * kKsMax + ((w[b >> 2] >> (8 * (b & 3))) & 0xffu)];
+        for (int b = 0; b < kPer; ++b) {
+          const unsigned c = field<Code>(wd[(b * kBits) >> 5], (b * kBits) & 31);
+          acc[i] += entry<kGlobal>(lut, (g + b) * w + static_cast<int>(c));
         }
       }
-    } else if (kVec == 4) {
+    } else if (kBytes == 4 && sizeof(Code) < 4) {
       unsigned v[kSlotsPerThread];
 #pragma unroll
       for (int i = 0; i < kSlotsPerThread; ++i) {
@@ -204,8 +234,9 @@ __device__ __forceinline__ void add_rows(const uint8_t* const* rows, int m0,
 #pragma unroll
       for (int i = 0; i < kSlotsPerThread; ++i) {
 #pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          acc[i] += lut[(g + b) * kKsMax + ((v[i] >> (8 * b)) & 0xffu)];
+        for (int b = 0; b < kPer; ++b) {
+          const unsigned c = field<Code>(v[i], b * kBits);
+          acc[i] += entry<kGlobal>(lut, (g + b) * w + static_cast<int>(c));
         }
       }
     } else {
@@ -213,18 +244,21 @@ __device__ __forceinline__ void add_rows(const uint8_t* const* rows, int m0,
 #pragma unroll
       for (int i = 0; i < kSlotsPerThread; ++i) v[i] = __ldg(rows[i] + m0 + g);
 #pragma unroll
-      for (int i = 0; i < kSlotsPerThread; ++i) acc[i] += lut[g * kKsMax + v[i]];
+      for (int i = 0; i < kSlotsPerThread; ++i) {
+        acc[i] += entry<kGlobal>(lut, g * w + static_cast<int>(v[i]));
+      }
     }
   }
 }
 
 // 6. One block per work item of the queries [g0, g1): the item's query, its
-// table staged in chunks of mc subspaces, and the scores of its slots.
-// Blocks past the group's last item leave.
-template <int kVec>
+// table staged in chunks of mc subspaces (or, kGlobal, read from the
+// scratch through L2 in one pass), and the scores of its slots.  Blocks past
+// the group's last item leave.
+template <typename Code, int kBytes, bool kGlobal>
 __global__ void __launch_bounds__(kScoreThreads)
     adc_score_kernel(AdcArgs a, groups::Lists l, int g0, int g1, int mc) {
-  extern __shared__ __align__(16) float lut[];  // mc * kKsMax
+  extern __shared__ __align__(16) float lut[];  // mc * width (staged)
   groups::Item it;
   if (!groups::find_item(l.slot_off, l.item_off, g0, g1, blockIdx.x,
                          a.item_slots, &it)) {
@@ -233,13 +267,14 @@ __global__ void __launch_bounds__(kScoreThreads)
 
   // each thread's slots; a thread short of slots scores code row 0 for
   // nothing and writes no result
+  const Code* codes = static_cast<const Code*>(a.codes);
   float acc[kSlotsPerThread];
-  const uint8_t* rows[kSlotsPerThread];
+  const Code* rows[kSlotsPerThread];
   long long slot[kSlotsPerThread];
 #pragma unroll
   for (int i = 0; i < kSlotsPerThread; ++i) {
     acc[i] = 0.0f;
-    rows[i] = a.codes;
+    rows[i] = codes;
     slot[i] = -1;
     const int j = threadIdx.x + i * kScoreThreads;
     if (j < it.n) {
@@ -248,33 +283,38 @@ __global__ void __launch_bounds__(kScoreThreads)
       const int c = groups::entry_cand(e);
       const long long row =
           static_cast<long long>(__ldg(a.tile_idx + s / a.cap)) * a.r + c / a.qb;
-      rows[i] = a.codes + row * a.m;
+      rows[i] = codes + row * a.m;
       slot[i] = s;
     }
   }
 
-  const float4* table = reinterpret_cast<const float4*>(
-      a.lut + static_cast<long long>(it.q - g0) * a.m * kKsMax);
-  float4* staged = reinterpret_cast<float4*>(lut);
-  constexpr int kCopy = 4;  // float4 loads in flight per thread
-  for (int m0 = 0; m0 < a.m; m0 += mc) {
-    const int mcur = min(mc, a.m - m0);
-    const int n4 = mcur * (kKsMax / 4);
-    const float4* src = table + static_cast<long long>(m0) * (kKsMax / 4);
-    __syncthreads();  // the previous chunk's reads are done
-    for (int e = threadIdx.x; e < n4; e += kCopy * kScoreThreads) {
-      float4 v[kCopy];
+  const float* table = a.lut + static_cast<long long>(it.q - g0) * a.m * a.width;
+  if (kGlobal) {
+    add_rows<Code, kBytes, true>(rows, 0, table, a.width, a.m, acc);
+  } else {
+    const float4* src4 = reinterpret_cast<const float4*>(table);
+    float4* staged = reinterpret_cast<float4*>(lut);
+    const int w4 = a.width / 4;
+    constexpr int kCopy = 4;  // float4 loads in flight per thread
+    for (int m0 = 0; m0 < a.m; m0 += mc) {
+      const int mcur = min(mc, a.m - m0);
+      const int n4 = mcur * w4;
+      const float4* src = src4 + static_cast<long long>(m0) * w4;
+      __syncthreads();  // the previous chunk's reads are done
+      for (int e = threadIdx.x; e < n4; e += kCopy * kScoreThreads) {
+        float4 v[kCopy];
 #pragma unroll
-      for (int u = 0; u < kCopy; ++u) {
-        if (e + u * kScoreThreads < n4) v[u] = __ldg(src + e + u * kScoreThreads);
-      }
+        for (int u = 0; u < kCopy; ++u) {
+          if (e + u * kScoreThreads < n4) v[u] = __ldg(src + e + u * kScoreThreads);
+        }
 #pragma unroll
-      for (int u = 0; u < kCopy; ++u) {
-        if (e + u * kScoreThreads < n4) staged[e + u * kScoreThreads] = v[u];
+        for (int u = 0; u < kCopy; ++u) {
+          if (e + u * kScoreThreads < n4) staged[e + u * kScoreThreads] = v[u];
+        }
       }
+      __syncthreads();
+      add_rows<Code, kBytes, false>(rows, m0, lut, a.width, mcur, acc);
     }
-    __syncthreads();
-    add_rows<kVec>(rows, m0, lut, mcur, acc);
   }
 #pragma unroll
   for (int i = 0; i < kSlotsPerThread; ++i) {
@@ -282,18 +322,34 @@ __global__ void __launch_bounds__(kScoreThreads)
   }
 }
 
-template <int kVec>
+template <typename Code, int kBytes, bool kGlobal>
 cudaError_t launch_score(const AdcArgs& a, const groups::Lists& l, int g0,
                          int g1, int mc, cudaStream_t stream) {
-  const int smem = mc * kKsMax * static_cast<int>(sizeof(float));
+  const int smem =
+      kGlobal ? 0 : mc * a.width * static_cast<int>(sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(
-      adc_score_kernel<kVec>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      adc_score_kernel<Code, kBytes, kGlobal>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  adc_score_kernel<kVec>
+  adc_score_kernel<Code, kBytes, kGlobal>
       <<<static_cast<unsigned>(a.max_items), kScoreThreads, smem, stream>>>(
           a, l, g0, g1, mc);
   return cudaGetLastError();
+}
+
+// The score kernel for this code type, load width and table body.
+template <typename Code>
+cudaError_t launch_score_for(const AdcArgs& a, const groups::Lists& l, int g0,
+                             int g1, int mc, int vec_bytes, bool global,
+                             cudaStream_t stream) {
+  if (global) {
+    return vec_bytes == 16 ? launch_score<Code, 16, true>(a, l, g0, g1, mc, stream)
+           : vec_bytes == 4 ? launch_score<Code, 4, true>(a, l, g0, g1, mc, stream)
+                            : launch_score<Code, sizeof(Code), true>(a, l, g0, g1, mc, stream);
+  }
+  return vec_bytes == 16 ? launch_score<Code, 16, false>(a, l, g0, g1, mc, stream)
+         : vec_bytes == 4 ? launch_score<Code, 4, false>(a, l, g0, g1, mc, stream)
+                          : launch_score<Code, sizeof(Code), false>(a, l, g0, g1, mc, stream);
 }
 
 }  // namespace adc
@@ -303,9 +359,15 @@ cudaError_t launch_score(const AdcArgs& a, const groups::Lists& l, int g0,
 template <bool kRoundCodewords, bool kRoundQuery>
 cudaError_t adc_lut_launch(const AdcArgs& a, cudaStream_t stream) {
   if (a.n_slots <= 0) return cudaSuccess;
-  if (a.item_slots <= 0 || a.item_slots > kAdcMaxItemSlots || a.qb <= 0 ||
-      a.ks > kKsMax || a.m <= 0 || a.max_items <= 0 ||
-      a.max_items > 0x7fffffffLL || a.lut_queries <= 0) {
+  const bool width_ok =
+      a.code_bytes == 1 ? a.width == kU8Width && a.ks <= kU8Width
+                        : (a.code_bytes == 2 || a.code_bytes == 4) &&
+                              a.width >= a.ks && a.width % 4 == 0 &&
+                              a.width <= 65535LL * kAdcThreads;
+  if (!width_ok || a.ks <= 0 || a.item_slots <= 0 ||
+      a.item_slots > kAdcMaxItemSlots || a.qb <= 0 || a.m <= 0 ||
+      static_cast<long long>(a.m) * a.width > 0x7fffffffLL ||
+      a.max_items <= 0 || a.max_items > 0x7fffffffLL || a.lut_queries <= 0) {
     return cudaErrorInvalidValue;
   }
   const groups::Lists l = groups::lists(a.scratch, a.qb);
@@ -313,22 +375,37 @@ cudaError_t adc_lut_launch(const AdcArgs& a, cudaStream_t stream) {
       group_slots(a.cand, a.n_slots, a.qb, a.item_slots, l, stream);
   if (err != cudaSuccess) return err;
 
-  // subspaces per staged chunk: all of them, or kLutSubspaces (a multiple of
-  // 16, so every chunk starts on a 16-byte boundary of the code row)
-  const int mc = a.m < kLutSubspaces ? a.m : kLutSubspaces;
+  // subspaces per staged chunk: as many tables as kLutBytes holds (96 at
+  // width 256), all of them where M is smaller; none where one subspace's
+  // table alone is larger (the global-memory body, one pass over M)
+  const int per_chunk = kLutBytes / (a.width * static_cast<int>(sizeof(float)));
+  const bool global = per_chunk == 0;
+  int mc = global ? a.m : min(a.m, per_chunk);
+  // the widest code load that divides the row and the chunks and that the
+  // codes' alignment admits
   const uintptr_t base = reinterpret_cast<uintptr_t>(a.codes);
-  const int vec = a.m % 16 == 0 && base % 16 == 0 ? 16
-                  : a.m % 4 == 0 && base % 4 == 0 ? 4
-                                                  : 1;
+  const long long row_bytes = static_cast<long long>(a.m) * a.code_bytes;
+  int vec = a.code_bytes;
+  for (int bytes = 16; bytes > a.code_bytes; bytes /= 4) {
+    const int per = bytes / a.code_bytes;
+    if (row_bytes % bytes == 0 && base % bytes == 0 && mc >= per) {
+      mc = mc == a.m ? mc : mc / per * per;  // chunks start on whole loads
+      vec = bytes;
+      break;
+    }
+  }
   for (int g0 = 0; g0 < a.qb; g0 += a.lut_queries) {
     const int g1 = min(a.qb, g0 + a.lut_queries);
-    const dim3 tables(a.m, (g1 - g0 + kTableQueries - 1) / kTableQueries);
+    const dim3 tables(a.m, (g1 - g0 + kTableQueries - 1) / kTableQueries,
+                      (a.width + kAdcThreads - 1) / kAdcThreads);
     adc::adc_table_kernel<kRoundCodewords, kRoundQuery>
         <<<tables, kAdcThreads, 0, stream>>>(a, g0, g1);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    err = vec == 16 ? adc::launch_score<16>(a, l, g0, g1, mc, stream)
-          : vec == 4 ? adc::launch_score<4>(a, l, g0, g1, mc, stream)
-                     : adc::launch_score<1>(a, l, g0, g1, mc, stream);
+    err = a.code_bytes == 1
+              ? adc::launch_score_for<uint8_t>(a, l, g0, g1, mc, vec, global, stream)
+          : a.code_bytes == 2
+              ? adc::launch_score_for<uint16_t>(a, l, g0, g1, mc, vec, global, stream)
+              : adc::launch_score_for<uint32_t>(a, l, g0, g1, mc, vec, global, stream);
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;

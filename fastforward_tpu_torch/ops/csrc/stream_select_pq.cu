@@ -19,8 +19,9 @@
 //          by its ~fp32 bf16x3 product);
 //   fast:  codewords and query rounded to bf16, fp32 accumulation.
 // So "high" differs slightly between K3 (true fp32) and K4, as it does in
-// fastforward_tpu.  Codes are uint8 (Ks <= 256), (N_pad, M) row major, any
-// M; codebooks are fp32 (M, Ks, Ds).
+// fastforward_tpu.  Codes are uint8 (Ks <= 256), uint16 or uint32 (any Ks
+// the type addresses, as the TPU kernel casts any code type to int32),
+// (N_pad, M) row major, any M; codebooks are fp32 (M, Ks, Ds).
 //
 // The TPU kernel decodes the whole R-row tile through block-diagonal bf16
 // codebooks on the MXU, multiplies it by every query, then selects each
@@ -46,11 +47,12 @@
 
 #include "adc_lut.cuh"
 
-// Pointers are device pointers: codes (N_pad, m) uint8 and codebooks
+// Pointers are device pointers: codes (N_pad, m) of code_bytes each and codebooks
 // (m, ks, ds) fp32, both contiguous (the wrapper checks); qT element
 // (d, qno) is at q[d * q_stride_d + qno * q_stride_q]; scratch holds
 // 3 * qb + 2 + n_tiles * cap 64-bit words and lut the tables of lut_queries
-// queries, lut_queries * m * 256 fp32.  Tier codes: 0 exact, 1 high,
+// queries, lut_queries * m * width fp32 (width: 256 for uint8 codes, else
+// Ks rounded up to a multiple of 4).  Tier codes: 0 exact, 1 high,
 // 2 fast.  The launches go on `stream` of `device` and do not synchronise.
 // Returns the cudaError_t of the first failing launch (0 on success).
 extern "C" int ff_stream_select_pq(const void* codes, int m,
@@ -61,14 +63,15 @@ extern "C" int ff_stream_select_pq(const void* codes, int m,
                                    int n_tiles, int cap, int qb, int r,
                                    int tier, void* scratch, int item_slots,
                                    long long max_items, void* lut,
-                                   int lut_queries, int device,
-                                   void* stream) {
+                                   int lut_queries, int code_bytes,
+                                   int width, int device, void* stream) {
   if (n_tiles <= 0) return 0;
   // this object links its own CUDA runtime, whose current device is not
   // PyTorch's: select the device the stream belongs to
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const ff::AdcArgs a{static_cast<const uint8_t*>(codes),
+  const ff::AdcArgs a{codes,
+                      code_bytes,
                       m,
                       static_cast<const float*>(codebooks),
                       ks,
@@ -87,7 +90,8 @@ extern "C" int ff_stream_select_pq(const void* codes, int m,
                       item_slots,
                       max_items,
                       static_cast<float*>(lut),
-                      lut_queries};
+                      lut_queries,
+                      width};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (tier) {
     case 0:

@@ -12,8 +12,9 @@
 // exact = 1 (the "exact" and "high" tiers) is an fp32 dot of the fp32
 // codewords and the query; exact = 0 (the "fast" tier) rounds both the
 // codeword element and the query element to bf16 (round to nearest even)
-// and accumulates in fp32.  Codes are uint8 (Ks <= 256), (N_pad, M) row
-// major, any M; codebooks are fp32 (M, Ks, Ds).
+// and accumulates in fp32.  Codes are uint8 (Ks <= 256), uint16 or uint32
+// (any Ks the type addresses, as the TPU kernel casts any code type to
+// int32), (N_pad, M) row major, any M; codebooks are fp32 (M, Ks, Ds).
 //
 // The TPU kernel selects code rows and queries with one-hot matmuls and
 // dequantizes through block-diagonal hi/mid/lo bf16 codebooks, because
@@ -37,10 +38,11 @@
 
 #include "adc_lut.cuh"
 
-// Pointers are device pointers: codes (N_pad, m) uint8, codebooks
+// Pointers are device pointers: codes (N_pad, m) of code_bytes each, codebooks
 // (m, ks, ds) fp32, q (qb, m * ds) fp32, all contiguous (the wrapper
 // checks); scratch holds 3 * qb + 2 + n_slots 64-bit words and lut the
-// tables of lut_queries queries, lut_queries * m * 256 fp32.  The launches
+// tables of lut_queries queries, lut_queries * m * width fp32 (width: 256
+// for uint8 codes, else Ks rounded up to a multiple of 4).  The launches
 // go on `stream` of `device` and do not synchronise.  Returns the
 // cudaError_t of the first failing launch (0 on success).
 extern "C" int ff_stream_select_pq_pairwise(
@@ -48,13 +50,14 @@ extern "C" int ff_stream_select_pq_pairwise(
     const void* q, const void* cand, const void* tile_idx, void* out,
     long long n_slots, int cap, int qb, int r, int exact, void* scratch,
     int item_slots, long long max_items, void* lut, int lut_queries,
-    int device, void* stream) {
+    int code_bytes, int width, int device, void* stream) {
   if (n_slots <= 0) return 0;
   // this object links its own CUDA runtime, whose current device is not
   // PyTorch's: select the device the stream belongs to
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const ff::AdcArgs a{static_cast<const uint8_t*>(codes),
+  const ff::AdcArgs a{codes,
+                      code_bytes,
                       m,
                       static_cast<const float*>(codebooks),
                       ks,
@@ -73,7 +76,8 @@ extern "C" int ff_stream_select_pq_pairwise(
                       item_slots,
                       max_items,
                       static_cast<float*>(lut),
-                      lut_queries};
+                      lut_queries,
+                      width};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   err = exact ? ff::adc_lut_launch<false, false>(a, s)
               : ff::adc_lut_launch<true, true>(a, s);

@@ -42,7 +42,12 @@ not one per row.
 
 Everything runs on the device of the resident prefix: the kernels on the
 card, their plain versions for CPU tensors, and nothing falls back from one
-to the other.
+to the other.  On a mesh (the sharded hybrid tier) the prefix is
+row-sharded and scored by the sharded programs (``parallel.sharded``), and
+in one process the tail's chunks go to the mesh's devices in contiguous
+ranges, each device with its own copy stream and block cache (the budget
+bounds each device's blocks); the scores gather on the mesh's first
+device.
 """
 
 import logging
@@ -102,25 +107,45 @@ def _index_dev(plan: dict, key: str, arr: np.ndarray, device: torch.device) -> t
 
 
 def _score_resident(
-    table: torch.Tensor,
-    codebooks: "torch.Tensor | None",
+    table,
+    codebooks,
     q_pad: np.ndarray,
     rows: np.ndarray,
     qno: np.ndarray,
     precision: str,
     plan: dict,
     kind: str,
+    mesh=None,
 ) -> torch.Tensor:
     """Per-row scores of resident-prefix candidates, on the device.
 
     Dense candidate sets stream through the kernels (K1/K2 for vectors and
     int8 codes, K3/K4 for PQ codes), sparse ones take the gather-dot (the
     gather-ADC for PQ), with the density thresholds of a whole-table index.
+    A prefix row-sharded over ``mesh`` runs the sharded programs.
     """
     p = rows.shape[0]
     n = table.shape[0]
     r = _kernel_tile_rows(kind)
     scores = None
+    if mesh is not None:
+        from fastforward_tpu_torch.parallel import sharded
+
+        if kind == "pq" and p * scoring.STREAM_DENSITY_PQ > n:
+            scores = sharded.streamed_scores_sharded_pq(
+                mesh, table, codebooks, q_pad, rows, qno, plan=plan, precision=precision,
+                fetch=False,
+            )
+        elif kind != "pq" and p * scoring.STREAM_DENSITY > n:
+            scores = sharded.streamed_scores_sharded(
+                mesh, table, q_pad, rows, qno, precision=precision, plan=plan, fetch=False
+            )
+        if scores is None:
+            scores = sharded.row_scores_sharded(
+                mesh, table, q_pad, rows, qno, precision,
+                codebooks=codebooks if kind == "pq" else None, plan=plan,
+            )
+        return scores[:p]
     if n % r == 0:
         if kind == "pq" and p * scoring.STREAM_DENSITY_PQ > n:
             scores = scoring.streamed_scores_pq(
@@ -154,10 +179,11 @@ def _build_tail_chunks(
     qb: int,
     chunk_rows: int,
     r: int,
-    device: torch.device,
+    devices: "list[torch.device]",
 ) -> "tuple[list[dict], np.ndarray]":
     """Cut the unique tail rows into chunks and lay out each chunk's
-    candidates for the kernels.
+    candidates for the kernels, chunk ``c`` on ``devices[chunk["dev"]]``
+    (the devices take contiguous, near-equal ranges of chunks).
 
     Returns ``(chunks, order)``: ``order`` permutes the tail pairs into
     chunk-major order (each chunk's scores land contiguously in the
@@ -176,6 +202,8 @@ def _build_tail_chunks(
     np.cumsum(counts, out=starts[1:])
     chunks: list[dict] = []
     for c in range(n_chunks):
+        dev_no = (c * len(devices)) // n_chunks
+        device = devices[dev_no]
         lo, hi = int(starts[c]), int(starts[c + 1])
         sel = order[lo:hi]
         local = (u_of_pair[sel] - c * chunk_rows).astype(np.int64)
@@ -197,6 +225,7 @@ def _build_tail_chunks(
                 "slot": torch.from_numpy(slot_of_pair).to(device),
                 "start": lo,
                 "n": hi - lo,
+                "dev": dev_no,
             }
         )
     return chunks, order
@@ -368,6 +397,8 @@ def _upload_block(
 
 def _stream_tail(
     state: dict,
+    lo: int,
+    hi: int,
     copier: _TailCopier,
     q_dev: torch.Tensor,
     codebooks: "torch.Tensor | None",
@@ -375,15 +406,16 @@ def _stream_tail(
     precision: str,
     store: dict,
     budget: int,
-) -> torch.Tensor:
-    """Score every tail chunk into one device accumulator (chunk-major pair
-    order), one block copy ahead of the kernels."""
-    chunks = state["chunks"]
+    acc: torch.Tensor,
+) -> None:
+    """Score the tail chunks ``[lo, hi)`` (all on ``copier.device``) into
+    the accumulator (chunk-major pair order, on the first device), one
+    block copy ahead of the kernels."""
+    chunks = state["chunks"][lo:hi]
     r = state["r"]
-    acc = torch.empty(state["p_tail"], dtype=torch.float32, device=copier.device)
-    keep = state.get("keys")
+    keep = state.get(("keys", lo))
     if keep is None:
-        keep = state["keys"] = frozenset(_block_cache_key(c, copier.dtype) for c in chunks)
+        keep = state[("keys", lo)] = frozenset(_block_cache_key(c, copier.dtype) for c in chunks)
     compute = torch.cuda.current_stream(copier.device) if copier.cuda else None
     q_t = q_dev.t()
     pending = _upload_block(chunks[0], copier, store, budget, state, keep)
@@ -402,11 +434,10 @@ def _stream_tail(
         if compute is not None:
             block.record_stream(compute)
         start = chunk["start"]
-        acc[start : start + chunk["n"]] = torch.take(outs, chunk["slot"])
+        acc[start : start + chunk["n"]] = torch.take(outs, chunk["slot"]).to(acc.device)
         if c + 1 < len(chunks):
             # the next block's gather and copy run under this block's kernel
             pending = _upload_block(chunks[c + 1], copier, store, budget, state, keep)
-    return acc
 
 
 def hybrid_scores(
@@ -423,16 +454,18 @@ def hybrid_scores(
     cache_store: dict | None = None,
     reduce: "tuple[str, np.ndarray, int, np.ndarray] | None" = None,
     kind: str = "dense",
-    codebooks: "torch.Tensor | None" = None,
+    codebooks=None,
+    mesh=None,
 ) -> np.ndarray:
     """Score ``table[rows[i]] . q_pad[qno[i]]`` against a hybrid table.
 
     :param resident: The device-resident prefix (rows ``< tail_start``; may
         hold 0 rows): ``(R, dim)`` fp32/bf16 for ``kind="dense"``, ``(R,
         dim/128, 128)`` int8 codes for ``"scalar"`` (scales folded into
-        ``q_pad``), ``(R, M)`` uint8 codes for ``"pq"``.
+        ``q_pad``), ``(R, M)`` PQ codes for ``"pq"`` (uint8, uint16 or
+        uint32).
     :param host_tail: The host tail, ``(N - tail_start, width)``: fp32 rows,
-        int8 codes or uint8 PQ codes.
+        int8 codes or PQ codes (2- or 4-byte rows for Ks > 256).
     :param tail_start: First global row of ``host_tail``.
     :param chunk_rows: Unique tail rows a streamed block holds at most.
     :param q_pad: Padded query vectors, ``(Qb, dim)`` fp32.
@@ -451,10 +484,15 @@ def hybrid_scores(
         for ``"mean"``) and the host combines the two.
     :param kind: ``"dense"``, ``"scalar"`` or ``"pq"``.
     :param codebooks: Device PQ codebooks ``(M, Ks, Ds)`` fp32 (``"pq"``;
-        OPQ queries arrive rotated).
+        OPQ queries arrive rotated; replicated on a mesh).
+    :param mesh: The mesh ``resident`` is row-sharded over (the sharded
+        hybrid tier): in one process the tail chunks then spread over the
+        mesh's devices in contiguous ranges.
     :return: Scores in input order ``(P,)``, or per pair ``(n_pairs,)``
         with ``reduce`` (fp32 numpy).
     """
+    from fastforward_tpu_torch.parallel.sharded import on_device
+
     store = cache_store if cache_store is not None else {}
     store.setdefault("lock", threading.Lock())
     device = resident.device
@@ -468,11 +506,19 @@ def hybrid_scores(
         u_rows, u_of_pair = np.unique(rows[tail_pos] - tail_start, return_inverse=True)
         r = _kernel_tile_rows(kind)
         chunk_rows_eff = max(r, (chunk_rows // r) * r)
+        # one process over a mesh: the tail's chunks spread over its
+        # devices, a card named twice taking one range (one block cache a
+        # card, bounded by its budget)
+        devices = [device]
+        if mesh is not None and not mesh.multiprocess:
+            devices = mesh.memory_devices
         with annotate("ff.layout"):
             chunks, order = _build_tail_chunks(
                 u_rows.astype(np.int64), u_of_pair.reshape(-1).astype(np.int64),
-                qno[tail_pos], qb, chunk_rows_eff, r, device,
+                qno[tail_pos], qb, chunk_rows_eff, r, devices,
             )
+        # each device's contiguous range of chunks, (lo, hi)
+        bounds = [0] + [c for c in range(1, len(chunks)) if chunks[c]["dev"] != chunks[c - 1]["dev"]]
         state = {
             "res_pos": res_pos,
             "res_rows": rows[res_pos].astype(np.int64),
@@ -481,6 +527,8 @@ def hybrid_scores(
             "tail_pos_ordered": tail_pos[order],
             "p_tail": tail_pos.shape[0],
             "chunks": chunks,
+            "devices": devices,
+            "dev_ranges": list(zip(bounds, bounds[1:] + [len(chunks)])) if chunks else [],
             "r": r,
             "chunk_rows": chunk_rows_eff,
         }
@@ -505,20 +553,33 @@ def hybrid_scores(
         with annotate("ff.hybrid_resident"):
             res_dev = _score_resident(
                 resident, codebooks, q_pad, state["res_rows"], state["res_qno"], precision,
-                res_plan, kind,
+                res_plan, kind, mesh=mesh,
             )
             if reduce is not None:
                 res_dev = scoring._segment_reduce(res_dev, state["seg_res_dev"], n_out, op2)
     if state["chunks"]:
-        # tail blocks take the resident prefix's dtype and row layout
-        copier = _TailCopier(
-            host_tail, store, state["chunk_rows"], resident.dtype, resident.shape[1:], device
-        )
+        tail_dev = torch.empty(state["p_tail"], dtype=torch.float32, device=device)
         with annotate("ff.hybrid_tail"):
-            tail_dev = _stream_tail(
-                state, copier, q_dev, codebooks, kind, precision, store,
-                cache_device_blocks_budget,
-            )
+            for lo, hi in state["dev_ranges"]:
+                d = state["chunks"][lo]["dev"]
+                dev = state["devices"][d]
+                # one block cache a device, each bounded by the budget
+                store_d = store if len(state["devices"]) == 1 else store.setdefault(
+                    f"dev{d}", {"lock": threading.Lock()}
+                )
+                # tail blocks take the resident prefix's dtype and row layout
+                copier = _TailCopier(
+                    host_tail, store_d, state["chunk_rows"], resident.dtype, resident.shape[1:],
+                    dev,
+                )
+                q_d = q_dev if dev == device else scoring._cached_q_upload(
+                    q_pad, res_plan, f"q_dev@{d}", dev
+                )
+                cb_d = on_device(codebooks, dev) if codebooks is not None else None
+                _stream_tail(
+                    state, lo, hi, copier, q_d, cb_d, kind, precision, store_d,
+                    cache_device_blocks_budget, tail_dev,
+                )
             if reduce is not None:
                 tail_dev = scoring._segment_reduce(tail_dev, state["seg_tail_dev"], n_out, op2)
 

@@ -72,9 +72,15 @@ def _round_bf16(x: torch.Tensor) -> torch.Tensor:
 
 def fetch_np(arr: "torch.Tensor | np.ndarray") -> np.ndarray:
     """Copy a tensor to a host numpy array (waits for the device); host
-    arrays pass through."""
+    arrays pass through.  A row-sharded table is gathered whole from every
+    process (``parallel.multihost.fetch_np``); the port's scores are whole
+    tensors on each process, so their fetch needs no collective."""
     if isinstance(arr, np.ndarray):
         return arr
+    if not isinstance(arr, torch.Tensor):
+        from fastforward_tpu_torch.parallel import multihost
+
+        return multihost.fetch_np(arr)
     return arr.detach().cpu().numpy()
 
 
@@ -351,8 +357,39 @@ def _pick_slots(outs, slot_dev, reduce, fetch):
     picked = torch.take(outs, slot_dev)
     if reduce is not None:
         op, k, counts = reduce
-        picked = _masked_reduce(picked.view(-1, k), counts, op)
+        picked = _masked_reduce(picked.view(-1, k), counts.to(picked.device), op)
     return picked if not fetch else fetch_np(picked)
+
+
+def _finalize_streamed(
+    outs: torch.Tensor,
+    slot_of_pair: np.ndarray,
+    reduce: "tuple | None",
+    plan: "dict | None",
+    key: str,
+    seg_reduce: "tuple | None" = None,
+    fetch: bool = True,
+) -> "np.ndarray | torch.Tensor":
+    """The slot gather over concatenated kernel outputs (the sharded
+    layouts' ``(shards * Tv * cap,)``) on their device, with the K-reduce
+    (``reduce=(op, k, counts)``) or, for a ragged layout, the segment
+    reduce (``seg_reduce=(op, seg, n_out)``); the slot indices (and the
+    segments) stay on the device in ``plan[key]``."""
+    slot_dev = plan.get(key) if plan is not None else None
+    if slot_dev is None:
+        slot_dev = torch.from_numpy(np.ascontiguousarray(slot_of_pair, dtype=np.int64)).to(outs.device)
+        if plan is not None:
+            plan[key] = slot_dev
+    if seg_reduce is None:
+        return _pick_slots(outs, slot_dev, reduce, fetch)
+    op, seg, n_out = seg_reduce
+    seg_dev = plan.get(key + "_seg") if plan is not None else None
+    if seg_dev is None:
+        seg_dev = torch.from_numpy(np.ascontiguousarray(seg, dtype=np.int64)).to(outs.device)
+        if plan is not None:
+            plan[key + "_seg"] = seg_dev
+    red = _segment_reduce(torch.take(outs, slot_dev), seg_dev, n_out, op)
+    return red if not fetch else fetch_np(red)
 
 
 def streamed_scores(
@@ -412,7 +449,7 @@ def streamed_scores_pq(
     ``cap <= r`` and K4 at ``cap > r``.  Scores are decode-then-dot values
     (OPQ queries arrive rotated).
 
-    :param codes: PQ codes, ``(N_pad, M)`` uint8.
+    :param codes: PQ codes, ``(N_pad, M)`` uint8, uint16 or uint32.
     :param codebooks: ``(M, Ks, Ds)`` fp32.
     :return: As :func:`streamed_scores`.
     """
@@ -656,7 +693,7 @@ def _adc_rows(
     """Per row, the sum over subspaces of its query's LUT entry at the
     row's code (``lut`` from :func:`pq_lut`)."""
     m = lut.shape[1]
-    c = codes[rows.long()][:, :m].long()
+    c = stream_kernel_pq.gather_codes(codes, rows.long())[:, :m]
     subspace = torch.arange(m, device=codes.device)[None, :]
     return lut[qno.long()[:, None], subspace, c].sum(-1)
 

@@ -11,8 +11,9 @@ and ``row = tile_idx[t] * r + local``,
 
     out[t, s] = sum_m codebooks[m, codes[row, m]] . q[qno, m*Ds:(m+1)*Ds]
 
-Codes are compact ``(N_pad, M)`` uint8 (Ks <= 256) and the codebooks fp32
-``(M, Ks, Ds)``; the TPU kernels' 128-lane code padding and block-diagonal
+Codes are compact ``(N_pad, M)`` uint8 (Ks <= 256), uint16 or uint32 (any
+Ks the type addresses: the TPU kernels cast any code type to int32) and the
+codebooks fp32 ``(M, Ks, Ds)``; the TPU kernels' 128-lane code padding and block-diagonal
 bf16 codebooks are artifacts of the TPU's layout and are not carried over.
 Tiers follow each TPU kernel: K3 ``exact=True`` (the ``"exact"`` and
 ``"high"`` tiers) is a true fp32 dot, ``exact=False`` rounds codeword and
@@ -26,10 +27,11 @@ card both kernels are query-major (``csrc/adc_lut.cuh``): one call groups
 the slots by query (``csrc/query_groups.cuh``, shared with K1 and K2),
 cuts each query's slots into work items of at most ``ADC_ITEM_SLOTS``
 slots, builds each query's lookup table once, and scores every item from
-its query's table staged in shared memory.  The wrapper sizes the
-grouping's scratch (:func:`adc_scratch_words`) and the tables'
-(:func:`adc_table_queries`), and bounds the number of items
-(:func:`adc_max_items`).
+its query's table staged in shared memory (read from global memory where
+one subspace's table exceeds what a block stages, Ks > 24,576).  The
+wrapper sizes the grouping's scratch (:func:`adc_scratch_words`) and the
+tables' (:func:`adc_table_width`, :func:`adc_table_queries`), and bounds
+the number of items (:func:`adc_max_items`).
 """
 
 import ctypes
@@ -44,8 +46,8 @@ KERNEL_PQ_TILE_ROWS = 512
 #: precision tiers of K4
 PQ_TIERS = ("exact", "high", "fast")
 
-#: largest codebook size the uint8 codes address
-_MAX_KS = 256
+#: the code types the kernels read, with the bits of a code
+CODE_BITS = {torch.uint8: 8, torch.uint16: 16, torch.uint32: 32}
 
 #: slots per work item of the query-major kernels (at most 512 threads x 4)
 ADC_ITEM_SLOTS = 2048
@@ -54,8 +56,12 @@ ADC_ITEM_SLOTS = 2048
 #: queries' tables come in groups of this size)
 ADC_TABLE_BYTES = 64 << 20
 
-#: entries per subspace of a lookup table (any uint8 code addresses one)
-_TABLE_WIDTH = 256
+#: entries per subspace of a uint8 code's lookup table (any uint8 code
+#: addresses one)
+_U8_TABLE_WIDTH = 256
+
+#: widest table the table kernel's grid covers (65,535 blocks of 256)
+_MAX_TABLE_WIDTH = 65535 * 256
 
 #: slots per step of the plain versions (bounds their gathered temporaries)
 _PLAIN_CHUNK_SLOTS = 1 << 17
@@ -69,18 +75,20 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 #: argument types of ``ff_stream_select_pq_pairwise``: codes, m, codebooks,
 #: ks, ds, q, cand, tile_idx, out, slots, cap, qb, r, exact, scratch, item
-#: slots, max items, table scratch, table queries, device, stream
+#: slots, max items, table scratch, table queries, code bytes, table width,
+#: device, stream
 _PAIRWISE_ARGS = (
-    _P, _I, _P, _I, _I, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _P, _I, _LL, _P, _I, _I, _P,
+    _P, _I, _P, _I, _I, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _P, _I, _LL, _P, _I, _I, _I,
+    _I, _P,
 )
 
 #: argument types of ``ff_stream_select_pq``: codes, m, codebooks, ks, ds,
 #: q, q stride along dim, q stride along queries, cand, tile_idx, out,
 #: virtual tiles, cap, qb, r, tier, scratch, item slots, max items, table
-#: scratch, table queries, device, stream
+#: scratch, table queries, code bytes, table width, device, stream
 _SELECT_ARGS = (
     _P, _I, _P, _I, _I, _P, _LL, _LL, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _LL, _P, _I,
-    _I, _P,
+    _I, _I, _I, _P,
 )
 
 
@@ -94,39 +102,52 @@ def adc_max_items(qb: int, n_slots: int) -> int:
     return query_groups.max_items(qb, n_slots, ADC_ITEM_SLOTS)
 
 
-def adc_table_queries(qb: int, m: int) -> int:
-    """Queries whose lookup tables (``m * 256`` fp32 each) one group holds:
-    all ``qb`` where they fit ``ADC_TABLE_BYTES``, else as many as fit (at
-    least one)."""
-    return max(1, min(qb, ADC_TABLE_BYTES // (m * _TABLE_WIDTH * 4)))
+def adc_table_width(ks: int, code_dtype: torch.dtype = torch.uint8) -> int:
+    """Entries of one subspace's lookup table: 256 for uint8 codes (any
+    code addresses one), else ``Ks`` rounded up to a multiple of 4 (the
+    float4 staging)."""
+    return _U8_TABLE_WIDTH if code_dtype == torch.uint8 else -(-ks // 4) * 4
 
 
-def _launch_adc(name, argtypes, head, qb, m, n_slots, device, stream) -> None:
+def adc_table_queries(qb: int, m: int, width: int = _U8_TABLE_WIDTH) -> int:
+    """Queries whose lookup tables (``m * width`` fp32 each) one group
+    holds: all ``qb`` where they fit ``ADC_TABLE_BYTES``, else as many as
+    fit (at least one)."""
+    return max(1, min(qb, ADC_TABLE_BYTES // (m * width * 4)))
+
+
+def _launch_adc(name, argtypes, head, qb, codes, codebooks, n_slots, device, stream) -> None:
     """Allocate the query-major kernels' scratch (grouping words and lookup
     tables) and call ``ff_<name>`` with ``(*head, scratch, item slots, item
-    bound, tables, table queries, device, stream)``."""
+    bound, tables, table queries, code bytes, table width, device,
+    stream)``."""
+    m, ks, _ = codebooks.shape
+    width = adc_table_width(ks, codes.dtype)
+    if width > _MAX_TABLE_WIDTH or m * width > 2**31 - 1:
+        raise ValueError(f"the lookup tables of PQ({m}, {ks}) exceed the kernels' indexing")
     scratch = query_groups.scratch(qb, n_slots, device)
-    groups = adc_table_queries(qb, m)
-    tables = torch.empty(groups * m * _TABLE_WIDTH, dtype=torch.float32, device=device)
+    groups = adc_table_queries(qb, m, width)
+    tables = torch.empty(groups * m * width, dtype=torch.float32, device=device)
     _build.bind(name, argtypes)(
         *head, scratch.data_ptr(), ADC_ITEM_SLOTS, adc_max_items(qb, n_slots),
-        tables.data_ptr(), groups, device, stream,
+        tables.data_ptr(), groups, codes.element_size(), width, device, stream,
     )
 
 
 def _check(codes, codebooks, q, cand3, tile_idx, r, transposed) -> int:
     """Validate the PQ kernels' contract; return ``Qb``."""
-    if codes.dtype != torch.uint8:
-        raise TypeError(
-            f"codes must be uint8 (Ks <= 256; wider codes are not ported), got {codes.dtype}"
-        )
+    bits = CODE_BITS.get(codes.dtype)
+    if bits is None:
+        raise TypeError(f"codes must be uint8, uint16 or uint32, got {codes.dtype}")
     if codes.ndim != 2 or codes.shape[0] % r:
         raise ValueError(f"codes must be (N_pad, M) with N_pad % r == 0, got {tuple(codes.shape)}, r={r}")
     m = codes.shape[1]
     if codebooks.dtype != torch.float32 or codebooks.ndim != 3 or codebooks.shape[0] != m:
         raise ValueError(f"codebooks must be fp32 ({m}, Ks, Ds), got {codebooks.dtype} {tuple(codebooks.shape)}")
-    if codebooks.shape[1] > _MAX_KS:
-        raise ValueError(f"uint8 codes address at most {_MAX_KS} codewords, got Ks={codebooks.shape[1]}")
+    if codebooks.shape[1] > 1 << bits:
+        raise ValueError(
+            f"{codes.dtype} codes address at most {1 << bits} codewords, got Ks={codebooks.shape[1]}"
+        )
     dim = m * codebooks.shape[2]
     want = f"({dim}, Qb)" if transposed else f"(Qb, {dim})"
     if q.dtype != torch.float32 or q.ndim != 2 or q.shape[0 if transposed else 1] != dim:
@@ -156,8 +177,10 @@ def stream_select_pq_pairwise(
     """ADC-score every candidate slot: K3 on the card, the plain version on
     CPU.
 
-    :param codes: PQ codes, ``(N_pad, M)`` uint8, ``N_pad % r == 0``.
-    :param codebooks: Codebooks, ``(M, Ks, Ds)`` fp32, ``Ks <= 256``.
+    :param codes: PQ codes, ``(N_pad, M)`` uint8, uint16 or uint32,
+        ``N_pad % r == 0``.
+    :param codebooks: Codebooks, ``(M, Ks, Ds)`` fp32, ``Ks`` at most what
+        the code type addresses.
     :param qvecs: Query vectors (OPQ-rotated where applicable),
         ``(Qb, M * Ds)`` fp32.
     :param cand3: Packed candidates ``local * Qb + qno``, ``(Tv, CAP/128,
@@ -166,7 +189,8 @@ def stream_select_pq_pairwise(
     :param r: Rows per code tile.
     :param exact: True fp32 ADC dots vs bf16-rounded codewords and queries.
     :raises ValueError: On shapes, layouts or devices the kernel does not take.
-    :raises TypeError: On codes wider than uint8.
+    :raises TypeError: On codes of another type than uint8, uint16 or
+        uint32.
     :raises RuntimeError: When the launch fails (with the CUDA error).
     :return: Scores per slot, ``(Tv, CAP/128, 128)`` fp32.
     """
@@ -183,8 +207,8 @@ def stream_select_pq_pairwise(
         codes.data_ptr(), m, codebooks.data_ptr(), ks, ds, qvecs.data_ptr(), cand3.data_ptr(),
         tile_idx.data_ptr(), out.data_ptr(), out.numel(), cand3.shape[1] * 128, qb, r, int(exact),
     )
-    _launch_adc("stream_select_pq_pairwise", _PAIRWISE_ARGS, head, qb, m, out.numel(), device,
-                stream)
+    _launch_adc("stream_select_pq_pairwise", _PAIRWISE_ARGS, head, qb, codes, codebooks,
+                out.numel(), device, stream)
     _build.count_launch(stream_select_pq_pairwise)
     return out
 
@@ -213,7 +237,8 @@ def stream_select_pq(
 
     :raises ValueError: On shapes, layouts, tiers or devices the kernel does
         not take.
-    :raises TypeError: On codes wider than uint8.
+    :raises TypeError: On codes of another type than uint8, uint16 or
+        uint32.
     :raises RuntimeError: When the launch fails (with the CUDA error).
     :return: Scores per slot, ``(Tv, CAP/128, 128)`` fp32.
     """
@@ -232,13 +257,38 @@ def stream_select_pq(
         qvecs_t.stride(0), qvecs_t.stride(1), cand3.data_ptr(), tile_idx.data_ptr(),
         out.data_ptr(), cand3.shape[0], cand3.shape[1] * 128, qb, r, PQ_TIERS.index(precision),
     )
-    _launch_adc("stream_select_pq", _SELECT_ARGS, head, qb, m, out.numel(), device, stream)
+    _launch_adc("stream_select_pq", _SELECT_ARGS, head, qb, codes, codebooks, out.numel(),
+                device, stream)
     _build.count_launch(stream_select_pq)
     return out
 
 
 #: launches of the CUDA kernel (the plain version does not count)
 stream_select_pq.launches = 0
+
+
+#: the signed type of each code type's width (gathers run on the signed view:
+#: it indexes on every device)
+_SIGNED_VIEW = {torch.uint16: (torch.int16, 0xFFFF), torch.uint32: (torch.int32, 0xFFFFFFFF)}
+
+
+def take_rows(table: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """``table[rows]`` in the table's own dtype (uint16 and uint32 rows are
+    gathered through their signed view)."""
+    signed = _SIGNED_VIEW.get(table.dtype)
+    if signed is None:
+        return table[rows]
+    return table.view(signed[0])[rows].view(table.dtype)
+
+
+def gather_codes(codes: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """The code rows ``codes[rows]`` as int64 (uint16 and uint32 codes are
+    gathered through their signed view and masked back)."""
+    signed = _SIGNED_VIEW.get(codes.dtype)
+    if signed is None:
+        return codes[rows].long()
+    dtype, mask = signed
+    return codes.view(dtype)[rows].long() & mask
 
 
 def _adc_plain(codes, codebooks, q, cand3, tile_idx, r, round_codewords, round_query):
@@ -257,7 +307,7 @@ def _adc_plain(codes, codebooks, q, cand3, tile_idx, r, round_codewords, round_q
     out = torch.empty(cand.shape[0], dtype=torch.float32, device=codes.device)
     for lo in range(0, cand.shape[0], _PLAIN_CHUNK_SLOTS):
         hi = lo + _PLAIN_CHUNK_SLOTS
-        words = cb[sub, codes[row[lo:hi]].long()]  # (S, M, Ds)
+        words = cb[sub, gather_codes(codes, row[lo:hi])]  # (S, M, Ds)
         out[lo:hi] = (words * qq[qno[lo:hi]]).sum((1, 2))
     return out.view(cand3.shape)
 

@@ -20,7 +20,8 @@ device program (``Index._serve_arrays``), and results split back per
 request by query ranges — no frame concat, no q_id namespacing, no
 string splits (requests may reuse the same ``q_id`` strings; separation
 is positional).  Requests that cannot pre-resolve (no device view,
-too-ragged documents) send their batch down the frame path: query IDs
+multi-process meshes, too-ragged documents) send their batch down the
+frame path: query IDs
 namespaced with an opaque per-request prefix, one merged ``submit_serve``
 dispatch, tag-based split.  Either way only ``(2, Q, cutoff)`` packed
 values are copied back per batch, and batches are pipelined: while batch

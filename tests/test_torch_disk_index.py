@@ -31,6 +31,7 @@ from fastforward_tpu.quantizer import NanoPQ as JaxNanoPQ
 from fastforward_tpu.ranking import Ranking as JaxRanking
 from fastforward_tpu_torch.encoder import LambdaEncoder
 from fastforward_tpu_torch.index import InMemoryIndex, Mode, OnDiskIndex
+from fastforward_tpu_torch.parallel import MeshConfig
 from fastforward_tpu_torch.quantizer import NanoPQ, ScalarQuantizer
 from fastforward_tpu_torch.ranking import Ranking
 from fastforward_tpu_torch.utils import create_coalesced_index
@@ -737,12 +738,13 @@ def test_host_gather_scores_on_the_index_device(tmp_path):
 
 
 def test_unported_options_and_no_card(tmp_path):
-    """``mesh_config`` raises naming ROADMAP item 14; ``hbm_budget`` and
-    ``stream_chunk_rows`` (the hybrid tier, ported since) build a hybrid
-    view of the file's table, for a new index and a loaded one, whose
-    scores equal the whole table's."""
-    with pytest.raises(NotImplementedError, match="item 14"):
-        _disk(tmp_path / "a.h5", mesh_config=object())
+    """``mesh_config``, ``hbm_budget`` and ``stream_chunk_rows`` (ported
+    since) build the views they name over the file's table: a hybrid view,
+    for a new index and a loaded one, and a table sharded over two CPU
+    slots; their scores equal the whole table's.  A mesh of more cards than
+    exist raises ``ValueError``."""
+    with pytest.raises(ValueError):
+        MeshConfig(data=16, shard=16).build()
     rng = np.random.default_rng(11)
     vectors = rng.standard_normal((6000, 128), dtype=np.float32)
     q = rng.standard_normal(128, dtype=np.float32)
@@ -758,6 +760,14 @@ def test_unported_options_and_no_card(tmp_path):
         view = index._device_view()
         assert view.kind == "hybrid" and view.tail_start == 1024 and view.chunk_rows == 1024
         assert index(ranking) == want
+    sharded = _load(
+        tmp_path / "b.h5", query_encoder=encoder, mode=Mode.PASSAGE, hbm_cache=True,
+        mesh_config=MeshConfig(data=1, shard=2),
+    )
+    assert sharded._device_view().mesh is not None
+    got = sharded(ranking)
+    assert list(got["q0"]) == list(want["q0"])
+    np.testing.assert_allclose(list(got["q0"].values()), list(want["q0"].values()), rtol=1e-6)
     with pytest.raises(ValueError, match="exists"):
         _disk(tmp_path / "c.h5")
         _disk(tmp_path / "c.h5")

@@ -349,6 +349,180 @@ def test_cuda_k3_k4_table_groups(cuda, monkeypatch, precision):
         _assert_within_sum_order(got, want, absdot, m * ds)
 
 
+#: (M, Ks, Ds, code type) of wide codes: PQ(96, 1024) at dim 768 (uint16,
+#: 24 subspaces a staged chunk, 16-byte loads of 8 codes); 4-byte loads
+#: (M = 20) and single-code loads (M = 7, Ks = 1001: a table 1004 wide);
+#: uint32 codes with 16-byte and single-code loads; Ks = 4096 (6 subspaces a
+#: chunk, so the chunks shrink to whole 4-byte loads); and the global-memory
+#: table body (Ks = 32,768 and 40,000: one subspace's table exceeds what a
+#: block stages)
+WIDE_PQ_SHAPES = [
+    (96, 1024, 8, np.uint16), (20, 1000, 8, np.uint16), (7, 1001, 8, np.uint16),
+    (16, 300, 8, np.uint32), (5, 300, 8, np.uint32), (48, 4096, 16, np.uint16),
+    (8, 32768, 4, np.uint16), (3, 40000, 2, np.uint32),
+]
+
+
+@pytest.mark.parametrize("layout", ["uniform", "half_padding"])
+@pytest.mark.parametrize(
+    "shape", WIDE_PQ_SHAPES, ids=lambda s: "m%d_ks%d_%s" % (s[0], s[1], np.dtype(s[3]).name)
+)
+@pytest.mark.parametrize("precision", ["exact", "high", "fast"])
+def test_cuda_k3_k4_wide_codes_match_plain(cuda, precision, shape, layout):
+    """K3 and K4 on uint16 and uint32 codes (the staged and the global-memory
+    table bodies) against their plain versions, one launch each, every code
+    of the range in use."""
+    m, ks, ds, dtype = shape
+    for cap, seed in ((512, 21), (1024, 22)):
+        rng = np.random.default_rng(seed)
+        codes = rng.integers(0, ks, size=(N_PAD, m)).astype(dtype)
+        codes[0] = ks - 1
+        cb = rng.standard_normal((m, ks, ds), dtype=np.float32)
+        qb, cand3, tile_idx = _layout(rng, layout, cap)
+        q = rng.standard_normal((qb, m * ds), dtype=np.float32)
+        codes, cb, q, cand3, tile_idx = [
+            torch.from_numpy(a).to(cuda) for a in (codes, cb, q, cand3, tile_idx)
+        ]
+        assert codes.dtype == (torch.uint16 if dtype == np.uint16 else torch.uint32)
+        if cap <= sk.KERNEL_TILE_ROWS:
+            exact = precision != "fast"
+            before = skpq.stream_select_pq_pairwise.launches
+            got = skpq.stream_select_pq_pairwise(codes, cb, q, cand3, tile_idx, exact=exact)
+            assert skpq.stream_select_pq_pairwise.launches == before + 1
+            want = skpq.stream_select_pq_pairwise_plain(codes, cb, q, cand3, tile_idx, exact=exact)
+            absdot = skpq.stream_select_pq_pairwise_plain(
+                codes, cb.abs(), q.abs(), cand3, tile_idx, exact=exact
+            )
+        else:
+            before = skpq.stream_select_pq.launches
+            got = skpq.stream_select_pq(codes, cb, q.t(), cand3, tile_idx, precision=precision)
+            assert skpq.stream_select_pq.launches == before + 1
+            want = skpq.stream_select_pq_plain(codes, cb, q.t(), cand3, tile_idx, precision=precision)
+            absdot = skpq.stream_select_pq_plain(
+                codes, cb.abs(), q.abs().t(), cand3, tile_idx, precision=precision
+            )
+        torch.cuda.synchronize()
+        _assert_within_sum_order(got, want, absdot, m * ds)
+
+
+def test_cuda_wide_code_tensors(cuda):
+    """The device ops the port runs on uint16 and uint32 code tables: zeros,
+    host copies, slices, the signed-view gather."""
+    for dtype, top in ((np.uint16, 65535), (np.uint32, 2**32 - 1)):
+        host = np.array([[0, top], [top, 7], [5, 6]], dtype=dtype)
+        table = torch.zeros((8, 2), dtype=torch.from_numpy(host).dtype, device=cuda)
+        table[:3].copy_(torch.from_numpy(host))
+        rows = torch.tensor([1, 0, 2, 7], device=cuda)
+        got = skpq.gather_codes(table, rows)
+        assert got.cpu().tolist() == [[top, 7], [0, top], [5, 6], [0, 0]]
+        assert table[1:3].cpu().numpy().tolist() == host[1:].tolist()
+
+
+def test_cuda_pq_1024_index_matches_cpu(cuda):
+    """A PQ(16, 1024) index (uint16 codes) on the card launches K3 and K4 and
+    agrees with the same codes scored on the CPU, re-rank and serve."""
+    rng = np.random.default_rng(2)
+    n, queries = 8192, 48
+    corpus = rng.standard_normal((n, DIM), dtype=np.float32)
+    qvecs = rng.standard_normal((queries, DIM), dtype=np.float32)
+    by_text = {f"query {i}": qvecs[i] for i in range(queries)}
+    quantizer = PQ(16, 1024, device="cpu")
+    quantizer.fit(corpus[:4096])
+    codes = quantizer.encode(corpus)
+    assert codes.dtype == np.uint16
+    for depth, kernel in ((80, skpq.stream_select_pq_pairwise), (200, skpq.stream_select_pq)):
+        run = {
+            f"q{i}": {f"p{c}": 1.0 for c in rng.choice(n, depth, replace=False)}
+            for i in range(queries)
+        }
+        ranking = ft.Ranking.from_run(run, queries={f"q{i}": f"query {i}" for i in range(queries)})
+        out = {}
+        for device in ("cpu", "cuda"):
+            index = convert.index_from_codes(
+                codes, None, [f"p{i}" for i in range(n)], "PASSAGE", quantizer,
+                query_encoder=LambdaEncoder(by_text.__getitem__), device=device,
+            )
+            before = kernel.launches
+            out[device] = (index(ranking), index.serve(ranking, 0.2, 10))
+            assert kernel.launches - before == (2 if device == "cuda" else 0)
+        for got, want in zip(out["cuda"], out["cpu"]):
+            np.testing.assert_array_equal(got._df["id"].astype(str), want._df["id"].astype(str))
+            np.testing.assert_allclose(got._df["score"], want._df["score"], atol=1e-4, rtol=1e-5)
+
+
+def test_cuda_two_shard_mesh_on_one_card(cuda):
+    """A ``(1, 2)`` mesh of one card named twice: the streamed path
+    launches K1 (and K3 for PQ codes) once per shard, the gather path runs
+    per position, and both equal the single-table programs."""
+    from fastforward_tpu_torch.parallel import MeshConfig, multihost, sharded
+
+    rng = np.random.default_rng(3)
+    n, qb = 8192, 16
+    table = rng.standard_normal((n, DIM), dtype=np.float32)
+    q = rng.standard_normal((qb, DIM), dtype=np.float32)
+    mesh = MeshConfig(data=1, shard=2).build(devices=[cuda, cuda])
+    st = sharded.ShardedTable.from_reader(mesh, (n, DIM), lambda a, b: table[a:b])
+    whole = torch.from_numpy(table).to(cuda)
+    rows = rng.integers(0, n, size=6000)
+    qno = rng.integers(0, qb, size=6000)
+    before = sk.stream_select_pairwise.launches
+    got = sharded.streamed_scores_sharded(mesh, st, q, rows, qno, plan={})
+    assert sk.stream_select_pairwise.launches == before + 2
+    want = scoring.streamed_scores(whole, q, rows, qno)
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-5)
+    k, s_b = 4, 512
+    idx = np.zeros((k + 1, s_b), dtype=np.int32)
+    idx[:k] = rng.integers(0, n, size=(k, s_b))
+    idx[k] = (rng.integers(0, qb, size=s_b) << 8) | rng.integers(1, k + 1, size=s_b)
+    got = sharded.score_pairs_sharded(mesh, st, q, idx, "max")
+    want = scoring.score_pairs_grouped(whole, torch.from_numpy(q).to(cuda), torch.from_numpy(idx).to(cuda), "max")
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-5)
+    m, ks = 32, 1024
+    codes = rng.integers(0, ks, size=(n, m)).astype(np.uint16)
+    cb = rng.standard_normal((m, ks, DIM // m), dtype=np.float32)
+    sc = sharded.ShardedTable.from_reader(mesh, (n, m), lambda a, b: codes[a:b])
+    rep = multihost.put_replicated(mesh, cb)
+    before = skpq.stream_select_pq_pairwise.launches
+    got = sharded.streamed_scores_sharded_pq(mesh, sc, rep, q, rows, qno, plan={})
+    assert skpq.stream_select_pq_pairwise.launches == before + 2
+    want = scoring.streamed_scores_pq(
+        torch.from_numpy(codes).to(cuda), rep.on(mesh.first_device), q, rows, qno
+    )
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-5)
+
+
+def test_cuda_hybrid_budget_on_a_card_named_twice(cuda):
+    """``hbm_budget`` bounds the card's memory when a ``(1, 2)`` mesh names
+    it twice: the two shards of the resident prefix and the card's one
+    tail-block cache together stay within the budget, and the scores equal
+    the whole table's."""
+    from fastforward_tpu_torch.index.base import build_hybrid_view
+    from fastforward_tpu_torch.parallel import MeshConfig
+
+    rng = np.random.default_rng(4)
+    n, dim, qb, budget = 65536, 768, 16, 32 << 20
+    table = rng.standard_normal((n, dim), dtype=np.float32)
+    q_pad = rng.standard_normal((qb, dim), dtype=np.float32)
+    rows = np.arange(n, dtype=np.int64)
+    qno = rng.integers(0, qb, size=n)
+    want = scoring.streamed_scores(torch.from_numpy(table).to(cuda), q_pad, rows, qno)
+    mesh = MeshConfig(data=1, shard=2).build(devices=[cuda, cuda])
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    view = build_hybrid_view(table, n, dim, budget, "high", cuda, chunk_rows=2048, mesh=mesh)
+    assert view is not None and view.mesh is mesh and view.tail_start == 2 * 3072
+    assert torch.cuda.memory_allocated() - base <= budget
+    for _ in range(2):  # the second call fills the card's block cache
+        got = InMemoryIndex._hybrid_scores(view, q_pad, rows, qno, None, None)
+        np.testing.assert_allclose(got, want, atol=1e-3, rtol=1e-5)
+    torch.cuda.synchronize()
+    assert view.aux.get("tail_blocks"), "no tail block was cached"
+    assert torch.cuda.memory_allocated() - base <= budget
+    plan: dict = {}
+    InMemoryIndex._hybrid_scores(view, q_pad, rows, qno, plan, None)
+    assert plan["hybrid"]["devices"] == [torch.device("cuda", 0)]
+
+
 @pytest.mark.parametrize("kind", ["int8", "PQ", "OPQ"])
 def test_cuda_quantized_index_launches_kernels(cuda, monkeypatch, kind):
     """A quantized index on the card launches its kernels and never a plain

@@ -19,8 +19,8 @@ tests' ``places=3``).
 Not applicable to the port: ``TestHybridPallasFallback`` and
 ``test_scan_state_retries_pallas_after_transient_failure`` (the port has no
 scan to fall back to: on a CUDA tensor a wrapper launches its kernel or
-raises), and the ``mesh_config`` half of ``test_rejects_store_device``
-(multi-device tables are ROADMAP item 14; the port raises naming it).
+raises).  The sharded hybrid tier (``mesh_config`` with ``hbm_budget``)
+runs against the JAX package's in ``tests/test_torch_parallel.py``.
 """
 
 import tempfile
@@ -39,8 +39,9 @@ from fastforward_tpu.quantizer import ScalarQuantizer as JaxScalarQuantizer
 from fastforward_tpu.ranking import Ranking as JaxRanking
 from fastforward_tpu_torch import convert
 from fastforward_tpu_torch.encoder import LambdaEncoder
-from fastforward_tpu_torch.index import InMemoryIndex, Mode
+from fastforward_tpu_torch.index import InMemoryIndex, Mode, memory
 from fastforward_tpu_torch.ops import host_stream
+from fastforward_tpu_torch.parallel import MeshConfig
 
 RNG = np.random.default_rng(123)
 N, DIM = 6000, 128
@@ -292,13 +293,24 @@ def test_add_invalidates_hybrid_view():
     assert port._device_view().host_tail.shape[0] == N + 8 - 1024
 
 
-def test_rejects_store_device():
+def test_rejects_store_device(monkeypatch):
+    """``store="device"`` with a budget raises, as in the JAX package; a
+    budget with a mesh builds the sharded hybrid tier in one process and
+    raises the JAX package's error under several processes."""
     with pytest.raises(ValueError):
         InMemoryIndex(_enc(), store="device", hbm_budget=BUDGET, device="cpu")
     with pytest.raises(ValueError):
         JaxInMemoryIndex(_jax_enc(), store="device", hbm_budget=BUDGET)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        InMemoryIndex(_enc(), mesh_config=object(), hbm_budget=BUDGET, device="cpu")
+    index = InMemoryIndex(
+        _enc(), mode=Mode.PASSAGE, mesh_config=MeshConfig(data=1, shard=2), hbm_budget=BUDGET,
+        device="cpu",
+    )
+    index.add(CORPUS, psg_ids=PSG_IDS)
+    view = index._device_view()
+    assert view.kind == "hybrid" and view.mesh is not None and view.host_tail.shape[0] > 0
+    monkeypatch.setattr(memory, "process_count", lambda: 2)
+    with pytest.raises(ValueError, match="single-process"):
+        InMemoryIndex(_enc(), mesh_config=MeshConfig(data=1, shard=2), hbm_budget=BUDGET, device="cpu")
 
 
 # -- TestHybridOnDisk ----------------------------------------------------------------

@@ -18,6 +18,7 @@ from fastforward_tpu.index import Mode as JaxMode
 from fastforward_tpu_torch import convert
 from fastforward_tpu_torch.encoder import LambdaEncoder
 from fastforward_tpu_torch.index import InMemoryIndex, Mode, ScoreFuture
+from fastforward_tpu_torch.parallel import MeshConfig
 from fastforward_tpu_torch.ops import stream_kernel as sk
 from fastforward_tpu_torch.quantizer import ScalarQuantizer
 
@@ -194,7 +195,7 @@ def test_convert_carries_rows_and_ids(data):
     [
         ({"store": "device"}, None),
         ({"hbm_budget": 4 << 20}, None),
-        ({"mesh_config": object()}, NotImplementedError),
+        ({"mesh_config": MeshConfig(data=2, shard=4)}, None),
         ({"hbm_budget": 4 << 20, "stream_chunk_rows": 1024}, None),
         ({"score_transport": "u16"}, None),
         ({"score_transport": "f16"}, ValueError),
@@ -204,13 +205,14 @@ def test_convert_carries_rows_and_ids(data):
     ],
 )
 def test_unported_options_raise(data, kwargs, err):
-    """What the port still lacks raises (``mesh_config``, ROADMAP item 14);
-    an option ported since (``err`` is ``None``: the device store, the
-    hybrid tier at a budget of half the table, the u16 score transport)
-    constructs and scores within the u16 transport's bound, ``(max - min) /
-    131070`` of the f32 port's scores (the other options score exactly)."""
+    """Bad option values raise; every option the port has (``err`` is
+    ``None``: the device store, the hybrid tier at a budget of half the
+    table, a table sharded over a ``(2, 4)`` mesh of CPU slots, the u16
+    score transport) constructs and scores within the u16 transport's bound,
+    ``(max - min) / 131070`` of the f32 port's scores (the other options
+    score exactly)."""
     if err is not None:
-        with pytest.raises(err, match="item 14" if "mesh_config" in kwargs else None):
+        with pytest.raises(err):
             InMemoryIndex(device="cpu", **kwargs)
         return
     corpus, by_text, queries, runs = data

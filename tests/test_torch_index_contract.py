@@ -27,6 +27,7 @@ from fastforward_tpu.quantizer import NanoPQ as JaxNanoPQ
 from fastforward_tpu_torch import convert
 from fastforward_tpu_torch.encoder import LambdaEncoder
 from fastforward_tpu_torch.index import InMemoryIndex, Mode
+from fastforward_tpu_torch.parallel import MeshConfig
 from fastforward_tpu_torch.quantizer import NanoPQ
 from fastforward_tpu_torch.utils import create_coalesced_index
 
@@ -241,10 +242,21 @@ class TestTorchInMemoryIndexDeviceStore(TestTorchInMemoryIndex):
         assert index._store is None and index._dev_table.shape[0] % 4096 == 0
 
     def test_device_store_option_validation(self):
+        """``hbm_budget`` with the device store raises; a mesh is taken (the
+        buffer is row-sharded over two CPU slots and its rows read back),
+        and a mesh of more cards than exist raises ``ValueError``."""
         with self.assertRaises(ValueError):
             self._new(hbm_budget=1 << 20)
-        with self.assertRaisesRegex(NotImplementedError, "item 14"):
-            self._new(mesh_config=object())
+        index = self._new(mesh_config=MeshConfig(data=1, shard=2), mode=Mode.PASSAGE)
+        data = np.random.default_rng(6).normal(size=(40, 128)).astype(np.float32)
+        psg_ids = [f"psg_{i}" for i in range(40)]
+        index.add(data[:20], psg_ids=psg_ids[:20])
+        index.add(data[20:], psg_ids=psg_ids[20:])
+        vecs, ids = index._get_vectors(psg_ids)
+        _assert_vectors_match(vecs, ids, data, psg_ids)
+        assert index._store is None and index._device_view().mesh is not None
+        with self.assertRaises(ValueError):
+            MeshConfig(data=16, shard=16).build()
 
     def test_bad_store_rejected(self):
         with self.assertRaises(ValueError):

@@ -164,6 +164,11 @@ def test_padding_slots_score_zero():
 
 
 def _bad_inputs(case: str):
+    """The inputs of one case the wrappers reject.  The kernels read uint8,
+    uint16 and uint32 codes: ``codes_uint16`` passes signed 16-bit codes
+    (``TypeError``), ``ks_over_256`` a codebook larger than uint8 codes
+    address (``ValueError``); ``tests/test_torch_pq_wide.py`` has the other
+    widths."""
     codes, cb, q, cand3, tile_idx, _, _ = _inputs(cap=512, seed=1)
     c, b, qq, cd, ti = _torch(codes, cb, q, cand3, tile_idx)
     if case == "codes_uint16":
