@@ -3,8 +3,9 @@
 document ranking, early stopping, preload, the u16 score transport, the
 batching server, the transformer query towers, the disk index, the hybrid
 tier beyond device memory, the device store, the progressive preload, PQ
-codes wider than uint8, and multi-device tables (sharded scoring in one
-process and across two).
+codes wider than uint8, multi-device tables (sharded scoring in one
+process and across two), and the JAX package's contract suites' hard cases
+(ties, near-duplicates, a mega-document, skewed and depth-1 runs).
 
 Run from the repository root on a machine with one NVIDIA GPU::
 
@@ -187,9 +188,28 @@ Phases, each of which must pass (any failure exits non-zero):
     re-ranks and serves the flagship run and phase 12's MAXP run, checks
     them against float64, counts its own K1 launches (one a call) and
     prints a digest; both must exit 0 with the same digest (NCCL across
-    cards is not run: the machine has one card).
+    cards is not run: the machine has one card);
+27. the JAX package's contract suites' hard cases at full width
+    (``contract_phase``): the first 262,144 flagship rows at dim 768 with
+    one document of 4,096 passages, 256 identical rows and 64 pairs of rows
+    2^-10 apart (relative) in one coordinate, as fp32 on the host store
+    (``"exact"``) and on ``store="device"`` (``"fast"``), int8 (phase 7's
+    quantizer), ``PQ(96, 256)`` (phase 9's) and ``PQ(96, 1024)``: 64
+    queries of geometric depths 1-1000 (re-rank and ``serve(ranking, 0.2,
+    10)``); equal lexical scores over passages and over MAXP documents;
+    fully tied scores, whose serve cut and re-rank must keep the ranking's
+    order (``lax.top_k``'s lower index first) and whose early-stopping
+    serve must return 10 per query; the near-duplicates, which the
+    ``"exact"`` table must order as float64 does; the 4,096-passage document
+    among singletons in MAXP, AVEP and FIRSTP (the flat path); and 512
+    queries of depth 1 (the gather branch, which must launch nothing).
+    Every score is checked against float64 (of the decoded rows, or of
+    bf16-rounded operands in the fast tier) and every result order against
+    the oracle's; K1 must launch for fp32, K2 for int8 MAXP, K3 and K4 for
+    PQ.  The phase's seconds are printed beside the card's name and power
+    limit.
 
-The phases run in the order 1-5, 12, 14-20, 22, 23, 6-11, 24-26 (phases 13
+The phases run in the order 1-5, 12, 14-20, 22, 23, 6-11, 24-27 (phases 13
 and 21 inside 7 and 9, while their indexes exist).  After phases 12 (for 4 and 12 together),
 14 and 7-10, one warm call of each flow (and one cold early-stopping call)
 runs under
@@ -288,6 +308,12 @@ PQ_GLOBAL_SHAPE = (96, 32_768)
 #: time limit forces a cut) and the seconds the job may take
 MP_N = N
 MP_TIMEOUT_S = 420
+#: phase 27: the JAX contract suites' hard cases on ``DENSE_N`` rows: one
+#: document of ``CONTRACT_MEGA`` passages, ``CONTRACT_TIE_ROWS`` identical
+#: rows, ``CONTRACT_NEAR_PAIRS`` near-duplicate pairs; the queries and depth
+#: of the skewed, tied and near-duplicate runs, and the depth-1 run's queries
+CONTRACT_MEGA, CONTRACT_TIE_ROWS, CONTRACT_NEAR_PAIRS = 4096, 256, 64
+CONTRACT_QUERIES, CONTRACT_DEPTH, CONTRACT_DEPTH1_QUERIES = 64, 1000, 512
 
 QUANT_FIT = 1 << 16  # training vectors of the quantizers
 DENSE_N = 262_144  # rows of the dense-tile phases: ~1,000 pairs per 512-row tile
@@ -624,10 +650,9 @@ def check_rerank(result, exact, what, queries=CHECK_QUERIES):
     log(f"  {what}: {n_pairs} pairs of {queries} queries match float64 (max err {worst:.3e})")
 
 
-def check_serve(result, run, exact, what):
-    """Top-``CUTOFF`` ids and scores, for the first ``CHECK_QUERIES``
-    queries of ``run``, against the float64 interpolation of ``exact``'s
-    scores."""
+def check_serve(result, run, exact, what, queries=CHECK_QUERIES):
+    """Top-``CUTOFF`` ids and scores, for the first ``queries`` queries of
+    ``run``, against the float64 interpolation of ``exact``'s scores."""
     df = result._df
     want_rows = sum(min(CUTOFF, len(c)) for c in run.values())
     check(len(df) == want_rows, f"{what}: {len(df)} rows, want {want_rows}")
@@ -635,7 +660,7 @@ def check_serve(result, run, exact, what):
     for q, i, s in zip(df["q_id"].astype(str), df["id"].astype(str), df["score"]):
         by_q.setdefault(q, []).append((i, float(s)))
     worst = 0.0
-    for q in list(run)[:CHECK_QUERIES]:
+    for q in list(run)[:queries]:
         cand = list(run[q].items())
         sem, sem_tol = exact(q, [p for p, _ in cand])
         lex = torch.tensor([s for _, s in cand], device="cuda", dtype=torch.float64)
@@ -656,7 +681,7 @@ def check_serve(result, run, exact, what):
             # a miss is allowed only within rounding of the cut
             check(exact_of[pid] - floor <= 2 * tol_of[pid],
                   f"{what}: {q} lost true top-{CUTOFF} candidate {pid}")
-    log(f"  {what}: top-{CUTOFF} of {min(CHECK_QUERIES, len(run))} queries match the "
+    log(f"  {what}: top-{CUTOFF} of {min(queries, len(run))} queries match the "
         f"exact ranking (max score err {worst:.3e})")
 
 
@@ -2392,6 +2417,250 @@ def multiprocess_phase(n: int) -> dict:
     return {"wall_s": wall_s, "n": n, "processes": results}
 
 
+def by_query(df, column: str) -> dict:
+    """``column``'s values of each query, in the frame's order."""
+    out = {}
+    for q, v in zip(df["q_id"].astype(str), df[column].tolist()):
+        out.setdefault(q, []).append(v)
+    return out
+
+
+def check_order(result, exact, what, run=None) -> int:
+    """Each query's result order against the float64 oracle's: two results
+    in a row may stand in the oracle's reverse order only within the sum of
+    their tolerances (``exact``'s; with ``run``, of the interpolation
+    ``ALPHA * lex + (1 - ALPHA) * sem`` the serve tail ranks by).  Returns
+    the pairs of neighbours checked."""
+    df = result._df
+    qid = df["q_id"].astype(str).to_numpy()
+    ids = df["id"].astype(str).to_numpy()
+    pairs = 0
+    for q in dict.fromkeys(qid):
+        sel = ids[qid == q]
+        ref, tol = exact(q, sel)
+        if run is not None:
+            lex = torch.tensor([run[q][i] for i in sel], dtype=torch.float64, device=ref.device)
+            ref = ALPHA * lex + (1 - ALPHA) * ref
+            tol = (1 - ALPHA) * tol + ref.abs() * 2.0**-22
+        bad = (ref[:-1] - ref[1:] < -(tol[:-1] + tol[1:])).nonzero().flatten()
+        check(bad.numel() == 0, f"{what}: {q} ranks {sel[int(bad[0]) if bad.numel() else 0]} above a "
+              "better candidate")
+        pairs += sel.shape[0] - 1
+    return pairs
+
+
+def contract_workload(corpus: np.ndarray, n: int):
+    """Phase 27's table and runs over the first ``n`` flagship rows: one
+    document of ``CONTRACT_MEGA`` passages (``d0``, rows ``[0, MEGA)``),
+    then documents of 1-7 passages; ``CONTRACT_TIE_ROWS`` identical rows;
+    ``CONTRACT_NEAR_PAIRS`` pairs of rows equal but for coordinate 0, 8 and
+    ``8 (1 + 2^-10)``; queries whose coordinate 0 is +-4, so each pair's
+    dots differ by 2^-5, below bf16's resolution of the rows."""
+    rng = np.random.default_rng(SEED + 11)
+    data = corpus[:n].copy()
+    tie_lo = CONTRACT_MEGA
+    data[tie_lo : tie_lo + CONTRACT_TIE_ROWS] = data[tie_lo]
+    near_lo = tie_lo + CONTRACT_TIE_ROWS
+    near = np.arange(near_lo, near_lo + 2 * CONTRACT_NEAR_PAIRS)
+    data[near[1::2]] = data[near[0::2]]
+    data[near[0::2], 0] = 8.0
+    data[near[1::2], 0] = np.float32(8.0 * (1 + 2.0**-10))
+    rest, _, _ = make_doc_ids(n - CONTRACT_MEGA, SEED + 12)
+    counts = np.concatenate([[CONTRACT_MEGA], rest])
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    doc_ids = [f"d{d}" for d, c in enumerate(counts.tolist()) for _ in range(c)]
+    qvecs = rng.standard_normal((max(CONTRACT_QUERIES, CONTRACT_DEPTH1_QUERIES), DIM), dtype=np.float32)
+    qvecs[:, 0] = np.where(qvecs[:, 0] < 0, -4.0, 4.0)
+    nq, depth = CONTRACT_QUERIES, CONTRACT_DEPTH
+    depths = np.round(np.geomspace(1, depth, nq)).astype(int)
+    singles = np.flatnonzero(counts == 1)
+    runs = {
+        # 64 queries from depth 1 to 1000, geometric
+        "skewed": {f"q{q}": {f"p{c}": float(d - i) for i, c in enumerate(rng.choice(n, d, replace=False))}
+                   for q, d in enumerate(depths)},
+        # every lexical score equal: the semantic scores alone decide
+        "lex_ties": {f"q{q}": {f"p{c}": 7.0 for c in rng.choice(n, depth, replace=False)} for q in range(nq)},
+        "lex_ties_maxp": {f"q{q}": {f"d{c}": 7.0 for c in 1 + rng.choice(counts.shape[0] - 1, depth, replace=False)}
+                          for q in range(nq)},
+        # identical rows and equal lexical scores: every score ties
+        "full_ties": {f"q{q}": {f"p{c}": 1.0 for c in tie_lo + rng.permutation(CONTRACT_TIE_ROWS)}
+                      for q in range(nq)},
+        "near_dups": {f"q{q}": {f"p{c}": 0.0 for c in rng.permutation(near)} for q in range(nq)},
+        # the mega-document among single-passage documents
+        "mega": {f"q{q}": {"d0": 9.0, **{f"d{c}": float(i) for i, c in enumerate(rng.choice(singles, nq - 1, replace=False))}}
+                 for q in range(nq)},
+        "depth1": {f"q{q}": {f"p{int(rng.integers(n))}": 2.0} for q in range(CONTRACT_DEPTH1_QUERIES)},
+    }
+    return data, doc_ids, counts, starts, qvecs, runs, near
+
+
+def contract_phase(corpus, sq, pq, wrappers, launches) -> dict:
+    """Phase 27: the JAX package's contract suites' hard cases through the
+    public API at dim 768 on ``DENSE_N`` rows, on five tables: fp32 on the
+    host store (``"exact"``) and on ``store="device"`` (``"fast"``), int8
+    (phase 7's quantizer), ``PQ(96, 256)`` (phase 9's) and ``PQ(96, 1024)``
+    (uint16 codes): skewed depths, lexical ties (passages and MAXP
+    documents), full ties (held to the lower-index-first order of the
+    JAX package's ``lax.top_k``; early stopping on them terminates),
+    near-duplicate rows, a mega-document in MAXP/AVEP/FIRSTP (the flat
+    path), and a depth-1 run of 512 queries (the gather branch: no kernel).
+    Every score is checked against float64 (of the decoded rows, or of the
+    bf16-rounded operands in the fast tier), every order against the
+    oracle's; K1 must launch for fp32, K2 for int8 MAXP, K3 and K4 for
+    PQ."""
+    from fastforward_tpu_torch import InMemoryIndex, Mode, Ranking
+    from fastforward_tpu_torch.encoder import LambdaEncoder
+    from fastforward_tpu_torch.ops import scoring
+    from fastforward_tpu_torch.quantizer import PQ
+
+    t_phase = time.perf_counter()
+    n = DENSE_N
+    data, doc_ids, counts, starts, qvecs, runs, near = contract_workload(corpus, n)
+    psg_ids = [f"p{i}" for i in range(n)]
+    queries = {f"q{q}": f"query {q}" for q in range(qvecs.shape[0])}
+    by_text = {f"query {q}": qvecs[q] for q in range(qvecs.shape[0])}
+    q_index = {f"q{q}": q for q in range(qvecs.shape[0])}
+    rankings = {k: Ranking.from_run(r, queries={q: queries[q] for q in r}) for k, r in runs.items()}
+    q_dev = torch.from_numpy(qvecs).cuda()
+    data_dev = torch.from_numpy(data).cuda()
+    t0 = time.perf_counter()
+    pq_wide = PQ(PQ_M, PQ_WIDE_KS)
+    pq_wide.fit(data[:QUANT_FIT])
+    fit_s = time.perf_counter() - t0
+
+    def new_index(**kw):
+        index = InMemoryIndex(query_encoder=LambdaEncoder(by_text.__getitem__), mode=Mode.PASSAGE,
+                              init_size=n, **kw)
+        add_in_chunks(index, data, psg_ids, doc_ids)
+        return index
+
+    tables = {
+        "fp32": (lambda: new_index(precision="exact"), lambda ix: (data_dev, q_dev)),
+        "fp32_device_fast": (lambda: new_index(precision="fast", store="device"),
+                             lambda ix: (data_dev.bfloat16().double(), q_dev.bfloat16().float())),
+        "int8": (lambda: new_index(quantizer=sq, precision="high"),
+                 lambda ix: (scalar_rows(ix._store[:n], sq.scales), q_dev)),
+        "pq": (lambda: new_index(quantizer=pq, precision="exact"),
+               lambda ix: (pq_rows(ix._store[:n], pq.codewords), q_dev)),
+        "pq1024": (lambda: new_index(quantizer=pq_wide, precision="exact"),
+                   lambda ix: (pq_rows(ix._store[:n], pq_wide.codewords), q_dev)),
+    }
+    want = {"fp32": ("stream_select_pairwise",), "fp32_device_fast": ("stream_select_pairwise",),
+            "int8": ("stream_select",), "pq": ("stream_select_pq_pairwise", "stream_select_pq"),
+            "pq1024": ("stream_select_pq_pairwise", "stream_select_pq")}
+    allowed = {"fp32": {"stream_select_pairwise"}, "fp32_device_fast": {"stream_select_pairwise"},
+               "int8": {"stream_select_pairwise", "stream_select"},
+               "pq": {"stream_select_pq_pairwise", "stream_select_pq"},
+               "pq1024": {"stream_select_pq_pairwise", "stream_select_pq"}}
+    out = {"pq1024_fit_s": fit_s}
+    nq = CONTRACT_QUERIES
+    for label, (build, reference) in tables.items():
+        t0 = time.perf_counter()
+        index = build()
+        rows_ref, q_ref = reference(index)
+        psg = passage_exact(rows_ref, q_ref, q_index, DIM)
+        doc = {op: doc_exact(rows_ref, q_ref, q_index, counts, starts, op, DIM)
+               for op in ("max", "mean", "first")}
+        setup_s = time.perf_counter() - t0
+        what = f"contract {label}"
+
+        # 5. depth 1: 512 pairs take the gather branch, as the JAX routing
+        # picks it (n_pairs * density <= N); no kernel launches
+        density = scoring.STREAM_DENSITY_PQ if label.startswith("pq") else scoring.STREAM_DENSITY
+        check(len(rankings["depth1"]._df) * density <= n, f"{what}: the depth-1 run would stream")
+        reset_counts(wrappers)
+        got = index(rankings["depth1"])
+        check_rerank(got, psg, f"{what} depth-1 re-rank", queries=CONTRACT_DEPTH1_QUERIES)
+        served = index.serve(rankings["depth1"], ALPHA, CUTOFF)
+        check_serve(served, runs["depth1"], psg, f"{what} depth-1 serve", queries=CONTRACT_DEPTH1_QUERIES)
+        check(not any(read_counts(wrappers).values()), f"{what}: the depth-1 run launched {read_counts(wrappers)}")
+
+        reset_counts(wrappers)
+        # 1. skewed depths
+        got = index(rankings["skewed"])
+        check_rerank(got, psg, f"{what} skewed re-rank", queries=nq)
+        order_pairs = check_order(got, psg, f"{what} skewed re-rank")
+        served = index.serve(rankings["skewed"], ALPHA, CUTOFF)
+        check_serve(served, runs["skewed"], psg, f"{what} skewed serve", queries=nq)
+        order_pairs += check_order(served, psg, f"{what} skewed serve", runs["skewed"])
+        # 2. lexical ties (passages, then MAXP documents), then full ties
+        got = index(rankings["lex_ties"])
+        check_rerank(got, psg, f"{what} lexical-tie re-rank", queries=nq)
+        order_pairs += check_order(got, psg, f"{what} lexical-tie re-rank")
+        served = index.serve(rankings["lex_ties"], ALPHA, CUTOFF)
+        check_serve(served, runs["lex_ties"], psg, f"{what} lexical-tie serve", queries=nq)
+        order_pairs += check_order(served, psg, f"{what} lexical-tie serve", runs["lex_ties"])
+        full = rankings["full_ties"]
+        got, served = index(full), index.serve(full, ALPHA, CUTOFF)
+        check_rerank(got, psg, f"{what} full-tie re-rank", queries=nq)
+        frame_ids, got_ids, served_ids = (by_query(r._df, "id") for r in (full, got, served))
+        served_scores = by_query(served._df, "score")
+        for q, ids in frame_ids.items():
+            scores = served_scores[q]
+            check(len(set(scores)) == 1, f"{what}: {q}'s identical rows scored apart: {scores}")
+            check(served_ids[q] == ids[:CUTOFF],
+                  f"{what}: {q}'s fully tied serve cut is not the lower-index-first order")
+            check(got_ids[q] == ids, f"{what}: {q}'s fully tied re-rank left the frame order")
+        es = index.serve(full, ALPHA, CUTOFF, early_stopping_depths=(16, 64, 256))
+        es_ids = by_query(es._df, "id")
+        check(len(es_ids) == nq and all(len(v) == CUTOFF for v in es_ids.values()),
+              f"{what}: early stopping on full ties lost results")
+        check_serve(es, runs["full_ties"], psg, f"{what} full-tie ES serve", queries=nq)
+        # 3. near-duplicate rows
+        got = index(rankings["near_dups"])
+        check_rerank(got, psg, f"{what} near-duplicate re-rank", queries=nq)
+        order_pairs += check_order(got, psg, f"{what} near-duplicate re-rank")
+        if label == "fp32":
+            # at "exact" every pair ranks as float64 does: its 2^-5 gap
+            # exceeds the two scores' tolerances
+            df = got._df
+            score = dict(zip(zip(df["q_id"].astype(str), df["id"].astype(str)), df["score"]))
+            for q in runs["near_dups"]:
+                ids = [f"p{r}" for r in near]
+                ref, tol = psg(q, ids)
+                d_ref, t_pair = ref[0::2] - ref[1::2], tol[0::2] + tol[1::2]
+                check(bool((d_ref.abs() > t_pair).all()), f"{what}: a near-duplicate gap is within tolerance")
+                d_got = torch.tensor([score[(q, a)] - score[(q, b)] for a, b in zip(ids[0::2], ids[1::2])],
+                                     dtype=torch.float64, device=ref.device)
+                check(bool((torch.sign(d_got) == torch.sign(d_ref)).all()),
+                      f"{what}: {q} orders a near-duplicate pair against float64")
+            served = index.serve(rankings["near_dups"], ALPHA, CUTOFF, refine=REFINE)
+            check_serve(served, runs["near_dups"], psg, f"{what} near-duplicate serve(refine)", queries=nq)
+        served = index.serve(rankings["near_dups"], ALPHA, CUTOFF)
+        check_serve(served, runs["near_dups"], psg, f"{what} near-duplicate serve", queries=nq)
+        # 2. lexical ties over MAXP documents (cap 1024 > r: K2 for int8, K4 for PQ)
+        index.mode = Mode.MAXP
+        got = index(rankings["lex_ties_maxp"])
+        check_rerank(got, doc["max"], f"{what} MAXP lexical-tie re-rank", queries=nq)
+        order_pairs += check_order(got, doc["max"], f"{what} MAXP lexical-tie re-rank")
+        served = index.serve(rankings["lex_ties_maxp"], ALPHA, CUTOFF)
+        check_serve(served, runs["lex_ties_maxp"], doc["max"], f"{what} MAXP lexical-tie serve", queries=nq)
+        # 4. the mega-document (the flat path) in every document mode
+        for mode, op in ((Mode.MAXP, "max"), (Mode.AVEP, "mean"), (Mode.FIRSTP, "first")):
+            index.mode = mode
+            got = index(rankings["mega"])
+            check_rerank(got, doc[op], f"{what} mega-document {mode.name}", queries=nq)
+            order_pairs += check_order(got, doc[op], f"{what} mega-document {mode.name}")
+        index.mode = Mode.MAXP
+        served = index.serve(rankings["mega"], ALPHA, CUTOFF)
+        check_serve(served, runs["mega"], doc["max"], f"{what} mega-document MAXP serve", queries=nq)
+        counts_t = read_counts(wrappers)
+        launches[f"contract_{label}"] = counts_t
+        for kname in want[label]:
+            check(counts_t[kname] > 0, f"{what} launched no {kname}: {counts_t}")
+        others = {k: v for k, v in counts_t.items() if v and k not in allowed[label]}
+        check(not others, f"{what} launched {others}")
+        out[label] = {"setup_s": setup_s, "s": time.perf_counter() - t0, "order_pairs": order_pairs,
+                      "launches": counts_t}
+        log(f"[contract {label}] {time.perf_counter() - t0:.1f} s (set-up {setup_s:.1f} s); "
+            f"{order_pairs} neighbour pairs in the oracle's order; launches {counts_t}")
+        del index, rows_ref, psg, doc
+        torch.cuda.empty_cache()
+    out["s"] = time.perf_counter() - t_phase
+    log(f"[contract] phase 27 passed in {out['s']:.1f} s; card: {smi_line()}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3174,6 +3443,9 @@ def main() -> int:
     flows["multiprocess"] = multiprocess_phase(MP_N)
     for res in flows["multiprocess"]["processes"]:
         launches[f"multiprocess_rank{res['rank']}"] = res["launches"]
+
+    # -- 27. the contract suites' hard cases at full width (K1-K4) ------------------------
+    flows["contract"] = contract_phase(corpus, sq, pq, wrappers, launches)
 
     small_by_kernel = {"stream_select_pairwise": "K1", "stream_select": "K2",
                        "stream_select_pq_pairwise": "K3", "stream_select_pq": "K4"}

@@ -107,16 +107,19 @@ def fetch_np_async(arr: torch.Tensor):
 
 
 def fetch_np_overlapped(
-    arr: torch.Tensor, on_chunk=None, out: np.ndarray | None = None
+    arr: torch.Tensor, on_chunk=None, chunks: int | None = None, out: np.ndarray | None = None
 ) -> np.ndarray:
     """Fetch a 1-d tensor, overlapping the copy with host work.
 
-    The copy is split into ``FETCH_CHUNKS`` chunks whose copies all start at
-    once (pinned memory, current stream, one event per chunk);
-    ``on_chunk(lo, hi)`` runs as soon as rows ``[lo, hi)`` have landed in
-    ``out`` (allocated here unless passed in), while later chunks are still
-    in flight.
+    The copy is split into ``chunks`` chunks (``FETCH_CHUNKS`` by default)
+    whose copies all start at once (one pinned buffer, current stream, one
+    event per chunk); ``on_chunk(lo, hi)`` runs as soon as rows ``[lo, hi)``
+    have landed in ``out`` (allocated here unless passed in), while later
+    chunks are still in flight.  ``chunks <= 1``, fewer than
+    ``_FETCH_CHUNK_MIN`` rows, or a CPU tensor take one copy.
     """
+    if chunks is None:
+        chunks = FETCH_CHUNKS
     n = int(arr.shape[0])
     if out is None:
         out = np.empty(n, dtype=torch.empty(0, dtype=arr.dtype).numpy().dtype)
@@ -125,7 +128,8 @@ def fetch_np_overlapped(
         if on_chunk is not None and n:
             on_chunk(0, n)
         return out
-    chunks = FETCH_CHUNKS if n >= _FETCH_CHUNK_MIN else 1
+    if chunks <= 1 or n < _FETCH_CHUNK_MIN:
+        chunks = 1
     step = max(1, -(-n // chunks))
     bounds = [(lo, min(lo + step, n)) for lo in range(0, n, step)]
     host = torch.empty(n, dtype=arr.dtype, pin_memory=True)

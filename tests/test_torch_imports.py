@@ -74,8 +74,17 @@ print("ok")
     assert out.stdout.strip().endswith("ok")
 
 
-@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
-def test_no_source_imports_jax_or_the_jax_package(path):
+#: the test files the card runs with ``--noconftest`` (no JAX there)
+CARD_TEST_FILES = sorted((REPO / "tests").glob("test_torch_contract_*.py")) + [
+    REPO / "tests" / "test_torch_api_parity.py",
+    REPO / "tests" / "test_torch_gpu.py",
+]
+
+
+def _jax_imports(path: Path) -> list:
+    """The modules of JAX or of ``fastforward_tpu`` that ``path`` imports,
+    anywhere in the file."""
+    found = []
     for node in ast.walk(ast.parse(path.read_text())):
         if isinstance(node, ast.Import):
             names = [a.name for a in node.names]
@@ -83,8 +92,21 @@ def test_no_source_imports_jax_or_the_jax_package(path):
             names = [node.module or ""]
         else:
             continue
-        for name in names:
-            assert name.split(".")[0] not in ("jax", "jaxlib", "fastforward_tpu"), (path, name)
+        found += [n for n in names if n.split(".")[0] in ("jax", "jaxlib", "fastforward_tpu")]
+    return found
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
+def test_no_source_imports_jax_or_the_jax_package(path):
+    assert not _jax_imports(path), path
+
+
+@pytest.mark.parametrize("path", CARD_TEST_FILES, ids=lambda p: p.name)
+def test_card_test_files_import_neither_jax_nor_the_jax_package(path):
+    """The contract copies, the API sweep and the card tests run on the
+    card's machine with ``--noconftest``, where neither is installed."""
+    assert len(CARD_TEST_FILES) > 3 and path.exists(), path
+    assert not _jax_imports(path), (path, _jax_imports(path))
 
 
 def test_index_runs_on_the_card_unless_asked_otherwise():

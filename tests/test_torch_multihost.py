@@ -9,7 +9,10 @@ int8 one narrowed to its shards' host rows) and, where h5py is installed,
 ``OnDiskIndex(hbm_cache=True, mesh_config=...)`` tables read per shard from
 the file; re-ranks, serves and early-stops through the public API, checks
 its scores against numpy inside the worker, and prints a digest; the launcher requires both to
-exit 0 with equal digests.  The worker is this file run as a script.
+exit 0 with equal digests.  The worker is this file run as a script.  Each
+worker also builds an index without ``mesh_config`` while it is in the job:
+it runs no collective, so ``preload`` warms re-rank and serve side by side and
+the server takes its merged array path (``_serve_prep``, ``_serve_arrays``).
 """
 
 import os
@@ -78,14 +81,18 @@ def test_two_process_mesh_parity():
 
 
 def _worker(rank: int, port: str) -> None:
+    import threading
+
     import torch
 
     from fastforward_tpu_torch.encoder import LambdaEncoder
     from fastforward_tpu_torch.index import InMemoryIndex, Mode
+    from fastforward_tpu_torch.index.base import _multiprocess
     from fastforward_tpu_torch.ops import stream_kernel as sk
     from fastforward_tpu_torch.parallel import MeshConfig, multihost
     from fastforward_tpu_torch.quantizer import PQ, ScalarQuantizer
     from fastforward_tpu_torch.ranking import Ranking
+    from fastforward_tpu_torch.utils.serving import BatchingServer
 
     torch.set_num_threads(1)
     multihost.initialize(f"localhost:{port}", num_processes=2, process_id=rank, backend="gloo")
@@ -241,6 +248,45 @@ def _worker(rank: int, port: str) -> None:
     assert index._serve_prep(ranking) is None  # the server's per-request path
     assert index.submit_serve(ranking, 0.3, 5).result() == served
     digests.append(sum(sorted(served["q1"].values())))
+
+    # an index without a mesh in the same job runs no collective: the
+    # server's merged array path and preload's concurrent warm-up stay on
+    solo = InMemoryIndex(enc, mode=Mode.PASSAGE, device="cpu")
+    solo.add(corpus, psg_ids=[f"p{i}" for i in range(n)])
+    assert not _multiprocess(solo._device_view())
+    serve_started, rerank_saw_serve = threading.Event(), []
+    real_serve, real_score = solo.serve, solo._device_score_grouped
+
+    def recording_serve(*a, **kw):
+        serve_started.set()
+        return real_serve(*a, **kw)
+
+    def recording_score(*a, **kw):
+        # the re-rank warm runs on this thread: the serve warm must already
+        # have started beside it (without it, the wait runs out)
+        if threading.current_thread() is threading.main_thread():
+            rerank_saw_serve.append(serve_started.wait(timeout=30))
+        return real_score(*a, **kw)
+
+    solo.serve, solo._device_score_grouped = recording_serve, recording_score
+    try:
+        assert solo.preload(warm=(2, 512), serve=(0.3, 5))
+    finally:
+        del solo.serve, solo._device_score_grouped
+    assert rerank_saw_serve and all(rerank_saw_serve), rerank_saw_serve
+    prep = solo._serve_prep(ranking)
+    assert prep is not None and isinstance(prep["rows_mat"], np.ndarray), prep
+    merged = []
+    real_arrays = solo._serve_arrays
+    solo._serve_arrays = lambda preps, *a, **kw: merged.append(len(preps)) or real_arrays(preps, *a, **kw)
+    try:
+        with BatchingServer(solo, 0.3, 5, max_batch_queries=4, max_wait_ms=20.0) as server:
+            solo_served = server.submit(ranking).result(timeout=60)
+    finally:
+        del solo._serve_arrays
+    assert merged == [1], merged
+    assert solo_served == solo.serve(ranking, 0.3, 5)
+    digests.append(sum(sorted(solo_served["q1"].values())))
 
     print(f"MH_OK {np.round(np.asarray(digests), 4).tolist()}", flush=True)
     import torch.distributed as dist
