@@ -334,7 +334,8 @@ CALL_KERNELS = {
     "pairwise": ("ff::tile_dot::tile_dot_kernel<",),
     "pairwise_fast": ("ff::tile_dot::round_kernel", "ff::tile_dot::tile_dot_kernel<"),
     "dense": ("Memset", *GROUP_KERNEL_NAMES, "ff::dense::dot_kernel<"),
-    "adc": ("Memset", *GROUP_KERNEL_NAMES, "ff::adc::adc_table_kernel", "ff::adc::adc_score_kernel"),
+    "adc": ("Memset", *GROUP_KERNEL_NAMES, "ff::adc::adc_slot_kernel", "ff::adc::adc_table_kernel",
+            "ff::adc::adc_score_kernel"),
 }
 #: the port's own kernels among them
 PORT_KERNEL_NAMES = tuple(
@@ -348,6 +349,15 @@ SMALL_LAYOUTS = ("uniform", "one_query", "half_padding", "many_queries")
 #: (M, Ks) of the small K3/K4 checks at dim 768: 4-byte code loads (M 24),
 #: Ks 16 and 256 at the flagship M, and the LUT in four chunks (M 384)
 PQ_SMALL_SHAPES = ((24, 256), (PQ_M, 16), (PQ_M, PQ_KS), (384, PQ_KS))
+#: the layouts of the K3/K4 route checks (:func:`route_layout`): a staged
+#: tail block of the hybrid tier (``TAIL_BLOCK_QUERIES`` queries of about
+#: ``TAIL_BLOCK_SLOTS`` random rows each over ``TAIL_BLOCK_ROWS`` rows, the
+#: rest of its 64 x 1024 slots padding) and a mixed one over
+#: ``MIXED_QUERIES`` queries (every other query at 1.5 times the slot
+#: limit, the rest at half of it; where every query is scored slot-wise,
+#: ``MIXED_UNLIMITED_COUNTS``)
+TAIL_BLOCK_ROWS, TAIL_BLOCK_QUERIES, TAIL_BLOCK_SLOTS = 32_768, 512, 70
+MIXED_QUERIES, MIXED_UNLIMITED_COUNTS = 16, (600, 30)
 
 #: kernel -> (source, the Pallas call it replaces)
 KERNELS = {
@@ -423,6 +433,29 @@ def median_ms(fn, n: int, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def interleaved_ms(fns: dict, n: int, warmup: int = 3) -> dict:
+    """Median device time of each of ``fns`` (name -> call) over ``n``
+    rounds that call each once in turn (CUDA events), each round starting
+    one further along, so that they meet the card in the same states."""
+    for fn in fns.values():
+        for _ in range(warmup):
+            fn()
+    torch.cuda.synchronize()
+    times = {name: [] for name in fns}
+    names = list(fns)
+    for i in range(n):
+        for name in names[i % len(names):] + names[:i % len(names)]:
+            fn = fns[name]
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times[name].append(start.elapsed_time(end))
+    return {name: float(np.median(t)) for name, t in times.items()}
 
 
 def sum_order_tol(absdot: torch.Tensor, dim: int) -> torch.Tensor:
@@ -1069,18 +1102,24 @@ def pairwise_variants(sk, table, q, cand3, tile_idx, dim, tiers, timed, rates, l
 
 def pq_variants(skpq, kernel, codes, cb, q, cand3, tile_idx, tiers, timed, rates, label):
     """K3 (``kernel="K3"``) or K4 against its plain version (``q`` row-major;
-    K4 takes ``q.t()``)."""
+    K4 takes ``q.t()``), each row with its routes (:func:`hold_routes`)."""
     dim = cb.shape[0] * cb.shape[2]
 
-    def call(plain, tier, c=cb, qq=q):
+    def call(plain, tier, c=cb, qq=q, route="auto"):
         if kernel == "K3":
-            fn = skpq.stream_select_pq_pairwise_plain if plain else skpq.stream_select_pq_pairwise
-            return fn(codes, c, qq, cand3, tile_idx, exact=tier != "fast")
-        fn = skpq.stream_select_pq_plain if plain else skpq.stream_select_pq
-        return fn(codes, c, qq.t(), cand3, tile_idx, precision=tier)
+            if plain:
+                return skpq.stream_select_pq_pairwise_plain(codes, c, qq, cand3, tile_idx,
+                                                            exact=tier != "fast")
+            return skpq.stream_select_pq_pairwise(codes, c, qq, cand3, tile_idx,
+                                                  exact=tier != "fast", _route=route)
+        if plain:
+            return skpq.stream_select_pq_plain(codes, c, qq.t(), cand3, tile_idx, precision=tier)
+        return skpq.stream_select_pq(codes, c, qq.t(), cand3, tile_idx, precision=tier,
+                                     _route=route)
 
-    return [
-        hold(
+    rows = []
+    for p in tiers:
+        row = hold(
             f"{kernel} {label} {p}",
             lambda p=p: call(False, p),
             lambda p=p: call(True, p),
@@ -1089,8 +1128,49 @@ def pq_variants(skpq, kernel, codes, cb, q, cand3, tile_idx, tiers, timed, rates
             timed,
             lambda: pq_bound(codes, cb, q, cand3, tile_idx, skpq.KERNEL_PQ_TILE_ROWS, rates),
         )
-        for p in tiers
-    ]
+        hold_routes(skpq, row, lambda route, p=p: call(False, p, route=route),
+                    lambda p=p: call(True, p), lambda p=p: call(True, p, cb.abs(), q.abs()), dim,
+                    timed, cand3, q.shape[0],
+                    skpq.adc_slot_limit(cb.shape[1], cb.shape[2], codes.dtype))
+        rows.append(row)
+    return rows
+
+
+def hold_routes(skpq, row, fn, plain_fn, abs_fn, dim, timed, cand3, qb, slot_limit) -> None:
+    """The routes of one K3/K4 row (``fn(route)`` calls the kernel): the
+    forced table and slot-wise routes give the same bits and each holds the
+    plain version's tolerance; the routes the card takes equal the Python
+    mirror's (``adc_routes`` against ``adc_query_routes_plain``); the split
+    of queries and slots between them, and (``timed``) the times of
+    ``"auto"`` and of each forced route, taken in turn."""
+    table, slots = fn("table"), fn("slots")
+    plain = plain_fn()
+    tol = sum_order_tol(abs_fn(), dim)
+    torch.cuda.synchronize()
+    what = row["variant"]
+    check(torch.equal(table, slots), f"{what}: the table and slot-wise routes differ, max "
+          f"{(table - slots).abs().max().item()}")
+    for route, out in (("table", table), ("slots", slots)):
+        err = (out - plain).abs()
+        check(bool(torch.isfinite(out).all()) and bool((err <= tol).all()),
+              f"{what}: the {route} route disagrees with the plain version: max err "
+              f"{err.max().item()}")
+    routes = skpq.adc_routes(cand3, qb, slot_limit).cpu()
+    mirror = skpq.adc_query_routes_plain(cand3.cpu(), qb, slot_limit)
+    check(torch.equal(routes, mirror), f"{what}: the card's routes {routes.bincount().tolist()} "
+          f"are not the mirror's {mirror.bincount().tolist()}")
+    counts = torch.bincount(cand3.reshape(-1).long().cpu() % qb, minlength=qb)
+    split = {"slot_limit": slot_limit}
+    for name, code in (("table", skpq.ROUTE_TABLE), ("slots", skpq.ROUTE_SLOTS)):
+        split[f"{name}_queries"] = int((routes == code).sum())
+        split[f"{name}_slots"] = int(counts[routes == code].sum())
+    row["routes"] = split
+    if timed:
+        row["route_ms"] = interleaved_ms(
+            {route: lambda route=route: fn(route) for route in ("auto", "table", "slots")},
+            TIMED_LAUNCHES)
+    log(f"   routes {json.dumps(split)}; both routes bit-identical"
+        + (f"; ms in turn {json.dumps(row['route_ms'])}" if timed else ""))
 
 
 def small_layout(rng, n_pad, qb, p, r, cap=None):
@@ -1106,6 +1186,27 @@ def small_layout(rng, n_pad, qb, p, r, cap=None):
         torch.from_numpy(cand.reshape(cand.shape[0], cap // 128, 128)).cuda(),
         torch.from_numpy(tidx).cuda(),
     )
+
+
+def route_layout(rng, kind: str, n_pad: int, qb: int, r: int, cap: int, slot_limit: int):
+    """A ``"tail_block"`` or ``"mixed"`` layout at ``cap`` over ``n_pad``
+    rows and ``qb`` queries (``slot_limit`` as
+    ``stream_kernel_pq.adc_slot_limit`` gives it): ``(cand3 (Tv, cap / 128,
+    128), tile_idx)`` int32 numpy arrays."""
+    from fastforward_tpu_torch.ops import scoring
+
+    if kind == "tail_block":
+        counts = rng.integers(TAIL_BLOCK_SLOTS // 2, TAIL_BLOCK_SLOTS * 3 // 2 + 1, size=qb)
+    elif kind == "mixed":
+        hi, lo = ((slot_limit * 3 // 2, max(1, slot_limit // 2)) if slot_limit < n_pad
+                  else MIXED_UNLIMITED_COUNTS)
+        counts = np.where(np.arange(qb) % 2 == 0, hi, lo)
+    else:
+        raise ValueError(f"unknown route layout {kind!r}")
+    qno = np.repeat(np.arange(qb), counts)
+    rows = rng.integers(0, n_pad, size=qno.size)
+    cand, tidx, _ = scoring.build_streamed_layout(rows, qno, n_pad, qb, r=r, cap=cap)
+    return cand.reshape(cand.shape[0], cap // 128, 128), tidx
 
 
 def small_queries(rng, q_s) -> dict:
@@ -1223,16 +1324,22 @@ def fp32_edge_cases(sk, rng, n_pad) -> list:
 def pq_small_cases(skpq, rng, n_pad, queries, rates) -> list:
     """K3 (cap <= r) and K4 (cap > r) against their plain versions at
     ``n_pad`` rows, dim ``DIM``, every tier, for each ``(M, Ks)`` of
-    ``PQ_SMALL_SHAPES`` and each of ``SMALL_LAYOUTS``."""
+    ``PQ_SMALL_SHAPES`` on each of ``SMALL_LAYOUTS`` and on the mixed
+    layout of :func:`route_layout` (both routes in one call)."""
     r = skpq.KERNEL_PQ_TILE_ROWS
     rows_out = []
     for m, ks in PQ_SMALL_SHAPES:
         codes = torch.from_numpy(rng.integers(0, ks, size=(n_pad, m), dtype=np.uint8)).cuda()
         cb = torch.from_numpy(rng.standard_normal((m, ks, DIM // m), dtype=np.float32)).cuda()
-        for layout, q in queries.items():
+        limit = skpq.adc_slot_limit(ks, DIM // m, codes.dtype)
+        for layout, q in (*queries.items(), ("mixed", queries["uniform"][:MIXED_QUERIES])):
             for kernel, cap, tiers in (("K3", 512, ("exact", "fast")),
                                        ("K4", 1024, ("exact", "high", "fast"))):
-                lay = small_case_layout(rng, n_pad, q.shape[0], layout, kernel, cap, r)
+                if layout == "mixed":
+                    lay = [torch.from_numpy(a).cuda() for a in route_layout(
+                        rng, layout, n_pad, MIXED_QUERIES, r, cap, limit)]
+                else:
+                    lay = small_case_layout(rng, n_pad, q.shape[0], layout, kernel, cap, r)
                 rows_out += pq_variants(skpq, kernel, codes, cb, q, *lay, tiers, False, rates,
                                         f"pq({m},{ks}) {layout}")
     return rows_out
@@ -1908,13 +2015,16 @@ def hybrid_quantized_phase(label, kind, source, budget, lifetime_bytes, rankings
             q_dev = state["res_plan"]["q_dev"][1]
             log(f"[{label}] kernels vs plain on a staged tail block {tuple(block.shape)}, layout "
                 f"{tuple(chunk['cand'].shape)}")
-            if kind == "pq":
-                held["stream_select_pq_pairwise"] += pq_variants(
-                    skpq, "K3", block, view.codebooks, q_dev, chunk["cand"], chunk["tile"],
-                    ("exact",), True, rates, f"{label.removeprefix('hybrid_')} tail block")
-                held["stream_select_pq"] += pq_variants(
-                    skpq, "K4", block, view.codebooks, q_dev, chunk["cand"], chunk["tile"],
-                    ("exact",), True, rates, f"{label.removeprefix('hybrid_')} tail block")
+            if kind == "pq":  # timed, one call traced by kernel (the route split's cost)
+                for kernel, kname, q_arg in (("K3", "stream_select_pq_pairwise", q_dev),
+                                             ("K4", "stream_select_pq", q_dev.t())):
+                    row = pq_variants(skpq, kernel, block, view.codebooks, q_dev, chunk["cand"],
+                                      chunk["tile"], ("exact",), True, rates,
+                                      f"{label.removeprefix('hybrid_')} tail block")[0]
+                    call = getattr(skpq, kname)
+                    split_call(row, lambda call=call, q=q_arg: call(
+                        block, view.codebooks, q, chunk["cand"], chunk["tile"]), CALL_KERNELS["adc"])
+                    held[kname].append(row)
             else:
                 held["stream_select"] += select_variants(
                     sk, block, q_dev, chunk["cand"], chunk["tile"], DIM, ("high",), True, rates,

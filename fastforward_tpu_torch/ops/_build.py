@@ -83,15 +83,17 @@ def load_kernel(name: str) -> ctypes.CDLL:
 
 
 @functools.cache
-def bind(name: str, argtypes: tuple) -> Callable[..., None]:
+def bind(name: str, argtypes: tuple, entry_name: "str | None" = None) -> Callable[..., None]:
     """Build (once per process) and load ``csrc/<name>.cu``; return a caller
-    of its entry ``ff_<name>`` that raises when the launch fails.
+    of its entry ``ff_<entry_name or name>`` that raises when the launch
+    fails.
 
     :param name: The kernel source's stem.
     :param argtypes: ``ctypes`` types of the entry's arguments.
+    :param entry_name: Another entry of the same object.
     """
     lib = load_kernel(name)
-    entry = getattr(lib, f"ff_{name}")
+    entry = getattr(lib, f"ff_{entry_name or name}")
     entry.argtypes = list(argtypes)
     entry.restype = ctypes.c_int
     lib.ff_cuda_error_string.argtypes = [ctypes.c_int]

@@ -11,7 +11,9 @@
 //   2. count_kernel: a histogram of qno over the slots, binned per block in
 //      shared memory and added to device memory bin by bin; the block that
 //      finishes last then takes the exclusive scans of the counts and of
-//      each query's work items, ceil(count / item_slots);
+//      each query's work items, ceil(count / item_slots) (none for a query
+//      with fewer than slot_limit slots, which K3 and K4 score slot by slot
+//      instead: adc_lut.cuh; K1 and K2 pass 0);
 //   3. scatter_kernel: each slot's cand value and index into its query's
 //      list, ranked per block in shared memory, one range reserved per bin.
 // The scoring kernel then runs one block per work item and finds its query
@@ -112,23 +114,36 @@ __device__ __forceinline__ unsigned bin_slot(int key, int w0, int width,
          __popc(peers & ((1u << lane) - 1));
 }
 
-// Exclusive scans of the counts (cursor) and of ceil(counts / item_slots)
-// into slot_off and item_off, each qb + 1 long, by one block of kThreads;
-// cursor becomes slot_off[0..qb).  The counts are read from L2, where the
-// other blocks' atomics left them.
+// The work items of a query with c slots: ceil(c / item_slots), or none
+// when it has fewer than slot_limit.
+__device__ __forceinline__ u64 items_of(u64 c, int item_slots,
+                                        long long slot_limit) {
+  return c < static_cast<u64>(slot_limit) ? 0 : (c + item_slots - 1) / item_slots;
+}
+
+// Exclusive scans of the counts (cursor) and of the queries' work items
+// (items_of) into slot_off and item_off, each qb + 1 long, by one block of
+// kThreads; cursor becomes slot_off[0..qb).  The counts are read from L2,
+// where the other blocks' atomics left them.  Where short_flag is given,
+// *short_flag becomes 1 if some query has slots but fewer than slot_limit,
+// else 0.
 __device__ __forceinline__ void scan_counts(u64* cursor, u64* slot_off,
                                             u64* item_off, int qb,
-                                            int item_slots) {
+                                            int item_slots,
+                                            long long slot_limit,
+                                            int* short_flag) {
   __shared__ u64 warp_slots[kThreads / 32], warp_items[kThreads / 32];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int per = (qb + kThreads - 1) / kThreads;
   const int lo = min(qb, static_cast<int>(threadIdx.x) * per);
   const int hi = min(qb, lo + per);
   u64 slots = 0, items = 0;
+  int short_query = 0;
   for (int i = lo; i < hi; ++i) {
     const u64 c = __ldcg(cursor + i);
     slots += c;
-    items += (c + item_slots - 1) / item_slots;
+    items += items_of(c, item_slots, slot_limit);
+    short_query |= c > 0 && c < static_cast<u64>(slot_limit);
   }
   // inclusive scan over the warp, then over the warps' totals
   u64 inc_s = slots, inc_i = items;
@@ -145,7 +160,8 @@ __device__ __forceinline__ void scan_counts(u64* cursor, u64* slot_off,
     warp_slots[warp] = inc_s;
     warp_items[warp] = inc_i;
   }
-  __syncthreads();
+  short_query = __syncthreads_or(short_query);
+  if (short_flag != nullptr && threadIdx.x == 0) *short_flag = short_query;
   u64 run_s = inc_s - slots, run_i = inc_i - items;
   for (int w = 0; w < warp; ++w) {
     run_s += warp_slots[w];
@@ -157,7 +173,7 @@ __device__ __forceinline__ void scan_counts(u64* cursor, u64* slot_off,
     item_off[i] = run_i;
     cursor[i] = run_s;
     run_s += c;
-    run_i += (c + item_slots - 1) / item_slots;
+    run_i += items_of(c, item_slots, slot_limit);
   }
   if (threadIdx.x == kThreads - 1) {  // its run ends at the totals
     slot_off[qb] = run_s;
@@ -172,7 +188,8 @@ __device__ __forceinline__ void scan_counts(u64* cursor, u64* slot_off,
 // scans.
 __global__ void __launch_bounds__(kThreads)
     count_kernel(const int* __restrict__ cand, long long n, int qb,
-                 int item_slots, Lists l) {
+                 int item_slots, long long slot_limit, int* short_flag,
+                 Lists l) {
   __shared__ unsigned bins[kBins];
   __shared__ bool last;
   int values[kGroupSlotsPerThread], keys[kGroupSlotsPerThread];
@@ -196,7 +213,8 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
   if (last) {
     __threadfence();
-    scan_counts(l.cursor, l.slot_off, l.item_off, qb, item_slots);
+    scan_counts(l.cursor, l.slot_off, l.item_off, qb, item_slots, slot_limit,
+                short_flag);
   }
 }
 
@@ -280,11 +298,14 @@ __device__ __forceinline__ bool find_item(const u64* __restrict__ slot_off,
 
 }  // namespace groups
 
-// Steps 1-3 for n slots over qb queries; returns the first failing step's
-// cudaError_t (0 on success).
+// Steps 1-3 for n slots over qb queries (queries with fewer than
+// slot_limit slots get no work items, and *short_flag, where given, says
+// whether there is one); returns the first failing step's cudaError_t (0
+// on success).
 inline cudaError_t group_slots(const int* cand, long long n, int qb,
                                int item_slots, const groups::Lists& l,
-                               cudaStream_t stream) {
+                               cudaStream_t stream, long long slot_limit = 0,
+                               int* short_flag = nullptr) {
   if (n > 0xffffffffLL) return cudaErrorInvalidValue;
   const unsigned grid =
       static_cast<unsigned>((n + groups::kSlots - 1) / groups::kSlots);
@@ -293,7 +314,7 @@ inline cudaError_t group_slots(const int* cand, long long n, int qb,
       cudaMemsetAsync(l.cursor, 0, sizeof(u64) * (3 * qb + 2), stream);
   if (err != cudaSuccess) return err;
   groups::count_kernel<<<grid, groups::kThreads, 0, stream>>>(
-      cand, n, qb, item_slots, l);
+      cand, n, qb, item_slots, slot_limit, short_flag, l);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   groups::scatter_kernel<<<grid, groups::kThreads, 0, stream>>>(
       cand, n, qb, l.cursor, l.order);

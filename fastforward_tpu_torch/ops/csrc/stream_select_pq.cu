@@ -26,17 +26,20 @@
 // The TPU kernel decodes the whole R-row tile through block-diagonal bf16
 // codebooks on the MXU, multiplies it by every query, then selects each
 // slot's score with one-hot matmuls (Mosaic has no dynamic gather).  The
-// first form of this kernel scored slot by slot from a staged code tile and
-// re-read 6 KB of codewords and query from L2 per slot.  Now the slots are
-// grouped by query on the card, each query's lookup table is built once
-// into scratch and staged in shared memory by each work item of the query,
-// and a slot costs M table reads and adds;
-// the dense tiles no longer matter to the kernel (a code row is read by
-// each slot that wants it, 96 bytes at PQ(96, 256)).  The padding query
-// Qb - 1, which owns over half of the slots of the flagship dense layout,
-// is counted per block and split into work items of item_slots slots.  The
-// body, its launch sequence and what bounds it are in adc_lut.cuh, shared
-// with K3.
+// first form of this kernel scored every slot one by one from a staged
+// code tile and re-read 6 KB of codewords and query from L2 per slot.  Now
+// the slots are grouped by query on the card; a query with many slots
+// (more than the wrapper's slot_limit) gets a lookup table, built once
+// into scratch and staged in shared memory by each of its work items, so
+// that a slot costs M table reads and adds; a query with few slots (the
+// hybrid tier's tail blocks, Ks far above the slots) is scored slot by
+// slot, with the same arithmetic, and builds no table.  The dense tiles no
+// longer matter to the kernel (a code row is read by each slot that wants
+// it, 96 bytes at PQ(96, 256)).  The padding query Qb - 1, which owns over
+// half of the slots of the flagship dense layout, is counted per block and
+// split into work items of item_slots slots.  The body, its two routes,
+// its launch sequence and what bounds it are in adc_lut.cuh, shared with
+// K3.
 //
 // Built by fastforward_tpu_torch/ops/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -52,9 +55,10 @@
 // (d, qno) is at q[d * q_stride_d + qno * q_stride_q]; scratch holds
 // 3 * qb + 2 + n_tiles * cap 64-bit words and lut the tables of lut_queries
 // queries, lut_queries * m * width fp32 (width: 256 for uint8 codes, else
-// Ks rounded up to a multiple of 4).  Tier codes: 0 exact, 1 high,
-// 2 fast.  The launches go on `stream` of `device` and do not synchronise.
-// Returns the cudaError_t of the first failing launch (0 on success).
+// Ks rounded up to a multiple of 4).  Queries with fewer than slot_limit
+// slots are scored slot-wise.  Tier codes: 0 exact, 1 high, 2 fast.  The
+// launches go on `stream` of `device` and do not synchronise.  Returns the
+// cudaError_t of the first failing launch (0 on success).
 extern "C" int ff_stream_select_pq(const void* codes, int m,
                                    const void* codebooks, int ks, int ds,
                                    const void* q, long long q_stride_d,
@@ -64,7 +68,8 @@ extern "C" int ff_stream_select_pq(const void* codes, int m,
                                    int tier, void* scratch, int item_slots,
                                    long long max_items, void* lut,
                                    int lut_queries, int code_bytes,
-                                   int width, int device, void* stream) {
+                                   int width, long long slot_limit,
+                                   int device, void* stream) {
   if (n_tiles <= 0) return 0;
   // this object links its own CUDA runtime, whose current device is not
   // PyTorch's: select the device the stream belongs to
@@ -91,7 +96,8 @@ extern "C" int ff_stream_select_pq(const void* codes, int m,
                       max_items,
                       static_cast<float*>(lut),
                       lut_queries,
-                      width};
+                      width,
+                      slot_limit};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (tier) {
     case 0:
@@ -107,6 +113,22 @@ extern "C" int ff_stream_select_pq(const void* codes, int m,
       err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
+}
+
+// The route each of qb queries takes for the n_slots packed candidates
+// `cand` at slot_limit, as ff_stream_select_pq (and K3) decide it: routes
+// (qb int32) gets 0 for a query without slots, 1 for the table route, 2
+// for the slot-wise route.  scratch holds 3 * qb + 2 + n_slots 64-bit
+// words.  Returns the cudaError_t of the first failing launch.
+extern "C" int ff_adc_routes(const void* cand, long long n_slots, int qb,
+                             long long slot_limit, void* scratch, void* routes,
+                             int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(ff::adc_routes_launch(
+      static_cast<const int*>(cand), n_slots, qb, slot_limit,
+      static_cast<ff::u64*>(scratch), static_cast<int*>(routes),
+      static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" const char* ff_cuda_error_string(int code) {

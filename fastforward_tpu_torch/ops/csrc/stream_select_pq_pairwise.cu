@@ -20,14 +20,17 @@
 // dequantizes through block-diagonal hi/mid/lo bf16 codebooks, because
 // Mosaic has no dynamic gather and the MXU wants 128 lanes.  This kernel
 // starts from what ADC computes instead: the slots are grouped by query on
-// the card, each query's lookup table (its subvector dotted with every
-// codeword) is built once into scratch and staged in shared memory by each
-// work item of the query, and a slot then costs M table reads and adds,
-// where the first form of this kernel re-read 6 KB of codewords and query
-// from L2 per slot.  The padding query Qb - 1,
-// which owns over half of the slots of the flagship layout, is counted per
-// block and split into work items of item_slots slots.  The body, its
-// launch sequence and what bounds it are in adc_lut.cuh, shared with K4.
+// the card; a query with many slots (more than the wrapper's slot_limit)
+// gets its lookup table (its subvector dotted with every codeword), built
+// once into scratch and staged in shared memory by each work item of the
+// query, and a slot then costs M table reads and adds, where the first
+// form of this kernel re-read 6 KB of codewords and query from L2 per
+// slot; a query with few slots is scored slot by slot, with the same
+// arithmetic, and builds no table.  The padding query Qb - 1, which owns
+// over half of the slots of the flagship layout, is counted per block and
+// split into work items of item_slots slots.  The body, its two routes,
+// its launch sequence and what bounds it are in adc_lut.cuh, shared with
+// K4.
 //
 // Built by fastforward_tpu_torch/ops/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -42,15 +45,17 @@
 // (m, ks, ds) fp32, q (qb, m * ds) fp32, all contiguous (the wrapper
 // checks); scratch holds 3 * qb + 2 + n_slots 64-bit words and lut the
 // tables of lut_queries queries, lut_queries * m * width fp32 (width: 256
-// for uint8 codes, else Ks rounded up to a multiple of 4).  The launches
-// go on `stream` of `device` and do not synchronise.  Returns the
-// cudaError_t of the first failing launch (0 on success).
+// for uint8 codes, else Ks rounded up to a multiple of 4).  Queries with
+// fewer than slot_limit slots are scored slot-wise.  The launches go on
+// `stream` of `device` and do not synchronise.  Returns the cudaError_t of
+// the first failing launch (0 on success).
 extern "C" int ff_stream_select_pq_pairwise(
     const void* codes, int m, const void* codebooks, int ks, int ds,
     const void* q, const void* cand, const void* tile_idx, void* out,
     long long n_slots, int cap, int qb, int r, int exact, void* scratch,
     int item_slots, long long max_items, void* lut, int lut_queries,
-    int code_bytes, int width, int device, void* stream) {
+    int code_bytes, int width, long long slot_limit, int device,
+    void* stream) {
   if (n_slots <= 0) return 0;
   // this object links its own CUDA runtime, whose current device is not
   // PyTorch's: select the device the stream belongs to
@@ -77,7 +82,8 @@ extern "C" int ff_stream_select_pq_pairwise(
                       max_items,
                       static_cast<float*>(lut),
                       lut_queries,
-                      width};
+                      width,
+                      slot_limit};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   err = exact ? ff::adc_lut_launch<false, false>(a, s)
               : ff::adc_lut_launch<true, true>(a, s);

@@ -24,17 +24,41 @@ bf16, ``"fast"`` rounds codewords and query.  Padding slots carry
 Each wrapper launches its hand-written CUDA kernel (``csrc/*.cu``) for CUDA
 tensors and runs its plain PyTorch version only for CPU tensors.  On the
 card both kernels are query-major (``csrc/adc_lut.cuh``): one call groups
-the slots by query (``csrc/query_groups.cuh``, shared with K1 and K2),
-cuts each query's slots into work items of at most ``ADC_ITEM_SLOTS``
-slots, builds each query's lookup table once, and scores every item from
-its query's table staged in shared memory (read from global memory where
-one subspace's table exceeds what a block stages, Ks > 24,576).  The
-wrapper sizes the grouping's scratch (:func:`adc_scratch_words`) and the
-tables' (:func:`adc_table_width`, :func:`adc_table_queries`), and bounds
-the number of items (:func:`adc_max_items`).
+the slots by query (``csrc/query_groups.cuh``, shared with K1 and K2) and
+then scores each query by one of two routes, chosen on the card from the
+query's slot count:
+
+- the table route, for a query with at least :func:`adc_slot_limit` slots:
+  its lookup table (its subvector dotted with every codeword) is built
+  once, its slots are cut into work items of at most ``ADC_ITEM_SLOTS``
+  slots, and each item scores its slots from the table staged in shared
+  memory (read from global memory where one subspace's table exceeds what
+  a block stages, Ks > 24,576);
+- the slot-wise route, for a query with fewer slots: each slot reads its
+  ``M`` codewords and computes its entries itself, and no table is built.
+
+A table costs the same whatever the query's slot count (built, written and
+staged by every work item), a slot-wise slot costs ``M`` codeword reads, so
+the table route pays where a query has many slots against ``Ks`` (the
+flagship layouts, about 1,000 slots a query over Ks = 256) and the
+slot-wise route where it has few (the hybrid tier's tail blocks, about 70
+slots a query, and tables too wide to stage).  :func:`adc_slot_limit` is
+that cost model, calibrated on the H100 (``scripts/torch_kernel_variants.py
+--routes``, PERF.md); :func:`adc_query_routes_plain` predicts each query's
+route from a layout and :func:`adc_routes` reads it from the card.  Both
+routes compute every entry with the same FMA chain and add the entries in
+subspace order, so they give the same bits; the route is a function of the
+geometry only, never a recovery from an error.  The wrappers take a
+keyword-only ``_route`` (``"auto"``, ``"table"`` or ``"slots"``) that
+forces one route for tests and measurements; the plain versions have no
+routes.  The wrapper sizes the grouping's scratch
+(:func:`adc_scratch_words`) and the tables' (:func:`adc_table_width`,
+:func:`adc_table_queries`), and bounds the number of items
+(:func:`adc_max_items`).
 """
 
 import ctypes
+import math
 
 import torch
 
@@ -60,6 +84,36 @@ ADC_TABLE_BYTES = 64 << 20
 #: addresses one)
 _U8_TABLE_WIDTH = 256
 
+#: the routes a call's queries may take: chosen per query (``"auto"``), or
+#: every query forced to one
+ADC_ROUTES = ("auto", "table", "slots")
+
+#: a query's route as :func:`adc_routes` reports it
+ROUTE_NONE, ROUTE_TABLE, ROUTE_SLOTS = 0, 1, 2
+
+#: the cost model of the route choice (:func:`adc_slot_limit`), in bytes a
+#: subspace: a query's lookup table costs about ``ADC_TABLE_PASSES`` passes
+#: over its ``width * 4`` bytes (built and written, then staged by its work
+#: items) and ``ADC_TABLE_FIXED_BYTES`` more (a work item's start) whatever
+#: its slot count; both fitted to the crossovers that
+#: ``scripts/torch_kernel_variants.py --routes`` measured on the H100
+#: (about 300 slots a query at PQ(96, 256), 700 at PQ(96, 1024); PERF.md)
+ADC_TABLE_PASSES = 3.5
+ADC_TABLE_FIXED_BYTES = 4864
+
+#: bytes a block stages of a query's table (``kLutBytes`` of
+#: ``csrc/adc_lut.cuh``); a subspace's table wider than that is read from
+#: global memory
+_STAGED_TABLE_BYTES = 96 * 1024
+
+#: bytes one random read through L2 moves (a sector), and what a staged
+#: table entry's read costs beside it (one shared-memory word)
+_SECTOR_BYTES, _STAGED_ENTRY_BYTES = 32, 4
+
+#: the slot limit of a call whose queries are all scored slot-wise (above
+#: any slot count)
+_NO_TABLES = 1 << 62
+
 #: widest table the table kernel's grid covers (65,535 blocks of 256)
 _MAX_TABLE_WIDTH = 65535 * 256
 
@@ -76,20 +130,25 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #: argument types of ``ff_stream_select_pq_pairwise``: codes, m, codebooks,
 #: ks, ds, q, cand, tile_idx, out, slots, cap, qb, r, exact, scratch, item
 #: slots, max items, table scratch, table queries, code bytes, table width,
-#: device, stream
+#: slot limit, device, stream
 _PAIRWISE_ARGS = (
     _P, _I, _P, _I, _I, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _P, _I, _LL, _P, _I, _I, _I,
-    _I, _P,
+    _LL, _I, _P,
 )
 
 #: argument types of ``ff_stream_select_pq``: codes, m, codebooks, ks, ds,
 #: q, q stride along dim, q stride along queries, cand, tile_idx, out,
 #: virtual tiles, cap, qb, r, tier, scratch, item slots, max items, table
-#: scratch, table queries, code bytes, table width, device, stream
+#: scratch, table queries, code bytes, table width, slot limit, device,
+#: stream
 _SELECT_ARGS = (
     _P, _I, _P, _I, _I, _P, _LL, _LL, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _LL, _P, _I,
-    _I, _I, _I, _P,
+    _I, _I, _LL, _I, _P,
 )
+
+#: argument types of ``ff_adc_routes`` (in K4's object): cand, slots, qb,
+#: slot limit, scratch, routes, device, stream
+_ROUTES_ARGS = (_P, _LL, _I, _LL, _P, _P, _I, _P)
 
 
 #: 64-bit words of the grouping scratch (:func:`query_groups.scratch_words`)
@@ -116,12 +175,89 @@ def adc_table_queries(qb: int, m: int, width: int = _U8_TABLE_WIDTH) -> int:
     return max(1, min(qb, ADC_TABLE_BYTES // (m * width * 4)))
 
 
-def _launch_adc(name, argtypes, head, qb, codes, codebooks, n_slots, device, stream) -> None:
+def adc_slot_limit(ks: int, ds: int, code_dtype: torch.dtype = torch.uint8) -> int:
+    """The slot count below which a query is scored slot-wise (the table
+    route from this many slots on), a function of the geometry.
+
+    A subspace of the table route costs a query about
+    ``ADC_TABLE_FIXED_BYTES + ADC_TABLE_PASSES * width * 4`` bytes, then
+    each slot one table read (a shared-memory word, or a sector through L2
+    where the table is too wide to stage); the slot-wise route costs each
+    slot one codeword read a subspace (``Ds * 4`` bytes in whole sectors)
+    and nothing per query.  The two meet at ``(fixed + passes * width * 4)
+    / (codeword - entry)`` slots (``M`` cancels); where a codeword read
+    costs no more than a table read, every query is scored slot-wise.
+    """
+    width = adc_table_width(ks, code_dtype)
+    codeword = -(-ds * 4 // _SECTOR_BYTES) * _SECTOR_BYTES
+    entry = _SECTOR_BYTES if width * 4 > _STAGED_TABLE_BYTES else _STAGED_ENTRY_BYTES
+    if codeword <= entry:
+        return _NO_TABLES
+    return math.ceil((ADC_TABLE_FIXED_BYTES + ADC_TABLE_PASSES * width * 4) / (codeword - entry))
+
+
+def _check_route(route: str) -> None:
+    if route not in ADC_ROUTES:
+        raise ValueError(f"_route must be one of {ADC_ROUTES}, got {route!r}")
+
+
+def adc_route_limit(route: str, ks: int, ds: int, code_dtype: torch.dtype = torch.uint8) -> int:
+    """The slot limit the kernels get for ``route`` (one of
+    ``ADC_ROUTES``): :func:`adc_slot_limit` for ``"auto"``, 0 (every query
+    takes a table) for ``"table"``, above any count for ``"slots"``.
+
+    :raises ValueError: On another route.
+    """
+    _check_route(route)
+    if route == "table":
+        return 0
+    return _NO_TABLES if route == "slots" else adc_slot_limit(ks, ds, code_dtype)
+
+
+def adc_query_routes_plain(cand3: torch.Tensor, qb: int, slot_limit: int) -> torch.Tensor:
+    """Each query's route for the packed candidates ``cand3`` at
+    ``slot_limit``: ``ROUTE_NONE`` without slots, ``ROUTE_SLOTS`` with
+    fewer than ``slot_limit``, else ``ROUTE_TABLE`` (``(qb,)`` int32, on
+    ``cand3``'s device): the kernels' rule, in PyTorch."""
+    counts = torch.bincount((cand3.reshape(-1).long() % qb), minlength=qb)
+    routes = torch.where(counts < slot_limit, ROUTE_SLOTS, ROUTE_TABLE)
+    return torch.where(counts == 0, ROUTE_NONE, routes).to(torch.int32)
+
+
+def adc_routes(cand3: torch.Tensor, qb: int, slot_limit: int) -> torch.Tensor:
+    """Each query's route as K3 and K4 decide it on the card (the grouping
+    and the rule of ``csrc/adc_lut.cuh``), or :func:`adc_query_routes_plain`
+    for CPU tensors.
+
+    :param cand3: Packed candidates ``local * Qb + qno``, int32,
+        contiguous.
+    :param qb: Queries of the block.
+    :param slot_limit: As :func:`adc_route_limit` returns it.
+    :raises ValueError: On a tensor the card cannot take.
+    :raises RuntimeError: When the launch fails (with the CUDA error).
+    :return: ``(qb,)`` int32 of ``ROUTE_NONE``, ``ROUTE_TABLE`` and
+        ``ROUTE_SLOTS``.
+    """
+    if cand3.dtype != torch.int32:
+        raise ValueError(f"cand3 must be int32, got {cand3.dtype}")
+    if cand3.device.type == "cpu":
+        return adc_query_routes_plain(cand3, qb, slot_limit)
+    device, stream = _build.cuda_target((("cand3", cand3),))
+    routes = torch.empty(qb, dtype=torch.int32, device=cand3.device)
+    scratch = query_groups.scratch(qb, cand3.numel(), device)
+    _build.bind("stream_select_pq", _ROUTES_ARGS, "adc_routes")(
+        cand3.data_ptr(), cand3.numel(), qb, slot_limit, scratch.data_ptr(), routes.data_ptr(),
+        device, stream,
+    )
+    return routes
+
+
+def _launch_adc(name, argtypes, head, qb, codes, codebooks, n_slots, route, device, stream) -> None:
     """Allocate the query-major kernels' scratch (grouping words and lookup
     tables) and call ``ff_<name>`` with ``(*head, scratch, item slots, item
-    bound, tables, table queries, code bytes, table width, device,
-    stream)``."""
-    m, ks, _ = codebooks.shape
+    bound, tables, table queries, code bytes, table width, slot limit,
+    device, stream)``."""
+    m, ks, ds = codebooks.shape
     width = adc_table_width(ks, codes.dtype)
     if width > _MAX_TABLE_WIDTH or m * width > 2**31 - 1:
         raise ValueError(f"the lookup tables of PQ({m}, {ks}) exceed the kernels' indexing")
@@ -130,7 +266,8 @@ def _launch_adc(name, argtypes, head, qb, codes, codebooks, n_slots, device, str
     tables = torch.empty(groups * m * width, dtype=torch.float32, device=device)
     _build.bind(name, argtypes)(
         *head, scratch.data_ptr(), ADC_ITEM_SLOTS, adc_max_items(qb, n_slots),
-        tables.data_ptr(), groups, codes.element_size(), width, device, stream,
+        tables.data_ptr(), groups, codes.element_size(), width,
+        adc_route_limit(route, ks, ds, codes.dtype), device, stream,
     )
 
 
@@ -173,6 +310,8 @@ def stream_select_pq_pairwise(
     tile_idx: torch.Tensor,
     r: int = KERNEL_PQ_TILE_ROWS,
     exact: bool = True,
+    *,
+    _route: str = "auto",
 ) -> torch.Tensor:
     """ADC-score every candidate slot: K3 on the card, the plain version on
     CPU.
@@ -188,13 +327,18 @@ def stream_select_pq_pairwise(
     :param tile_idx: Base code tile per virtual tile, ``(Tv,)`` int32.
     :param r: Rows per code tile.
     :param exact: True fp32 ADC dots vs bf16-rounded codewords and queries.
-    :raises ValueError: On shapes, layouts or devices the kernel does not take.
+    :param _route: Each query's route on the card: chosen from its slot
+        count (``"auto"``), or forced (``"table"``, ``"slots"``; for tests
+        and measurements: the scores are the same bits).
+    :raises ValueError: On shapes, layouts, routes or devices the kernel
+        does not take.
     :raises TypeError: On codes of another type than uint8, uint16 or
         uint32.
     :raises RuntimeError: When the launch fails (with the CUDA error).
     :return: Scores per slot, ``(Tv, CAP/128, 128)`` fp32.
     """
     qb = _check(codes, codebooks, qvecs, cand3, tile_idx, r, transposed=False)
+    _check_route(_route)
     if codes.device.type == "cpu":
         return stream_select_pq_pairwise_plain(codes, codebooks, qvecs, cand3, tile_idx, r, exact)
     device, stream = _build.cuda_target(
@@ -208,7 +352,7 @@ def stream_select_pq_pairwise(
         tile_idx.data_ptr(), out.data_ptr(), out.numel(), cand3.shape[1] * 128, qb, r, int(exact),
     )
     _launch_adc("stream_select_pq_pairwise", _PAIRWISE_ARGS, head, qb, codes, codebooks,
-                out.numel(), device, stream)
+                out.numel(), _route, device, stream)
     _build.count_launch(stream_select_pq_pairwise)
     return out
 
@@ -225,6 +369,8 @@ def stream_select_pq(
     tile_idx: torch.Tensor,
     r: int = KERNEL_PQ_TILE_ROWS,
     precision: str = "exact",
+    *,
+    _route: str = "auto",
 ) -> torch.Tensor:
     """ADC-score every candidate slot of dense tiles: K4 on the card, the
     plain version on CPU.
@@ -235,8 +381,8 @@ def stream_select_pq(
     tier is ``precision``: ``"exact"`` (fp32), ``"high"`` (bf16-rounded
     codewords, fp32 query) or ``"fast"`` (both rounded to bf16).
 
-    :raises ValueError: On shapes, layouts, tiers or devices the kernel does
-        not take.
+    :raises ValueError: On shapes, layouts, tiers, routes or devices the
+        kernel does not take.
     :raises TypeError: On codes of another type than uint8, uint16 or
         uint32.
     :raises RuntimeError: When the launch fails (with the CUDA error).
@@ -245,6 +391,7 @@ def stream_select_pq(
     if precision not in PQ_TIERS:
         raise ValueError(f"precision must be one of {PQ_TIERS}, got {precision!r}")
     qb = _check(codes, codebooks, qvecs_t, cand3, tile_idx, r, transposed=True)
+    _check_route(_route)
     if codes.device.type == "cpu":
         return stream_select_pq_plain(codes, codebooks, qvecs_t, cand3, tile_idx, r, precision)
     device, stream = _build.cuda_target(
@@ -258,7 +405,7 @@ def stream_select_pq(
         out.data_ptr(), cand3.shape[0], cand3.shape[1] * 128, qb, r, PQ_TIERS.index(precision),
     )
     _launch_adc("stream_select_pq", _SELECT_ARGS, head, qb, codes, codebooks, out.numel(),
-                device, stream)
+                _route, device, stream)
     _build.count_launch(stream_select_pq)
     return out
 

@@ -18,7 +18,18 @@ rows from seed 0 at dim 768:
   padded to 8 rows by repeating its last row (cap 1024);
 - K2: an int8 table of 262,144 rows (dense tiles, cap 1024), high and fast;
 - K3: PQ(96, 256) codes of 2,000,384 rows (cap 256);
-- K4: PQ(96, 256) codes of 262,144 rows (cap 1024).
+- K4: PQ(96, 256) codes of 262,144 rows (cap 1024), and a staged tail
+  block of the hybrid tier at PQ(96, 256) (uint8) and PQ(96, 1024)
+  (uint16): 512 queries of 35-105 random rows of 32,768, the rest of its
+  64 x 1024 slots padding.
+
+``--routes`` adds the sweep that calibrates K3/K4's route choice
+(``stream_kernel_pq.adc_slot_limit``): K4 at PQ(96, Ks), Ks in
+``ROUTE_KS``, on 512 queries of n random rows each (n in ``ROUTE_SLOTS``,
+about ``ROUTE_TILE_PAIRS`` pairs a 512-row tile, cap 1024), timed with the
+slot limit at 0 (every query takes a table), at n + 1 (every real query
+scored slot-wise; the padding query keeps its table) and as the wrapper
+sets it (``auto``).  The three must give the same bits.
 
 Each result also holds the largest difference from the plain version and
 the device bytes one call allocates (output and scratch).
@@ -28,6 +39,7 @@ names are assumed.  Run from the repository root::
 
     python3 scripts/torch_kernel_variants.py --kernels K1,K2 '[{}, {"kRowsInFlight": 2}]'
     python3 scripts/torch_kernel_variants.py --root _parent --kernels K1 '[{}]'
+    python3 scripts/torch_kernel_variants.py --kernels K4 --routes '[{}, {"kSlotSlots": 1}]'
 
 Prints one JSON line per variant.  Needs ``nvcc`` and a CUDA device.
 """
@@ -48,6 +60,12 @@ CALLS = 25
 DIM, QUERIES, DEPTH = 768, 512, 1000
 LARGE_N, DENSE_N = 2_000_384, 262_144
 KERNELS = ("K1", "K2", "K3", "K4")
+#: the staged tail block: rows, and the least and most random rows a query
+TAIL_ROWS, TAIL_SLOTS = 32_768, (35, 105)
+#: the route sweep: codewords a subspace, slots a query, pairs a tile
+ROUTE_KS = (256, 1024, 32_768)
+ROUTE_SLOTS = (16, 32, 64, 128, 256, 512, 1024, 2048, 4096)
+ROUTE_TILE_PAIRS = 900
 
 
 def layout(scoring, rng, n: int, r: int = 512):
@@ -83,6 +101,32 @@ def doc_layout(scoring, rng, n: int, r: int = 512, k: int = 8):
         torch.from_numpy(cand.reshape(cand.shape[0], cap // 128, 128)).cuda(),
         torch.from_numpy(tidx).cuda(),
     )
+
+
+def count_layout(scoring, rng, n: int, counts, r: int = 512, cap: int = 1024):
+    """A streamed layout of ``counts[q]`` random rows of ``n`` for each
+    query ``q`` (``len(counts)`` queries, the last one also the padding
+    query)."""
+    qno = np.repeat(np.arange(len(counts)), counts)
+    rows = rng.integers(0, n, size=qno.size)
+    cand, tidx, _ = scoring.build_streamed_layout(rows, qno, n, len(counts), r=r, cap=cap)
+    return (
+        torch.from_numpy(cand.reshape(cand.shape[0], cap // 128, 128)).cuda(),
+        torch.from_numpy(tidx).cuda(),
+    )
+
+
+def with_slot_limit(skpq, limit, fn):
+    """``fn()`` with K3/K4's slot limit set to ``limit`` (``None``: as the
+    wrapper sets it)."""
+    if limit is None:
+        return fn()
+    saved = skpq.adc_route_limit
+    skpq.adc_route_limit = lambda *args, **kwargs: limit
+    try:
+        return fn()
+    finally:
+        skpq.adc_route_limit = saved
 
 
 def median_ms(fn) -> float:
@@ -153,7 +197,7 @@ def use_variant(root: Path, modules: dict, consts: dict) -> None:
     _build.bind.cache_clear()
 
 
-def cases(kernels, modules, rng) -> dict:
+def cases(kernels, modules, rng, routes=False) -> dict:
     """name -> (kernel call, plain call) on the card."""
     sk, skpq, scoring = modules["sk"], modules["skpq"], modules["scoring"]
     gen = torch.Generator("cuda").manual_seed(0)
@@ -207,6 +251,33 @@ def cases(kernels, modules, rng) -> dict:
                 lambda c=codes, cd=cand3, ti=tidx: skpq.stream_select_pq(c, cb, q.t(), cd, ti),
                 lambda c=codes, cd=cand3, ti=tidx: skpq.stream_select_pq_plain(c, cb, q.t(), cd, ti),
             )
+    if "K4" in kernels:
+        cand3, tidx = count_layout(scoring, rng, TAIL_ROWS,
+                                   rng.integers(TAIL_SLOTS[0], TAIL_SLOTS[1] + 1, size=QUERIES))
+        for ks, dtype, label in ((256, np.uint8, "uint8"), (1024, np.uint16, "uint16")):
+            codes = torch.from_numpy(rng.integers(0, ks, size=(TAIL_ROWS, 96)).astype(dtype)).cuda()
+            cb_t = torch.randn(96, ks, 8, device="cuda", generator=gen)
+            out[f"K4 tail block {label}"] = (
+                lambda c=codes, b=cb_t, cd=cand3, ti=tidx: skpq.stream_select_pq(c, b, q.t(), cd, ti),
+                lambda c=codes, b=cb_t, cd=cand3, ti=tidx: skpq.stream_select_pq_plain(
+                    c, b, q.t(), cd, ti),
+            )
+    if routes:
+        for ks in ROUTE_KS:
+            dtype = np.uint8 if ks <= 256 else np.uint16
+            cb_r = torch.randn(96, ks, 8, device="cuda", generator=gen)
+            for n in ROUTE_SLOTS:
+                n_rows = max(8, -(-QUERIES * n // ROUTE_TILE_PAIRS)) * 512
+                codes = torch.from_numpy(rng.integers(0, ks, size=(n_rows, 96)).astype(dtype)).cuda()
+                cand3, tidx = count_layout(scoring, rng, n_rows, np.full(QUERIES, n))
+                plain = (lambda c=codes, b=cb_r, cd=cand3, ti=tidx:
+                         skpq.stream_select_pq_plain(c, b, q.t(), cd, ti))
+                for name, limit in (("table", 0), ("slots", n + 1), ("auto", None)):
+                    out[f"routes ks{ks} n{n} {name}"] = (
+                        lambda c=codes, b=cb_r, cd=cand3, ti=tidx, lim=limit: with_slot_limit(
+                            skpq, lim, lambda: skpq.stream_select_pq(c, b, q.t(), cd, ti)),
+                        plain,
+                    )
     return out
 
 
@@ -216,6 +287,8 @@ def main() -> int:
     parser.add_argument("--kernels", default=",".join(KERNELS), help="comma-separated, of K1-K4")
     parser.add_argument("--root", type=Path, default=Path(__file__).resolve().parents[1],
                         help="checkout whose kernels are timed")
+    parser.add_argument("--routes", action="store_true",
+                        help="add the sweep of K3/K4's two routes over Ks and slots a query")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("torch_kernel_variants: no CUDA device is available", file=sys.stderr)
@@ -230,7 +303,7 @@ def main() -> int:
     kernels = [k for k in args.kernels.split(",") if k]
     if set(kernels) - set(KERNELS):
         parser.error(f"unknown kernels {set(kernels) - set(KERNELS)}")
-    calls = cases(kernels, modules, np.random.default_rng(0))
+    calls = cases(kernels, modules, np.random.default_rng(0), args.routes)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -244,8 +317,13 @@ def main() -> int:
         use_variant(root, modules, consts)
         result = {"variant": consts}
         for name, (fn, plain) in calls.items():
+            got = fn()
+            if name.startswith("routes ") and not name.endswith(" table"):
+                table = calls[name.rsplit(" ", 1)[0] + " table"][0]()
+                if not torch.equal(got, table):
+                    raise RuntimeError(f"{name}: not the table route's bits")
             result[name] = {
-                "max_abs_err": (fn() - plain()).abs().max().item(),
+                "max_abs_err": (got - plain()).abs().max().item(),
                 "ms": median_ms(fn),
                 "back_to_back_ms": back_to_back_ms(fn),
                 "peak_bytes_above_held": call_memory(fn),

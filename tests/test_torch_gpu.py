@@ -17,7 +17,8 @@ import pytest
 import torch
 
 import fastforward_tpu_torch as ft
-from chip_smoke import fp32_edge_tiles, tower_vocab, write_checkpoint
+from chip_smoke import (MIXED_QUERIES, TAIL_BLOCK_QUERIES, TAIL_BLOCK_ROWS, fp32_edge_tiles,
+                        route_layout, tower_vocab, write_checkpoint)
 from fastforward_tpu_torch import convert
 from fastforward_tpu_torch.encoder import LambdaEncoder
 from fastforward_tpu_torch.index import InMemoryIndex, Mode
@@ -403,6 +404,70 @@ def test_cuda_k3_k4_wide_codes_match_plain(cuda, precision, shape, layout):
             )
         torch.cuda.synchronize()
         _assert_within_sum_order(got, want, absdot, m * ds)
+
+
+#: (M, Ks, Ds, code type) of the route cases: PQ(96, 256) and PQ(24, 256)
+#: uint8 at dim 768, then every shape of ``WIDE_PQ_SHAPES``
+ROUTE_SHAPES = [(96, 256, 8, np.uint8), (24, 256, 32, np.uint8), *WIDE_PQ_SHAPES]
+#: the layouts: three of ``LAYOUTS`` (random pairs over 16 queries: a few
+#: hundred slots a query; one query; half padding), a staged tail block
+#: (512 queries of about 70 slots over 32,768 rows, the rest of 64 x 1024
+#: slots padding) and a mixed one (half of the queries above the slot
+#: limit, half below)
+ROUTE_CASE_LAYOUTS = ["uniform", "half_padding", "one_query", "tail_block", "mixed"]
+
+
+@pytest.mark.parametrize("layout", ROUTE_CASE_LAYOUTS)
+@pytest.mark.parametrize(
+    "shape", ROUTE_SHAPES, ids=lambda s: "m%d_ks%d_%s" % (s[0], s[1], np.dtype(s[3]).name)
+)
+@pytest.mark.parametrize("kernel,tier", [("K3", "exact"), ("K3", "fast"), ("K4", "exact"),
+                                         ("K4", "high"), ("K4", "fast")])
+def test_cuda_k3_k4_routes(cuda, kernel, tier, shape, layout):
+    """K3 and K4 with every query forced to the table route and to the
+    slot-wise route give the same bits, and so does each query on its own
+    route (``"auto"``), which holds the plain version's tolerance; the
+    routes the card takes are the Python mirror's (``adc_routes``)."""
+    m, ks, ds, dtype = shape
+    cap = 512 if kernel == "K3" else 1024
+    limit = skpq.adc_slot_limit(ks, ds, torch.from_numpy(np.zeros(1, dtype)).dtype)
+    rng = np.random.default_rng(31)
+    n_pad = TAIL_BLOCK_ROWS if layout == "tail_block" else N_PAD
+    codes = rng.integers(0, ks, size=(n_pad, m)).astype(dtype)
+    codes[0] = ks - 1
+    cb = rng.standard_normal((m, ks, ds), dtype=np.float32)
+    if layout in ("tail_block", "mixed"):
+        qb = TAIL_BLOCK_QUERIES if layout == "tail_block" else MIXED_QUERIES
+        cand3, tile_idx = route_layout(rng, layout, n_pad, qb, sk.KERNEL_TILE_ROWS, cap, limit)
+    else:
+        qb, cand3, tile_idx = _layout(rng, layout, cap)
+    q = rng.standard_normal((qb, m * ds), dtype=np.float32)
+    codes, cb, q, cand3, tile_idx = [torch.from_numpy(a).to(cuda) for a in (codes, cb, q, cand3, tile_idx)]
+
+    def call(cb_, q_, route=None):
+        if kernel == "K3":
+            args = (codes, cb_, q_, cand3, tile_idx)
+            if route is None:
+                return skpq.stream_select_pq_pairwise_plain(*args, exact=tier != "fast")
+            return skpq.stream_select_pq_pairwise(*args, exact=tier != "fast", _route=route)
+        args = (codes, cb_, q_.t(), cand3, tile_idx)
+        if route is None:
+            return skpq.stream_select_pq_plain(*args, precision=tier)
+        return skpq.stream_select_pq(*args, precision=tier, _route=route)
+
+    wrapper = skpq.stream_select_pq_pairwise if kernel == "K3" else skpq.stream_select_pq
+    before = wrapper.launches
+    table, slots, auto = call(cb, q, "table"), call(cb, q, "slots"), call(cb, q, "auto")
+    assert wrapper.launches == before + 3
+    torch.cuda.synchronize()
+    assert torch.equal(table, slots)
+    assert torch.equal(auto, table)
+    _assert_within_sum_order(auto, call(cb, q), call(cb.abs(), q.abs()), m * ds)
+    routes = skpq.adc_routes(cand3, qb, limit)
+    want = skpq.adc_query_routes_plain(cand3.cpu(), qb, limit)
+    assert torch.equal(routes.cpu(), want)
+    if layout == "mixed" and limit < n_pad:
+        assert {skpq.ROUTE_TABLE, skpq.ROUTE_SLOTS} <= set(want.tolist())
 
 
 def test_cuda_wide_code_tensors(cuda):
