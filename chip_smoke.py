@@ -110,13 +110,19 @@ Phases, each of which must pass (any failure exits non-zero):
     the cache does not hold, MAXP fetches 2 x n_pairs floats; every call
     launches K1 once for the prefix and once a tail block; K1 and K2 (the
     block as 3D) held against their plain versions on one staged tail
-    block; the host-to-card GB/s of tail blocks (page-locked, staged,
-    gathered) beside the link's generation and width;
+    block of the passage plan, and K1 on one of the MAXP plan, each
+    timed and one call split by kernel, with K1's tiles split over 1,
+    ``tile_split``'s and the most blocks and K2's queries on work items
+    and packed (the same bits; every K1/K2 row does this, and logs its
+    split or its queries' routes); the host-to-card GB/s of tail blocks
+    (page-locked, staged, gathered) beside the link's generation and
+    width;
 21. (inside phases 7 and 9) the same for the int8 codes of phase 7 at
     ``hbm_budget=512 MiB`` and the PQ codes of phase 9 at 64 MiB: passage
     and MAXP re-ranks checked as there, each call launching the kernel
     each layout routes to (K1/K2, K3/K4); K2, K3 and K4 held against
-    their plain versions on a staged tail block;
+    their plain versions on a staged tail block, each call split by
+    kernel;
 22. ``store="device"``: the flagship corpus in 62 adds of 32,768 rows
     (rows/s), no host copy; its re-rank and ``serve(refine=22)`` equal
     phase 3's index, 4,096 rows read back bit for bit;
@@ -1067,37 +1073,86 @@ def hold(what, fn, plain_fn, abs_fn, dim, timed, bound_fn):
 
 
 def select_variants(sk, table, q, cand3, tile_idx, dim, tiers, timed, rates, label):
-    """K2 against its plain version (``q`` row-major; K2 takes ``q.t()``)."""
-    return [
-        hold(
-            f"K2 {label} {p}",
-            lambda p=p: sk.stream_select(table, q.t(), cand3, tile_idx, precision=p),
-            lambda p=p: sk.stream_select_plain(table, q.t(), cand3, tile_idx, precision=p),
-            lambda p=p: sk.stream_select_plain(table.abs(), q.abs().t(), cand3, tile_idx, precision=p),
-            dim,
-            timed,
-            lambda: k1_bound(table, q, cand3, tile_idx, dim, sk.KERNEL_TILE_ROWS, rates),
-        )
-        for p in tiers
-    ]
+    """K2 against its plain version (``q`` row-major; K2 takes ``q.t()``),
+    each row with its routes (:func:`hold_dense_routes`)."""
+    rows = []
+    for p in tiers:
+        fn = lambda p=p, **kw: sk.stream_select(table, q.t(), cand3, tile_idx, precision=p, **kw)
+        plain = lambda p=p: sk.stream_select_plain(table, q.t(), cand3, tile_idx, precision=p)
+        absdot = lambda p=p: sk.stream_select_plain(table.abs(), q.abs().t(), cand3, tile_idx,
+                                                    precision=p)
+        row = hold(f"K2 {label} {p}", fn, plain, absdot, dim, timed,
+                   lambda: k1_bound(table, q, cand3, tile_idx, dim, sk.KERNEL_TILE_ROWS, rates))
+        hold_dense_routes(sk, row, fn, plain, absdot, dim, timed, cand3, q.shape[0], tiles=False)
+        rows.append(row)
+    return rows
 
 
 def pairwise_variants(sk, table, q, cand3, tile_idx, dim, tiers, timed, rates, label):
     """K1 against its plain version for each tier (``"exact"`` or
-    ``"fast"``)."""
-    return [
-        hold(
-            f"K1 {label} {t}",
-            lambda t=t: sk.stream_select_pairwise(table, q, cand3, tile_idx, exact=t == "exact"),
-            lambda t=t: sk.stream_select_pairwise_plain(table, q, cand3, tile_idx, exact=t == "exact"),
-            lambda t=t: sk.stream_select_pairwise_plain(table.abs(), q.abs(), cand3, tile_idx,
-                                                        exact=t == "exact"),
-            dim,
-            timed,
-            lambda: k1_bound(table, q, cand3, tile_idx, dim, sk.KERNEL_TILE_ROWS, rates),
-        )
-        for t in tiers
-    ]
+    ``"fast"``), each row with its splits (fp32 rows) or routes
+    (:func:`hold_dense_routes`)."""
+    rows = []
+    for t in tiers:
+        fn = lambda t=t, **kw: sk.stream_select_pairwise(table, q, cand3, tile_idx,
+                                                         exact=t == "exact", **kw)
+        plain = lambda t=t: sk.stream_select_pairwise_plain(table, q, cand3, tile_idx,
+                                                            exact=t == "exact")
+        absdot = lambda t=t: sk.stream_select_pairwise_plain(table.abs(), q.abs(), cand3, tile_idx,
+                                                             exact=t == "exact")
+        row = hold(f"K1 {label} {t}", fn, plain, absdot, dim, timed,
+                   lambda: k1_bound(table, q, cand3, tile_idx, dim, sk.KERNEL_TILE_ROWS, rates))
+        hold_dense_routes(sk, row, fn, plain, absdot, dim, timed, cand3, q.shape[0],
+                          tiles=table.dtype == torch.float32)
+        rows.append(row)
+    return rows
+
+
+def hold_dense_routes(sk, row, fn, plain_fn, abs_fn, dim, timed, cand3, qb, tiles) -> None:
+    """The routes of one K1/K2 row (``fn(**kw)`` calls the kernel with
+    ``_split`` or ``_route`` forced).  K1's fp32 body (``tiles``): the tiles
+    split over one block, over ``tile_split``'s choice and over the most
+    blocks give the same bits, each within the plain version's tolerance;
+    the row logs the tiles and the split.  The query-major body: every
+    query on work items and every one packed give the same bits, each
+    within tolerance, and the routes the card takes (``dense_routes``) are
+    the mirror's; the row logs the split of queries and slots.  Where
+    ``timed``, ``"auto"`` and each forced form are timed in turn."""
+    if tiles:
+        n_tiles = cand3.shape[0]
+        chosen = sk.tile_split(n_tiles, sk.sm_count(cand3.device))
+        forced = {f"S{s}": {"_split": s} for s in sorted({1, chosen, sk.TILE_MAX_SPLIT})}
+        split = {"tiles": n_tiles, "split": chosen}
+    else:
+        forced = {route: {"_route": route} for route in ("items", "packed")}
+        limit = sk.dense_route_limit("auto")
+        routes = sk.dense_routes(cand3, qb, limit).cpu()
+        mirror = sk.dense_query_routes_plain(cand3.cpu(), qb, limit)
+        check(torch.equal(routes, mirror), f"{row['variant']}: the card's routes "
+              f"{routes.bincount().tolist()} are not the mirror's {mirror.bincount().tolist()}")
+        counts = torch.bincount(cand3.reshape(-1).long().cpu() % qb, minlength=qb)
+        split = {"pack_limit": limit}
+        for name, code in (("items", sk.ROUTE_ITEMS), ("packed", sk.ROUTE_PACKED)):
+            split[f"{name}_queries"] = int((routes == code).sum())
+            split[f"{name}_slots"] = int(counts[routes == code].sum())
+    outs = {name: fn(**kw) for name, kw in forced.items()}
+    plain = plain_fn()
+    tol = sum_order_tol(abs_fn(), dim)
+    torch.cuda.synchronize()
+    what, first = row["variant"], next(iter(outs.values()))
+    for name, out in outs.items():
+        check(torch.equal(out, first), f"{what}: {name} differs from {next(iter(outs))}, max "
+              f"{(out - first).abs().max().item()}")
+        err = (out - plain).abs()
+        check(bool(torch.isfinite(out).all()) and bool((err <= tol).all()),
+              f"{what}: {name} disagrees with the plain version: max err {err.max().item()}")
+    row["routes"] = split
+    if timed:
+        row["route_ms"] = interleaved_ms(
+            {name: lambda kw=kw: fn(**kw) for name, kw in {"auto": {}, **forced}.items()},
+            TIMED_LAUNCHES)
+    log(f"   routes {json.dumps(split)}; {', '.join(outs)} bit-identical"
+        + (f"; ms in turn {json.dumps(row['route_ms'])}" if timed else ""))
 
 
 def pq_variants(skpq, kernel, codes, cb, q, cand3, tile_idx, tiers, timed, rates, label):
@@ -1897,17 +1952,9 @@ def hybrid_dense_phase(corpus, doc_ids, psg_ids, by_text, ranking, doc_rank, run
     flows["hybrid_rerank"]["profile"] = profile_flow(lambda: hyb(ranking), CALL_KERNELS["pairwise"])
     log("[profile hybrid_rerank]", json.dumps(flows["hybrid_rerank"]["profile"]))
 
-    # K1 and K2 (the fp32 block as 3D, K2's entry) on one staged tail block
-    block, chunk = staged_block(view, state)
-    q_dev = state["res_plan"]["q_dev"][1]
-    log(f"[hybrid] K1 and K2 vs plain on a staged tail block {tuple(block.shape)}, layout "
-        f"{tuple(chunk['cand'].shape)}")
-    held["stream_select_pairwise"] += pairwise_variants(
-        sk, block, q_dev, chunk["cand"], chunk["tile"], DIM, ("exact",), True, rates, "fp32 tail block")
-    held["stream_select"] += select_variants(
-        sk, block.view(block.shape[0], DIM // 128, 128), q_dev, chunk["cand"], chunk["tile"], DIM,
-        ("high",), True, rates, "fp32 tail block")
-    del block, chunk
+    # K1 and K2 (the fp32 block as 3D, K2's entry) on one staged tail block,
+    # each call split by kernel
+    hybrid_tail_rows(sk, view, state, rates, held, "fp32 tail block", k2=True)
 
     hyb.mode = Mode.MAXP
     reset_counts(wrappers)
@@ -1931,6 +1978,7 @@ def hybrid_dense_phase(corpus, doc_ids, psg_ids, by_text, ranking, doc_rank, run
     log(f"[hybrid MAXP] cold {cold_ms:.1f} ms, warm median {warm_ms:.2f} ms; "
         f"{flows['hybrid_doc_maxp_rerank']['rows']} rows of {n_pairs} pairs; {cache['chunks']} tail "
         f"blocks, {cache['cached']} cached; the tier's counters by call {json.dumps(stats)}")
+    hybrid_tail_rows(sk, view, state, rates, held, "fp32 MAXP tail block", k2=False)
 
     hyb.mode = Mode.PASSAGE
     reset_counts(wrappers)
@@ -1955,6 +2003,26 @@ def hybrid_dense_phase(corpus, doc_ids, psg_ids, by_text, ranking, doc_rank, run
     del hyb, view, state, es, whole_es, cold, warm, served
     torch.cuda.empty_cache()
     return flows
+
+
+def hybrid_tail_rows(sk, view, state, rates, held, label, k2) -> None:
+    """K1 (and, ``k2``, K2 on the block viewed 3D) against its plain version
+    on one staged fp32 tail block of ``state``'s plan, with its splits or
+    routes, timed and one call split by kernel."""
+    block, chunk = staged_block(view, state)
+    q_dev = state["res_plan"]["q_dev"][1]
+    cand3, tile = chunk["cand"], chunk["tile"]
+    log(f"[hybrid] K1{' and K2' if k2 else ''} vs plain on a staged tail block "
+        f"{tuple(block.shape)}, layout {tuple(cand3.shape)}")
+    row = pairwise_variants(sk, block, q_dev, cand3, tile, DIM, ("exact",), True, rates, label)[0]
+    split_call(row, lambda: sk.stream_select_pairwise(block, q_dev, cand3, tile), CALL_KERNELS["pairwise"])
+    held["stream_select_pairwise"].append(row)
+    if k2:
+        block3 = block.view(block.shape[0], DIM // 128, 128)
+        row = select_variants(sk, block3, q_dev, cand3, tile, DIM, ("high",), True, rates, label)[0]
+        split_call(row, lambda: sk.stream_select(block3, q_dev.t(), cand3, tile, precision="high"),
+                   CALL_KERNELS["dense"])
+        held["stream_select"].append(row)
 
 
 def hybrid_quantized_phase(label, kind, source, budget, lifetime_bytes, rankings, exacts, wrappers,
@@ -2026,9 +2094,11 @@ def hybrid_quantized_phase(label, kind, source, budget, lifetime_bytes, rankings
                         block, view.codebooks, q, chunk["cand"], chunk["tile"]), CALL_KERNELS["adc"])
                     held[kname].append(row)
             else:
-                held["stream_select"] += select_variants(
-                    sk, block, q_dev, chunk["cand"], chunk["tile"], DIM, ("high",), True, rates,
-                    "int8 tail block")
+                row = select_variants(sk, block, q_dev, chunk["cand"], chunk["tile"], DIM, ("high",),
+                                      True, rates, "int8 tail block")[0]
+                split_call(row, lambda: sk.stream_select(block, q_dev.t(), chunk["cand"], chunk["tile"],
+                                                         precision="high"), CALL_KERNELS["dense"])
+                held["stream_select"].append(row)
             del block, chunk
     del hyb, view
     torch.cuda.empty_cache()

@@ -42,8 +42,7 @@
 //   4. adc_slot_kernel (where slot_limit > 0): the grouped order in chunks
 //      of positions, at most kSlotBlocksPerSm blocks an SM; a chunk without
 //      a slot-wise query is skipped, and where the grouping's scan found
-//      none (its flag, in the table scratch's first word) every block
-//      leaves at once;
+//      none (an empty span) every block leaves at once;
 // then, for each group of lut_queries queries (one group at Qb = 512 and
 // width 256), unless every query is slot-wise:
 //   5. adc_table_kernel: the group's LUTs into the scratch table, one block
@@ -148,7 +147,7 @@ struct AdcArgs {
   float* out;           // (n_slots,)
   long long n_slots;
   int cap, qb, r;
-  u64* scratch;         // the grouping's, 3 * qb + 2 + n_slots words
+  u64* scratch;         // the grouping's, 3 * qb + 4 + n_slots words
   int item_slots;       // slots per work item, <= kAdcMaxItemSlots
   long long max_items;  // a bound on the work items of the whole call
   float* lut;           // lut_queries * m * width fp32
@@ -169,16 +168,6 @@ __host__ __device__ __forceinline__ bool vec4_ok(const AdcArgs& a) {
   return (a.ds & 3) == 0 && a.sd == 1 && (a.sq & 3) == 0 &&
          (reinterpret_cast<uintptr_t>(a.codebooks) & 15) == 0 &&
          (reinterpret_cast<uintptr_t>(a.q) & 15) == 0;
-}
-
-// A query's route in this call, from the grouping's counts.
-enum Route { kNoSlots = 0, kTable = 1, kSlotWise = 2 };
-
-__device__ __forceinline__ int route(const u64* __restrict__ slot_off, int q,
-                                     long long slot_limit) {
-  const u64 n = __ldg(slot_off + q + 1) - __ldg(slot_off + q);
-  return n == 0 ? kNoSlots
-                : n < static_cast<u64>(slot_limit) ? kSlotWise : kTable;
 }
 
 // Four more products of a codeword with a query subvector on the FMA chain
@@ -486,9 +475,8 @@ __global__ void __launch_bounds__(kSlotThreads)
   constexpr int kPer = kBytes / sizeof(Code);  // codes a load
   constexpr int kLanes = kDs == 8 ? 2 : 1;
   constexpr long long kChunk = kSlotThreads / kLanes;
-  // the grouping's flag, in the table scratch's first word until a table
-  // is written there: no query is short enough (every block leaves)
-  if (__ldg(reinterpret_cast<const int*>(a.lut)) == 0) return;
+  // no query is short enough: every block leaves
+  if (l.span[0] >= l.span[1]) return;
   __shared__ int live;
   const Code* codes = static_cast<const Code*>(a.codes);
   const bool vec4 = vec4_ok(a);
@@ -502,7 +490,7 @@ __global__ void __launch_bounds__(kSlotThreads)
     if (threadIdx.x == 0) live = 0;
     __syncthreads();
     for (int q = qa + threadIdx.x; q <= qz; q += kSlotThreads) {
-      if (route(l.slot_off, q, a.slot_limit) == kSlotWise) live = 1;
+      if (groups::route(l.slot_off, q, a.slot_limit) == groups::kShort) live = 1;
     }
     __syncthreads();
     if (!live) continue;
@@ -518,7 +506,7 @@ __global__ void __launch_bounds__(kSlotThreads)
       const u64 e = l.order[p];
       const int c = groups::entry_cand(e);
       const int q = c % a.qb;
-      if (route(l.slot_off, q, a.slot_limit) == kSlotWise) {
+      if (groups::route(l.slot_off, q, a.slot_limit) == groups::kShort) {
         slot = groups::entry_slot(e);
         const long long row =
             static_cast<long long>(__ldg(a.tile_idx + slot / a.cap)) * a.r + c / a.qb;
@@ -602,13 +590,6 @@ inline int code_load_bytes(const AdcArgs& a, int most) {
   return a.code_bytes;
 }
 
-// Each query's route: routes[q] = kNoSlots, kTable or kSlotWise.
-__global__ void route_kernel(const u64* __restrict__ slot_off, int qb,
-                             long long slot_limit, int* routes) {
-  const int q = blockIdx.x * blockDim.x + threadIdx.x;
-  if (q < qb) routes[q] = route(slot_off, q, slot_limit);
-}
-
 }  // namespace adc
 
 // Run the steps for one call; returns the first failing step's
@@ -629,10 +610,8 @@ cudaError_t adc_lut_launch(const AdcArgs& a, cudaStream_t stream) {
     return cudaErrorInvalidValue;
   }
   const groups::Lists l = groups::lists(a.scratch, a.qb);
-  // the grouping's flag of a slot-wise query goes to the table scratch's
-  // first word, which the slot-wise kernel reads before any table lands
   cudaError_t err = group_slots(a.cand, a.n_slots, a.qb, a.item_slots, l,
-                                stream, a.slot_limit, reinterpret_cast<int*>(a.lut));
+                                stream, a.slot_limit);
   if (err != cudaSuccess) return err;
 
   if (a.slot_limit > 0) {  // some query may be scored slot-wise
@@ -672,24 +651,6 @@ cudaError_t adc_lut_launch(const AdcArgs& a, cudaStream_t stream) {
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;
-}
-
-// The route each query of a call's slots takes at slot_limit (routes[q]:
-// 0 no slots, 1 table, 2 slot-wise), from the same grouping and the same
-// rule as adc_lut_launch; returns the first failing step's cudaError_t.
-inline cudaError_t adc_routes_launch(const int* cand, long long n_slots,
-                                     int qb, long long slot_limit,
-                                     u64* scratch, int* routes,
-                                     cudaStream_t stream) {
-  if (qb <= 0 || slot_limit < 0) return cudaErrorInvalidValue;
-  if (n_slots <= 0) return cudaMemsetAsync(routes, 0, sizeof(int) * qb, stream);
-  const groups::Lists l = groups::lists(scratch, qb);
-  cudaError_t err =
-      group_slots(cand, n_slots, qb, kAdcMaxItemSlots, l, stream, slot_limit);
-  if (err != cudaSuccess) return err;
-  adc::route_kernel<<<(qb + kAdcThreads - 1) / kAdcThreads, kAdcThreads, 0,
-                      stream>>>(l.slot_off, qb, slot_limit, routes);
-  return cudaGetLastError();
 }
 
 }  // namespace ff

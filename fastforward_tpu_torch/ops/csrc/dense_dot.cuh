@@ -25,9 +25,23 @@
 // and a block holds one query for a whole work item of up to item_slots of
 // its slots: the query leaves L2 once per item, and a slot costs its row.
 //
+// Two routes, chosen per query on the card.  A block a work item was
+// designed for the resident layouts, where every real query has about
+// 1,000 slots.  On a staged tail block of the hybrid tier (512 queries of
+// about 70 slots, the padding query with ~28,400) a query's block kept 5
+// of its 8 warps idle, and each busy warp dotted 32 rows, 4 at a time,
+// one load after another.  So a query with fewer than pack_limit slots
+// (stream_kernel.DENSE_PACK_LIMIT; 0 forces work items, more than any
+// count packs every query) gets no work item of its own: the grouping's
+// scan gives it none and records the span of the short queries' lists,
+// and the blocks of dot_kernel past the last work item share those places
+// out as packed runs that cross query boundaries (packed_slots), at the
+// same time as the work items.  Both routes stage a query the same way
+// and dot with dot_rows, so a slot's score is the same bits on either.
+//
 // The launch sequence (dense_dot_launch), all on the caller's stream: the
 // grouping (a memset and the count and scatter kernels), then
-// dot_kernel, one block of kWarps warps per work item:
+// dot_kernel, one block of kWarps warps per work item of a long query:
 //   - the block stages its query in shared memory (fp32, rounded to bf16
 //     once in the fast tier), permuted so that a warp's 16-byte reads of
 //     it are consecutive (no bank conflicts);
@@ -41,8 +55,14 @@
 //     multiplies, two steps unrolled, so 8 loads of 16 bytes per lane are
 //     in flight; int8 elements widen exactly through a float magic number
 //     (an integer op and an fp32 add, no conversion instruction);
-//   - each slot's score goes to out[slot], its place in the grid.
-// Padding slots are scored like any other slot, as the contract says.
+//   - each slot's score goes to out[slot], its place in the grid;
+// and the packed blocks, kPackWarps warps of which take kPackSlots places
+// of the short queries' span at a time: per query among a warp's places,
+// the warp stages it in its own part of shared memory and dots its rows as
+// above.  Padding slots are scored like any other slot, as the contract
+// says; the padding query, with thousands of slots, keeps its work items.
+// The grouping's memset stays a launch of its own: the scratch is new each
+// call, and the count kernel's atomics need its counters at zero.
 //
 // Bound on the H100: bytes.  A call must move the distinct rows its slots
 // read (chip_smoke.py's k1_bound: at the flagship int8 layouts 0.18-0.36
@@ -79,15 +99,31 @@ struct DenseArgs {
   float* out;           // (n_slots,)
   long long n_slots;
   int cap, qb, r;
-  u64* scratch;         // the grouping's, 3 * qb + 2 + n_slots words
+  u64* scratch;         // the grouping's, 3 * qb + 4 + n_slots words
   int item_slots;       // slots per work item
   long long max_items;  // a bound on the work items of the whole call
+  long long pack_limit;  // queries with fewer slots take the packed route
 };
 
 namespace dense {
 
 constexpr int kWarps = 8;         // warps per block
 constexpr int kRowsInFlight = 4;  // distinct rows a warp dots at once
+// blocks an SM holds (caps the registers at 64; 80 for bf16 rows, whose
+// body took 70 alone): the packed route's code must not cost the work
+// items' occupancy
+template <typename T>
+constexpr int kDotBlocksPerSm = sizeof(T) == 2 ? 3 : 4;
+// the packed route: places of the grouped order a warp takes at a time,
+// the warps of a packed block that take places (each stages its own
+// query), and the most shared memory their queries take
+constexpr int kPackSlots = 16;
+constexpr int kPackWarps = 4;
+// distinct rows a packed warp dots at once: two for fp32 rows, whose
+// packed dots spilled under the register cap at four (PERF.md)
+template <typename T>
+constexpr int kPackRows = sizeof(T) == 4 ? 2 : kRowsInFlight;
+constexpr int kPackSmemBytes = 40 * 1024;
 
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
@@ -153,21 +189,20 @@ __device__ __forceinline__ int staged_place(int e) {
   return ((step * (kElems / 4) + v / 4) * 32 + lane) * 4 + (v & 3);
 }
 
-// acc[k] = rows[k] . query (staged), summed over the warp (every lane gets
-// the sums).
-template <typename T, bool kFast>
-__device__ __forceinline__ void dot_rows(const T* const (&rows)[kRowsInFlight],
-                                         const float* qs, int dim, int lane,
-                                         float (&acc)[kRowsInFlight]) {
+// acc[k] = rows[k] . query (staged) for K rows at once, summed over the
+// warp (every lane gets the sums); each sum's chain does not depend on K.
+template <typename T, bool kFast, int K>
+__device__ __forceinline__ void dot_rows(const T* const (&rows)[K], const float* qs,
+                                         int dim, int lane, float (&acc)[K]) {
   constexpr int V = Row<T>::kElems;
 #pragma unroll
-  for (int k = 0; k < kRowsInFlight; ++k) acc[k] = 0.0f;
+  for (int k = 0; k < K; ++k) acc[k] = 0.0f;
   const float4* q4 = reinterpret_cast<const float4*>(qs) + lane;
 #pragma unroll 2
   for (int i = lane * V; i < dim; i += 32 * V, q4 += 8 * V) {
-    uint4 raw[kRowsInFlight];
+    uint4 raw[K];
 #pragma unroll
-    for (int k = 0; k < kRowsInFlight; ++k) {
+    for (int k = 0; k < K; ++k) {
       raw[k] = __ldg(reinterpret_cast<const uint4*>(rows[k] + i));
     }
 #pragma unroll
@@ -175,7 +210,7 @@ __device__ __forceinline__ void dot_rows(const T* const (&rows)[kRowsInFlight],
       const float4 qv = q4[j * 32];
       const float qq[4] = {qv.x, qv.y, qv.z, qv.w};
 #pragma unroll
-      for (int k = 0; k < kRowsInFlight; ++k) {
+      for (int k = 0; k < K; ++k) {
         float x[4];
         Row<T>::widen(raw[k], j, x);
 #pragma unroll
@@ -189,7 +224,7 @@ __device__ __forceinline__ void dot_rows(const T* const (&rows)[kRowsInFlight],
     }
   }
 #pragma unroll
-  for (int k = 0; k < kRowsInFlight; ++k) {
+  for (int k = 0; k < K; ++k) {
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) {
       acc[k] += __shfl_xor_sync(0xffffffffu, acc[k], off);
@@ -197,16 +232,131 @@ __device__ __forceinline__ void dot_rows(const T* const (&rows)[kRowsInFlight],
   }
 }
 
-// One block per work item: the item's query staged, and the scores of its
-// slots.  Blocks past the last item leave.
+// The dots of the leader lanes in `todo` (warp-uniform; each lane's row
+// is `row`) against the staged query, K rows at a time; returns the dot of
+// the row this lane leads.
+template <typename T, bool kFast, int K>
+__device__ __forceinline__ float dot_leaders(unsigned todo, long long row, const T* table,
+                                             const float* qs, int dim, int lane) {
+  float mine = 0.0f;
+  while (todo) {  // warp-uniform
+    int src[K];
+    const T* rows[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      // past the last leader, repeat the first row (read from L1, unused)
+      src[k] = todo ? __ffs(todo) - 1 : -1;
+      todo &= todo - 1;
+      const long long rk = __shfl_sync(0xffffffffu, row, src[k] >= 0 ? src[k] : src[0]);
+      rows[k] = table + rk * dim;
+    }
+    float acc[K];
+    dot_rows<T, kFast, K>(rows, qs, dim, lane, acc);
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      if (lane == src[k]) mine = acc[k];
+    }
+  }
+  return mine;
+}
+
+// Stage query qno's elements (fp32, rounded to bf16 in the fast tier) at
+// their staged_place in qs, zero past dim up to a whole step; `staged`
+// floats, by `threads` threads from `first`.
 template <typename T, bool kFast>
-__global__ void __launch_bounds__(kWarps * 32)
-    dot_kernel(DenseArgs a, groups::Lists l) {
+__device__ __forceinline__ void stage_query(const DenseArgs& a, int qno, float* qs,
+                                            int staged, int first, int threads) {
   constexpr int V = Row<T>::kElems;
+  const float* qcol = a.q + static_cast<long long>(qno) * a.sq;
+  for (int e = first; e < staged; e += threads) {
+    const float x = e < a.dim ? __ldg(qcol + e * a.sd) : 0.0f;
+    qs[staged_place<V>(e)] = kFast ? round_bf16(x) : x;
+  }
+}
+
+// Floats of a staged query (dim rounded up to a whole step of dot_rows).
+template <typename T>
+__host__ __device__ __forceinline__ int staged_floats(int dim) {
+  constexpr int kStep = 32 * Row<T>::kElems;
+  return (dim + kStep - 1) / kStep * kStep;
+}
+
+// Warps of a packed block that take places, each staging its own query:
+// kPackWarps, or as many as kPackSmemBytes of staged queries hold (at least
+// one).
+template <typename T>
+__host__ __device__ __forceinline__ int pack_warps(int dim) {
+  const int fit = kPackSmemBytes / (staged_floats<T>(dim) * static_cast<int>(sizeof(float)));
+  return fit < 1 ? 1 : fit > kPackWarps ? kPackWarps : fit;
+}
+
+// The packed route, in the blocks that no work item takes (block `rel` of
+// them): the short queries' slots, places [span[0], span[1]) of the
+// grouped order, in chunks of kPackSlots places that cross query
+// boundaries, packed warp w taking chunks w, w + warps, ...; lane i takes
+// the chunk's i-th place (a lane whose place holds a long query's slot
+// sits it out).  For each query among its lanes in turn, the warp stages
+// the query in its own part of shared memory as a work item's block does,
+// and dots the query's rows with dot_rows (lanes whose slots share a row
+// share one dot), so each score has the bits of the items route.  Where
+// no query is short, the packed blocks leave at once.
+template <typename T, bool kFast>
+__device__ __forceinline__ void packed_slots(const DenseArgs& a, const groups::Lists& l,
+                                             long long rel, float* smem) {
+  const long long lo = static_cast<long long>(l.span[0]);
+  const long long hi = static_cast<long long>(l.span[1]);
+  const int n_warps = pack_warps<T>(a.dim), warp = threadIdx.x >> 5;
+  if (lo >= hi || warp >= n_warps) return;
+  const int lane = threadIdx.x & 31;
+  const int staged = staged_floats<T>(a.dim);
+  float* qs = smem + warp * staged;
+  const T* table = static_cast<const T*>(a.table);
+  // packed blocks: the grid's blocks past the first work item's (rel = 0)
+  const long long warps = (static_cast<long long>(gridDim.x) - blockIdx.x + rel) * n_warps;
+  for (long long p0 = lo + (rel * n_warps + warp) * kPackSlots; p0 < hi;
+       p0 += warps * kPackSlots) {
+    long long slot = -1, row = -1;
+    int q = -1;
+    if (lane < kPackSlots && p0 + lane < hi) {
+      const u64 e = l.order[p0 + lane];
+      const int c = groups::entry_cand(e);
+      const int qn = c % a.qb;
+      if (groups::route(l.slot_off, qn, a.pack_limit) == groups::kShort) {
+        q = qn;
+        slot = groups::entry_slot(e);
+        row = static_cast<long long>(__ldg(a.tile_idx + slot / a.cap)) * a.r + c / a.qb;
+      }
+    }
+    unsigned pending = __ballot_sync(0xffffffffu, q >= 0);
+    while (pending) {  // warp-uniform: one query of the chunk at a time
+      const int qg = __shfl_sync(0xffffffffu, q, __ffs(pending) - 1);
+      const bool in = q == qg;
+      pending &= ~__ballot_sync(0xffffffffu, in);
+      __syncwarp();  // the previous query's dots have read qs
+      stage_query<T, kFast>(a, qg, qs, staged, lane, 32);
+      __syncwarp();
+      const unsigned peers =
+          __match_any_sync(0xffffffffu, in ? static_cast<u64>(row) : ~0ull);
+      const int leader = __ffs(peers) - 1;
+      const float mine = dot_leaders<T, kFast, kPackRows<T>>(
+          __ballot_sync(0xffffffffu, in && lane == leader), row, table, qs, a.dim, lane);
+      const float score = __shfl_sync(0xffffffffu, mine, leader);
+      if (in) a.out[slot] = score;
+    }
+  }
+}
+
+// One block per work item of a long query: the item's query staged, and
+// the scores of its slots.  The blocks past the last item take the packed
+// route (packed_slots), at the same time as the items.
+template <typename T, bool kFast>
+__global__ void __launch_bounds__(kWarps * 32, kDotBlocksPerSm<T>)
+    dot_kernel(DenseArgs a, groups::Lists l) {
   extern __shared__ __align__(16) float qs[];
   groups::Item it;
   if (!groups::find_item(l.slot_off, l.item_off, 0, a.qb, blockIdx.x,
                          a.item_slots, &it)) {
+    packed_slots<T, kFast>(a, l, blockIdx.x - static_cast<long long>(l.item_off[a.qb]), qs);
     return;
   }
   const int lane = threadIdx.x & 31;
@@ -218,12 +368,7 @@ __global__ void __launch_bounds__(kWarps * 32)
   u64 entry = base + lane < it.n ? l.order[it.first + base + lane] : 0;
 
   // the query, zero past dim up to a whole step
-  const int staged = (a.dim + 32 * V - 1) / (32 * V) * (32 * V);
-  const float* qcol = a.q + static_cast<long long>(it.q) * a.sq;
-  for (int e = threadIdx.x; e < staged; e += kWarps * 32) {
-    const float x = e < a.dim ? __ldg(qcol + e * a.sd) : 0.0f;
-    qs[staged_place<V>(e)] = kFast ? round_bf16(x) : x;
-  }
+  stage_query<T, kFast>(a, it.q, qs, staged_floats<T>(a.dim), threadIdx.x, kWarps * 32);
   __syncthreads();
 
   for (; base < it.n; base += kPass) {
@@ -239,27 +384,8 @@ __global__ void __launch_bounds__(kWarps * 32)
     // the lowest lane of each row leads it; leaders' rows are dotted
     const unsigned peers = __match_any_sync(0xffffffffu, static_cast<u64>(row));
     const int leader = __ffs(peers) - 1;
-    unsigned todo = __ballot_sync(0xffffffffu, row >= 0 && lane == leader);
-    float mine = 0.0f;  // the dot of the row this lane leads
-    while (todo) {      // warp-uniform
-      int src[kRowsInFlight];
-      const T* rows[kRowsInFlight];
-#pragma unroll
-      for (int k = 0; k < kRowsInFlight; ++k) {
-        // past the last leader, repeat the first row (read from L1, unused)
-        src[k] = todo ? __ffs(todo) - 1 : -1;
-        todo &= todo - 1;
-        const long long rk =
-            __shfl_sync(0xffffffffu, row, src[k] >= 0 ? src[k] : src[0]);
-        rows[k] = table + rk * a.dim;
-      }
-      float acc[kRowsInFlight];
-      dot_rows<T, kFast>(rows, qs, a.dim, lane, acc);
-#pragma unroll
-      for (int k = 0; k < kRowsInFlight; ++k) {
-        if (lane == src[k]) mine = acc[k];
-      }
-    }
+    const float mine = dot_leaders<T, kFast, kRowsInFlight>(
+        __ballot_sync(0xffffffffu, row >= 0 && lane == leader), row, table, qs, a.dim, lane);
     const float score = __shfl_sync(0xffffffffu, mine, leader);
     if (slot >= 0) a.out[slot] = score;
   }
@@ -268,18 +394,17 @@ __global__ void __launch_bounds__(kWarps * 32)
 template <typename T, bool kFast>
 cudaError_t launch_dot(const DenseArgs& a, const groups::Lists& l,
                        cudaStream_t stream) {
-  constexpr int kStep = 32 * Row<T>::kElems;
-  const int smem = (a.dim + kStep - 1) / kStep * kStep *
-                   static_cast<int>(sizeof(float));
-  if (smem > 48 * 1024) {  // above 48 KB only after opting in
+  // one staged query; where some query may be short, one a packed warp
+  const int staged = staged_floats<T>(a.dim) * static_cast<int>(sizeof(float));
+  const int smem = a.pack_limit > 0 ? pack_warps<T>(a.dim) * staged : staged;
+  // above 48 KB (the static variables' bytes included) only after opting in
+  if (smem > 47 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        dot_kernel<T, kFast>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        dot_kernel<T, kFast>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
   }
   dot_kernel<T, kFast>
-      <<<static_cast<unsigned>(a.max_items), kWarps * 32, smem, stream>>>(a,
-                                                                          l);
+      <<<static_cast<unsigned>(a.max_items), kWarps * 32, smem, stream>>>(a, l);
   return cudaGetLastError();
 }
 
@@ -289,6 +414,7 @@ cudaError_t launch_tier(const DenseArgs& a, const groups::Lists& l, bool fast,
   return fast ? launch_dot<T, true>(a, l, stream)
               : launch_dot<T, false>(a, l, stream);
 }
+
 
 }  // namespace dense
 
@@ -300,12 +426,12 @@ inline cudaError_t dense_dot_launch(const DenseArgs& a, int dtype, bool fast,
   if (a.n_slots <= 0) return cudaSuccess;
   if (dtype < 0 || dtype > 2 || a.item_slots <= 0 || a.qb <= 0 ||
       a.dim <= 0 || a.dim % 128 || a.cap <= 0 || a.max_items <= 0 ||
-      a.max_items > 0x7fffffffLL) {
+      a.max_items > 0x7fffffffLL || a.pack_limit < 0) {
     return cudaErrorInvalidValue;
   }
   const groups::Lists l = groups::lists(a.scratch, a.qb);
-  cudaError_t err =
-      group_slots(a.cand, a.n_slots, a.qb, a.item_slots, l, stream);
+  cudaError_t err = group_slots(a.cand, a.n_slots, a.qb, a.item_slots, l,
+                                stream, a.pack_limit);
   if (err != cudaSuccess) return err;
   switch (dtype) {
     case 0:

@@ -11,9 +11,11 @@
 //   2. count_kernel: a histogram of qno over the slots, binned per block in
 //      shared memory and added to device memory bin by bin; the block that
 //      finishes last then takes the exclusive scans of the counts and of
-//      each query's work items, ceil(count / item_slots) (none for a query
-//      with fewer than slot_limit slots, which K3 and K4 score slot by slot
-//      instead: adc_lut.cuh; K1 and K2 pass 0);
+//      each query's work items, ceil(count / item_slots) (none for a
+//      short query, one with fewer than slot_limit slots, which K3 and K4
+//      score slot by slot and K1 and K2 pack with other short queries:
+//      adc_lut.cuh, dense_dot.cuh), and the span of the short queries'
+//      lists in order;
 //   3. scatter_kernel: each slot's cand value and index into its query's
 //      list, ranked per block in shared memory, one range reserved per bin.
 // The scoring kernel then runs one block per work item and finds its query
@@ -33,8 +35,9 @@
 // blocks score it instead of one.  Queries are binned kBins at a time, so
 // any qb runs (more than kBins queries take several windows).
 //
-// Scratch, 3 * qb + 2 + n_slots 64-bit words (the wrapper allocates it):
-//   cursor[qb] | slot_off[qb + 1] | item_off[qb + 1] | order[n_slots].
+// Scratch, 3 * qb + 4 + n_slots 64-bit words (the wrapper allocates it):
+//   cursor[qb] | slot_off[qb + 1] | item_off[qb + 1] | span[2] |
+//   order[n_slots].
 // An entry of order holds the slot's cand value in its high 32 bits and
 // its index in the low 32 (a call takes fewer than 2^32 slots), so that a
 // scoring kernel finds a slot's row with one load of its list and one of
@@ -59,11 +62,13 @@ constexpr int kGroupSlotsPerThread = 8;
 constexpr int kSlots = kThreads * kGroupSlotsPerThread;
 constexpr int kBins = 2048;
 
-// The scratch's four arrays.
+// The scratch's arrays.
 struct Lists {
   u64* cursor;    // per query: its count, then the next free place
   u64* slot_off;  // qb + 1: where each query's list starts in order
   u64* item_off;  // qb + 1: each query's first work item
+  u64* span;      // 2: the places in order from the first short query's
+                  // list to the last one's end (equal if none)
   u64* order;     // n_slots: cand << 32 | slot, query by query
 };
 
@@ -80,7 +85,8 @@ inline Lists lists(u64* scratch, int qb) {
   l.cursor = scratch;
   l.slot_off = l.cursor + qb;
   l.item_off = l.slot_off + qb + 1;
-  l.order = l.item_off + qb + 1;
+  l.span = l.item_off + qb + 1;
+  l.order = l.span + 2;
   return l;
 }
 
@@ -124,26 +130,34 @@ __device__ __forceinline__ u64 items_of(u64 c, int item_slots,
 // Exclusive scans of the counts (cursor) and of the queries' work items
 // (items_of) into slot_off and item_off, each qb + 1 long, by one block of
 // kThreads; cursor becomes slot_off[0..qb).  The counts are read from L2,
-// where the other blocks' atomics left them.  Where short_flag is given,
-// *short_flag becomes 1 if some query has slots but fewer than slot_limit,
-// else 0.
+// where the other blocks' atomics left them.  span becomes the places of
+// the short queries' lists in order (a short query has slots but fewer
+// than slot_limit), from the first one's start to the last one's end (0, 0
+// if none).
 __device__ __forceinline__ void scan_counts(u64* cursor, u64* slot_off,
-                                            u64* item_off, int qb,
+                                            u64* item_off, u64* span, int qb,
                                             int item_slots,
-                                            long long slot_limit,
-                                            int* short_flag) {
+                                            long long slot_limit) {
   __shared__ u64 warp_slots[kThreads / 32], warp_items[kThreads / 32];
+  __shared__ int first_short, last_short;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int per = (qb + kThreads - 1) / kThreads;
   const int lo = min(qb, static_cast<int>(threadIdx.x) * per);
   const int hi = min(qb, lo + per);
+  if (threadIdx.x == 0) {
+    first_short = qb;
+    last_short = -1;
+  }
   u64 slots = 0, items = 0;
-  int short_query = 0;
+  int my_first = qb, my_last = -1;
   for (int i = lo; i < hi; ++i) {
     const u64 c = __ldcg(cursor + i);
     slots += c;
     items += items_of(c, item_slots, slot_limit);
-    short_query |= c > 0 && c < static_cast<u64>(slot_limit);
+    if (c > 0 && c < static_cast<u64>(slot_limit)) {
+      my_first = min(my_first, i);
+      my_last = i;
+    }
   }
   // inclusive scan over the warp, then over the warps' totals
   u64 inc_s = slots, inc_i = items;
@@ -160,8 +174,11 @@ __device__ __forceinline__ void scan_counts(u64* cursor, u64* slot_off,
     warp_slots[warp] = inc_s;
     warp_items[warp] = inc_i;
   }
-  short_query = __syncthreads_or(short_query);
-  if (short_flag != nullptr && threadIdx.x == 0) *short_flag = short_query;
+  __syncthreads();  // the warps' totals, and first_short and last_short set
+  if (my_last >= 0) {
+    atomicMin(&first_short, my_first);
+    atomicMax(&last_short, my_last);
+  }
   u64 run_s = inc_s - slots, run_i = inc_i - items;
   for (int w = 0; w < warp; ++w) {
     run_s += warp_slots[w];
@@ -179,6 +196,12 @@ __device__ __forceinline__ void scan_counts(u64* cursor, u64* slot_off,
     slot_off[qb] = run_s;
     item_off[qb] = run_i;
   }
+  __syncthreads();  // every offset written; first_short and last_short set
+  if (threadIdx.x == 0) {
+    const bool any = last_short >= 0;
+    span[0] = any ? slot_off[first_short] : 0;
+    span[1] = any ? slot_off[last_short + 1] : 0;
+  }
 }
 
 // 2. counts[qno] += the block's slots of qno: the block's kSlots slots are
@@ -188,8 +211,7 @@ __device__ __forceinline__ void scan_counts(u64* cursor, u64* slot_off,
 // scans.
 __global__ void __launch_bounds__(kThreads)
     count_kernel(const int* __restrict__ cand, long long n, int qb,
-                 int item_slots, long long slot_limit, int* short_flag,
-                 Lists l) {
+                 int item_slots, long long slot_limit, Lists l) {
   __shared__ unsigned bins[kBins];
   __shared__ bool last;
   int values[kGroupSlotsPerThread], keys[kGroupSlotsPerThread];
@@ -213,8 +235,8 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
   if (last) {
     __threadfence();
-    scan_counts(l.cursor, l.slot_off, l.item_off, qb, item_slots, slot_limit,
-                short_flag);
+    scan_counts(l.cursor, l.slot_off, l.item_off, l.span, qb, item_slots,
+                slot_limit);
   }
 }
 
@@ -252,6 +274,25 @@ __global__ void __launch_bounds__(kThreads)
     }
     __syncthreads();  // the next window clears the bins
   }
+}
+
+// A query's route in a call, from the grouping's counts: no slots, a long
+// query (its own work items: K3/K4's table route, K1/K2's work items) or
+// a short one (fewer than slot_limit slots: K3/K4 score it slot by slot,
+// K1/K2 pack it with other short queries).
+enum Route { kNoSlots = 0, kLong = 1, kShort = 2 };
+
+__device__ __forceinline__ int route(const u64* __restrict__ slot_off, int q,
+                                     long long slot_limit) {
+  const u64 n = __ldg(slot_off + q + 1) - __ldg(slot_off + q);
+  return n == 0 ? kNoSlots : n < static_cast<u64>(slot_limit) ? kShort : kLong;
+}
+
+// routes[q] = route(q) for each of qb queries.
+__global__ void route_kernel(const u64* __restrict__ slot_off, int qb,
+                             long long slot_limit, int* routes) {
+  const int q = blockIdx.x * blockDim.x + threadIdx.x;
+  if (q < qb) routes[q] = route(slot_off, q, slot_limit);
 }
 
 // One work item: its query, and its n slots at order[first .. first + n).
@@ -299,13 +340,11 @@ __device__ __forceinline__ bool find_item(const u64* __restrict__ slot_off,
 }  // namespace groups
 
 // Steps 1-3 for n slots over qb queries (queries with fewer than
-// slot_limit slots get no work items, and *short_flag, where given, says
-// whether there is one); returns the first failing step's cudaError_t (0
-// on success).
+// slot_limit slots get no work items; l.span says where they are);
+// returns the first failing step's cudaError_t (0 on success).
 inline cudaError_t group_slots(const int* cand, long long n, int qb,
                                int item_slots, const groups::Lists& l,
-                               cudaStream_t stream, long long slot_limit = 0,
-                               int* short_flag = nullptr) {
+                               cudaStream_t stream, long long slot_limit = 0) {
   if (n > 0xffffffffLL) return cudaErrorInvalidValue;
   const unsigned grid =
       static_cast<unsigned>((n + groups::kSlots - 1) / groups::kSlots);
@@ -314,10 +353,26 @@ inline cudaError_t group_slots(const int* cand, long long n, int qb,
       cudaMemsetAsync(l.cursor, 0, sizeof(u64) * (3 * qb + 2), stream);
   if (err != cudaSuccess) return err;
   groups::count_kernel<<<grid, groups::kThreads, 0, stream>>>(
-      cand, n, qb, item_slots, slot_limit, short_flag, l);
+      cand, n, qb, item_slots, slot_limit, l);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   groups::scatter_kernel<<<grid, groups::kThreads, 0, stream>>>(
       cand, n, qb, l.cursor, l.order);
+  return cudaGetLastError();
+}
+
+// The route each query of n slots takes at slot_limit (routes, qb int32:
+// groups::Route), from the grouping the scoring kernels run (scratch as
+// theirs; a route does not depend on the work items' size); returns the
+// first failing step's cudaError_t.
+inline cudaError_t group_routes(const int* cand, long long n, int qb, long long slot_limit,
+                                u64* scratch, int* routes, cudaStream_t stream) {
+  if (qb <= 0 || slot_limit < 0) return cudaErrorInvalidValue;
+  if (n <= 0) return cudaMemsetAsync(routes, 0, sizeof(int) * qb, stream);
+  const groups::Lists l = groups::lists(scratch, qb);
+  cudaError_t err = group_slots(cand, n, qb, 1, l, stream, slot_limit);
+  if (err != cudaSuccess) return err;
+  groups::route_kernel<<<(qb + groups::kThreads - 1) / groups::kThreads, groups::kThreads, 0,
+                         stream>>>(l.slot_off, qb, slot_limit, routes);
   return cudaGetLastError();
 }
 

@@ -44,17 +44,19 @@
 // Table dtype codes: 0 fp32, 1 bf16, 2 int8.  Pointers are device pointers
 // (table 16-byte aligned with rows of dim elements, dim % 128 == 0; the
 // wrapper checks); qT element (d, qno) is at q[d * q_stride_d + qno *
-// q_stride_q]; scratch holds 3 * qb + 2 + n_tiles * cap 64-bit words.
-// `fast` selects the bf16 tier (0: exact/high).  The launches go on
-// `stream` of `device` and do not synchronise.  Returns the cudaError_t of
-// the first failing launch (0 on success).
+// q_stride_q]; scratch holds 3 * qb + 4 + n_tiles * cap 64-bit words.
+// `fast` selects the bf16 tier (0: exact/high); queries with fewer than
+// pack_limit slots take the packed route (dense_dot.cuh).  The launches go
+// on `stream` of `device` and do not synchronise.  Returns the cudaError_t
+// of the first failing launch (0 on success).
 extern "C" int ff_stream_select(const void* table, int dtype, const void* q,
                                 long long q_stride_d, long long q_stride_q,
                                 const void* cand, const void* tile_idx,
                                 void* out, int n_tiles, int cap, int qb,
                                 int r, int dim, int fast, void* scratch,
                                 int item_slots, long long max_items,
-                                int device, void* stream) {
+                                long long pack_limit, int device,
+                                void* stream) {
   if (n_tiles <= 0) return 0;
   // this object links its own CUDA runtime, whose current device is not
   // PyTorch's: select the device the stream belongs to
@@ -74,10 +76,27 @@ extern "C" int ff_stream_select(const void* table, int dtype, const void* q,
                         r,
                         static_cast<ff::u64*>(scratch),
                         item_slots,
-                        max_items};
+                        max_items,
+                        pack_limit};
   err = ff::dense_dot_launch(a, dtype, fast != 0,
                              static_cast<cudaStream_t>(stream));
   return static_cast<int>(err);
+}
+
+// The route each of qb queries takes for the n_slots packed candidates
+// `cand` at pack_limit, as K2 (and K1's bf16 and int8 branches) take it:
+// routes (qb int32) gets 0 for a query without slots, 1 for work items, 2
+// for the packed route.  scratch as for ff_stream_select.  Returns the
+// cudaError_t of the first failing launch.
+extern "C" int ff_routes(const void* cand, long long n_slots, int qb,
+                         long long pack_limit, void* scratch, void* routes,
+                         int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(ff::group_routes(
+      static_cast<const int*>(cand), n_slots, qb, pack_limit,
+      static_cast<ff::u64*>(scratch), static_cast<int*>(routes),
+      static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" const char* ff_cuda_error_string(int code) {

@@ -52,19 +52,22 @@
 
 // Table dtype codes: 0 fp32, 1 bf16, 2 int8.  Pointers are device pointers
 // (table 16-byte aligned with rows of dim elements, dim % 128 == 0; q
-// (qb, dim) fp32; the wrapper checks); scratch holds 3 * qb + 2 + n_slots
+// (qb, dim) fp32; the wrapper checks); scratch holds 3 * qb + 4 + n_slots
 // 64-bit words for bf16 and int8 tables, qb * dim floats (the rounded
 // queries) for fp32 tables in the fast tier, and may be null for fp32
-// tables in the exact tier.  The launches go
-// on `stream` of `device` and do not synchronise.  Returns the cudaError_t
-// of the first failing launch (0 on success).
+// tables in the exact tier.  An fp32 table's tiles are split over `split`
+// blocks each (tile_dot.cuh); a bf16 or int8 table's queries with fewer
+// than pack_limit slots take the packed route (dense_dot.cuh).  The
+// launches go on `stream` of `device` and do not synchronise.  Returns the
+// cudaError_t of the first failing launch (0 on success).
 extern "C" int ff_stream_select_pairwise(const void* table, int dtype,
                                          const void* q, const void* cand,
                                          const void* tile_idx, void* out,
                                          long long n_slots, int cap, int qb,
                                          int r, int dim, int exact,
                                          void* scratch, int item_slots,
-                                         long long max_items, int device,
+                                         long long max_items, int split,
+                                         long long pack_limit, int device,
                                          void* stream) {
   if (n_slots <= 0) return 0;
   // this object links its own CUDA runtime, whose current device is not
@@ -81,7 +84,8 @@ extern "C" int ff_stream_select_pairwise(const void* table, int dtype,
                                cap,
                                qb,
                                r,
-                               dim};
+                               dim,
+                               split};
     return static_cast<int>(
         ff::tile_dot::tile_dot_launch(a, n_slots / cap, exact != 0,
                                       static_cast<float*>(scratch), s));
@@ -100,7 +104,8 @@ extern "C" int ff_stream_select_pairwise(const void* table, int dtype,
                         r,
                         static_cast<ff::u64*>(scratch),
                         item_slots,
-                        max_items};
+                        max_items,
+                        pack_limit};
   return static_cast<int>(ff::dense_dot_launch(a, dtype, !exact, s));
 }
 

@@ -53,7 +53,7 @@
 // Pointers are device pointers: codes (N_pad, m) of code_bytes each and codebooks
 // (m, ks, ds) fp32, both contiguous (the wrapper checks); qT element
 // (d, qno) is at q[d * q_stride_d + qno * q_stride_q]; scratch holds
-// 3 * qb + 2 + n_tiles * cap 64-bit words and lut the tables of lut_queries
+// 3 * qb + 4 + n_tiles * cap 64-bit words and lut the tables of lut_queries
 // queries, lut_queries * m * width fp32 (width: 256 for uint8 codes, else
 // Ks rounded up to a multiple of 4).  Queries with fewer than slot_limit
 // slots are scored slot-wise.  Tier codes: 0 exact, 1 high, 2 fast.  The
@@ -118,14 +118,14 @@ extern "C" int ff_stream_select_pq(const void* codes, int m,
 // The route each of qb queries takes for the n_slots packed candidates
 // `cand` at slot_limit, as ff_stream_select_pq (and K3) decide it: routes
 // (qb int32) gets 0 for a query without slots, 1 for the table route, 2
-// for the slot-wise route.  scratch holds 3 * qb + 2 + n_slots 64-bit
+// for the slot-wise route.  scratch holds 3 * qb + 4 + n_slots 64-bit
 // words.  Returns the cudaError_t of the first failing launch.
-extern "C" int ff_adc_routes(const void* cand, long long n_slots, int qb,
-                             long long slot_limit, void* scratch, void* routes,
-                             int device, void* stream) {
+extern "C" int ff_routes(const void* cand, long long n_slots, int qb,
+                         long long slot_limit, void* scratch, void* routes,
+                         int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(ff::adc_routes_launch(
+  return static_cast<int>(ff::group_routes(
       static_cast<const int*>(cand), n_slots, qb, slot_limit,
       static_cast<ff::u64*>(scratch), static_cast<int*>(routes),
       static_cast<cudaStream_t>(stream)));

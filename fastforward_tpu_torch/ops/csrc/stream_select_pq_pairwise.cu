@@ -43,7 +43,7 @@
 
 // Pointers are device pointers: codes (N_pad, m) of code_bytes each, codebooks
 // (m, ks, ds) fp32, q (qb, m * ds) fp32, all contiguous (the wrapper
-// checks); scratch holds 3 * qb + 2 + n_slots 64-bit words and lut the
+// checks); scratch holds 3 * qb + 4 + n_slots 64-bit words and lut the
 // tables of lut_queries queries, lut_queries * m * width fp32 (width: 256
 // for uint8 codes, else Ks rounded up to a multiple of 4).  Queries with
 // fewer than slot_limit slots are scored slot-wise.  The launches go on

@@ -38,6 +38,24 @@
 // is the real table[tile_idx[t] * r] . q[qb - 1]: the contract does not
 // say that the padding query is zero.
 //
+// Two geometries.  One block a tile was designed for the resident
+// layouts: 1,024-8,192 virtual tiles, which fill the card's block places
+// (kTileBlocksPerSm an SM, 528 on an H100 SXM) many times over.  A staged
+// tail block of the hybrid tier has 64 tiles (a 32,768-row block at cap
+// 1,024), so one block a tile left half of the SMs idle, and each warp
+// walked 40-70 distinct rows, one dependent load after another.  So the
+// wrapper splits each tile over S blocks, S = stream_kernel.tile_split:
+// as many as the card's block places hold for every tile, at most
+// kTileMaxSplit (8 at a tail block; 1 from 265 tiles on, where the sweep
+// found S = 1 fastest; PERF.md).  Each block of a tile repeats steps 1-3
+// (cheap at cap 1,024), dots the distinct rows k with (k / kTileWarps) %
+// S equal to its share (row 0, the padding slots' row, is share 0's) and
+// writes only the slots whose source row is its own; at S = 1 the
+// bookkeeping is compiled out (kSplit).  Each (row, query) dot is the same
+// FMA chain and the same shuffles whatever S is, so the scores are the
+// same bits.  A warp of a split tile loading two of its rows at once
+// measured slower at a tail block (PERF.md).
+//
 // The exact tier is true fp32 FMA: no TF32 and no tensor cores.  Each
 // (row, query) pair is one dot, so there is no matrix product for wgmma to
 // take; the bound is bytes: the distinct rows the tiles read (chip_smoke.py
@@ -45,7 +63,8 @@
 // loads once per row, so the time follows the warps an SM holds (the
 // register cap below); staging rows in shared memory through cp.async, an
 // L2 prefetch of the next row, and 16 or 32 warps a block measured slower,
-// 4 warps no faster (PERF.md).
+// 4 warps no faster (PERF.md; all on the resident layouts, 4,096-8,192
+// tiles).
 
 #pragma once
 
@@ -63,6 +82,8 @@ constexpr int kTileVecs = 6;  // 16-byte row loads a lane holds: 768 fp32 a chun
 // blocks an SM holds: 4 caps the registers at 64, which measured faster
 // (the loads in flight a warp loses, more warps make up; PERF.md)
 constexpr int kTileBlocksPerSm = 4;
+// the most blocks a tile is split over (stream_kernel.tile_split picks S)
+constexpr int kTileMaxSplit = 16;
 
 struct Args {
   const float* table;   // (N_pad, dim), 16-byte aligned
@@ -71,6 +92,7 @@ struct Args {
   const int* tile_idx;  // (n_tiles,)
   float* out;           // (n_tiles, cap)
   int cap, qb, r, dim;
+  int split;  // blocks a tile (S): each dots an S-th of its distinct rows
 };
 
 // Dynamic shared memory of one block: cand, source, result and leader list
@@ -129,7 +151,9 @@ __device__ __forceinline__ int2 block_scan(int x, int y, int2* warp_tot) {
   return before;
 }
 
-template <bool kExact>
+// kSplit: a.split blocks a tile (else one, and the split's bookkeeping is
+// compiled out).
+template <bool kExact, bool kSplit>
 __global__ void __launch_bounds__(kTileThreads, kTileBlocksPerSm)
     tile_dot_kernel(Args a) {
   extern __shared__ int smem[];
@@ -144,8 +168,10 @@ __global__ void __launch_bounds__(kTileThreads, kTileBlocksPerSm)
   __shared__ int s_first_pad, s_items;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int cap = a.cap, qb = a.qb, pad = qb - 1;
-  const long long t = blockIdx.x;
+  const int cap = a.cap, qb = a.qb, pad = qb - 1, split = kSplit ? a.split : 1;
+  // the tile, and this block's share of its distinct rows
+  const long long t = kSplit ? blockIdx.x / split : blockIdx.x;
+  const int share = kSplit ? blockIdx.x % split : 0;
   const int* tc = a.cand + t * cap;
   const float* tile =
       a.table + static_cast<long long>(__ldg(a.tile_idx + t)) * a.r * a.dim;
@@ -187,7 +213,8 @@ __global__ void __launch_bounds__(kTileThreads, kTileBlocksPerSm)
     n_in += s_row[i];
   }
   const int2 before = block_scan<false>(n_rows, n_in, s_warp[1]);
-  int item = before.x, start = before.y;
+  const int first_item = before.x;
+  int item = first_item, start = before.y;
   for (int i = rlo; i < rhi; ++i) {
     const int cnt = s_row[i];
     if (cnt > 0) {
@@ -206,12 +233,18 @@ __global__ void __launch_bounds__(kTileThreads, kTileBlocksPerSm)
     if (s_src[s] == s) s_list[atomicAdd(&s_row[s_cand[s] / qb], 1)] = s;
   }
   __syncthreads();
+  const int n = s_items;
+  if (kSplit) {  // from here on, a distinct row's place in the list
+    for (int k = first_item; k < item; ++k) s_row[s_item_row[k]] = k;
+  }
 
   // 4. one warp per distinct row, the row in registers (rounded in the
   // fast tier, whose queries come rounded), two queries at a time; a
-  // leader's result is the sum of its chunks' warp sums
-  const int n = s_items;
-  for (int k = warp; k < n; k += kTileWarps) {
+  // leader's result is the sum of its chunks' warp sums.  Split over S
+  // blocks, the rows go to the blocks kTileWarps at a time in turn: row k
+  // to share (k / kTileWarps) % S (row 0, the padding slots' row, to
+  // share 0), so each block dots about an S-th of them.
+  for (int k = share * kTileWarps + warp; k < n; k += split * kTileWarps) {
     const float* row = tile + static_cast<long long>(s_item_row[k]) * a.dim;
     const int begin = s_item_start[k], end = s_item_start[k + 1];
     for (int base = 0; base < a.dim; base += kTileVecs * 128) {
@@ -256,9 +289,17 @@ __global__ void __launch_bounds__(kTileThreads, kTileBlocksPerSm)
   }
   __syncthreads();
 
-  // 5. every slot's result, its source's, coalesced
+  // 5. every slot's result, its source's, coalesced; split, only the
+  // slots whose source's row is this block's
   float* to = a.out + t * cap;
-  for (int s = tid; s < cap; s += kTileThreads) to[s] = s_res[s_src[s]];
+  if (!kSplit) {
+    for (int s = tid; s < cap; s += kTileThreads) to[s] = s_res[s_src[s]];
+  } else {
+    for (int s = tid; s < cap; s += kTileThreads) {
+      const int src = s_src[s];
+      if ((s_row[s_cand[src] / qb] / kTileWarps) % split == share) to[s] = s_res[src];
+    }
+  }
 }
 
 // out = in rounded to bf16 (round to nearest even) and widened back, n
@@ -273,7 +314,7 @@ __global__ void __launch_bounds__(256) round_kernel(const float* __restrict__ in
   }
 }
 
-// Launch one block per virtual tile on `stream`; in the fast tier
+// Launch S = a.split blocks per virtual tile on `stream`; in the fast tier
 // (exact == false) the queries are first rounded into `q_rounded`
 // (qb * dim floats).  Returns the first failing launch's cudaError_t.
 inline cudaError_t tile_dot_launch(const Args& a, long long n_tiles,
@@ -281,7 +322,8 @@ inline cudaError_t tile_dot_launch(const Args& a, long long n_tiles,
                                    cudaStream_t stream) {
   if (n_tiles <= 0) return cudaSuccess;
   if (a.cap <= 0 || a.cap % 128 || a.qb <= 0 || a.r <= 0 || a.dim <= 0 ||
-      a.dim % 128 || n_tiles > 0x7fffffffLL) {
+      a.dim % 128 || a.split <= 0 || a.split > kTileMaxSplit ||
+      n_tiles * a.split > 0x7fffffffLL) {
     return cudaErrorInvalidValue;
   }
   Args args = a;
@@ -296,14 +338,15 @@ inline cudaError_t tile_dot_launch(const Args& a, long long n_tiles,
     args.q = q_rounded;
   }
   const size_t smem = smem_bytes(a.cap, a.r);
-  auto kernel = exact ? tile_dot_kernel<true> : tile_dot_kernel<false>;
+  auto kernel = a.split > 1 ? (exact ? tile_dot_kernel<true, true> : tile_dot_kernel<false, true>)
+                            : (exact ? tile_dot_kernel<true, false> : tile_dot_kernel<false, false>);
   if (smem > 48 * 1024) {  // above 48 KB only after opting in
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  kernel<<<static_cast<unsigned>(n_tiles), kTileThreads, smem, stream>>>(args);
+  kernel<<<static_cast<unsigned>(n_tiles * a.split), kTileThreads, smem, stream>>>(args);
   return cudaGetLastError();
 }
 

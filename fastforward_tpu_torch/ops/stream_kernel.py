@@ -22,15 +22,30 @@ card K2, and K1 for bf16 and int8 tables, are query-major
 (``csrc/dense_dot.cuh``): one call groups the slots by query
 (``csrc/query_groups.cuh``, shared with K3 and K4), cuts each query's slots
 into work items of at most ``DENSE_ITEM_SLOTS`` slots, and a block holds
-one item's query while it dots the item's rows.  The wrapper allocates the
+one item's query while it dots the item's rows.  A query with fewer than
+``DENSE_PACK_LIMIT`` slots (the hybrid tier's tail blocks: about 70 a
+query) gets no item of its own: the short queries' slots are packed into
+runs that cross query boundaries, and a warp stages each query of its run
+in shared memory as an item's block does (the packed route).  The route is chosen per query on the card, from the
+grouping's counts; :func:`dense_query_routes_plain` predicts it and
+:func:`dense_routes` reads it from the card.  The wrapper allocates the
 grouping's scratch and bounds the number of items (:func:`dense_max_items`).
 K1 scores fp32 tables tile-major (``csrc/tile_dot.cuh``), which measured
 faster there: one block per virtual tile dots each distinct row of the tile
 once with every query that wants it; padding slots share one dot and a
-slot that repeats the slot before it copies its score.
+slot that repeats the slot before it copies its score.  Where the tiles
+are too few to fill the card (a tail block's 64), each tile is split over
+:func:`tile_split` blocks, each dotting a share of its distinct rows.
+
+Every route and split computes each dot with the same FMA chain and the
+same shuffles, so they give the same bits.  The wrappers take keyword-only
+``_route`` (``"auto"``, ``"items"``, ``"packed"``) and, K1, ``_split``
+(blocks a tile) that force one for tests and measurements; the plain
+versions have neither.
 """
 
 import ctypes
+import functools
 
 import torch
 
@@ -50,10 +65,86 @@ _PLAIN_CHUNK_SLOTS = 1 << 17
 DENSE_ITEM_SLOTS = 1024
 
 
+#: queries with fewer slots than this take the packed route: on the H100
+#: (``scripts/torch_kernel_variants.py --dense-routes``, PERF.md) packing
+#: won at 16-64 slots a query and lost from 96 on when every query has the
+#: same count, and a tail block (35-105 slots a query beside the padding
+#: query's work items) was fastest with every real query packed
+DENSE_PACK_LIMIT = 128
+
+#: the routes a call's queries may take: chosen per query (``"auto"``), or
+#: every query forced to one
+DENSE_ROUTES = ("auto", "items", "packed")
+
+#: a query's route as :func:`dense_routes` reports it
+ROUTE_NONE, ROUTE_ITEMS, ROUTE_PACKED = (
+    query_groups.ROUTE_NONE, query_groups.ROUTE_LONG, query_groups.ROUTE_SHORT)
+
+#: the pack limit of a call whose queries are all packed (above any count)
+_ALL_PACKED = 1 << 62
+
+#: blocks of K1's fp32 body an SM holds (``kTileBlocksPerSm`` of
+#: ``csrc/tile_dot.cuh``) and the most blocks a tile is split over
+#: (``kTileMaxSplit``)
+TILE_BLOCKS_PER_SM = 4
+TILE_MAX_SPLIT = 16
+
+
 def dense_max_items(qb: int, n_slots: int) -> int:
     """A bound on the work items of ``n_slots`` slots over ``qb`` queries
-    at ``DENSE_ITEM_SLOTS`` slots an item (:func:`query_groups.max_items`)."""
+    at ``DENSE_ITEM_SLOTS`` slots an item (:func:`query_groups.max_items`);
+    the blocks no item takes share the packed route."""
     return query_groups.max_items(qb, n_slots, DENSE_ITEM_SLOTS)
+
+
+def tile_split(n_tiles: int, sm_count: int) -> int:
+    """Blocks each of ``n_tiles`` virtual tiles of K1's fp32 body is split
+    over on a card of ``sm_count`` SMs: as many as the card's block places
+    (``TILE_BLOCKS_PER_SM`` an SM) hold for every tile, between 1 and
+    ``TILE_MAX_SPLIT``.  A layout with as many tiles as places or more
+    (the resident layouts' 1,024-8,192) keeps one block a tile."""
+    return max(1, min(TILE_MAX_SPLIT, sm_count * TILE_BLOCKS_PER_SM // max(1, n_tiles)))
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return _sm_count(index)
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _check_route(route: str) -> None:
+    if route not in DENSE_ROUTES:
+        raise ValueError(f"_route must be one of {DENSE_ROUTES}, got {route!r}")
+
+
+def dense_route_limit(route: str) -> int:
+    """The pack limit the kernels get for ``route`` (one of
+    ``DENSE_ROUTES``): ``DENSE_PACK_LIMIT`` for ``"auto"``, 0 (no query
+    packed) for ``"items"``, above any count for ``"packed"``.
+
+    :raises ValueError: On another route.
+    """
+    _check_route(route)
+    return {"auto": DENSE_PACK_LIMIT, "items": 0, "packed": _ALL_PACKED}[route]
+
+
+#: each query's route for packed candidates at a pack limit, in PyTorch
+#: (the kernels' rule; ``ROUTE_ITEMS`` long, ``ROUTE_PACKED`` short)
+dense_query_routes_plain = query_groups.routes_plain
+
+
+def dense_routes(cand3: torch.Tensor, qb: int, pack_limit: int) -> torch.Tensor:
+    """Each query's route as K1 (bf16, int8) and K2 take it on the card (the
+    grouping and the rule of ``csrc/dense_dot.cuh``), or
+    :func:`dense_query_routes_plain` for CPU tensors
+    (:func:`query_groups.routes`; ``pack_limit`` as
+    :func:`dense_route_limit` returns it)."""
+    return query_groups.routes("stream_select", cand3, qb, pack_limit)
 
 
 #: argument types of ``ff_stream_select_pairwise``
@@ -73,6 +164,8 @@ _PAIRWISE_ARGS = (
     ctypes.c_void_p,  # grouping scratch, or the fp32 fast tier's rounded queries
     ctypes.c_int,  # slots per work item
     ctypes.c_longlong,  # work-item bound
+    ctypes.c_int,  # blocks a tile (fp32)
+    ctypes.c_longlong,  # pack limit (bf16, int8)
     ctypes.c_int,  # device
     ctypes.c_void_p,  # stream
 )
@@ -118,6 +211,9 @@ def stream_select_pairwise(
     tile_idx: torch.Tensor,
     r: int = KERNEL_TILE_ROWS,
     exact: bool = True,
+    *,
+    _route: str = "auto",
+    _split: "int | None" = None,
 ) -> torch.Tensor:
     """Score every candidate slot: K1 on the card, the plain version on CPU.
 
@@ -130,12 +226,21 @@ def stream_select_pairwise(
     :param tile_idx: Base table tile per virtual tile, ``(Tv,)`` int32.
     :param r: Rows per table tile.
     :param exact: True fp32 dots vs bf16-rounded operands.
-    :raises ValueError: On shapes, layouts or devices the kernel does not take.
+    :param _route: bf16 and int8 tables: each query's route on the card,
+        chosen from its slot count (``"auto"``) or forced (``"items"``,
+        ``"packed"``); the same bits either way.
+    :param _split: fp32 tables: blocks a virtual tile is split over on the
+        card (:func:`tile_split` when ``None``); the same bits whatever it is.
+    :raises ValueError: On shapes, layouts, routes, splits or devices the
+        kernel does not take.
     :raises TypeError: On a table dtype the kernel does not take.
     :raises RuntimeError: When the launch fails (with the CUDA error).
     :return: Scores per slot, ``(Tv, CAP/128, 128)`` fp32.
     """
     dim = _check(table, qvecs, cand3, tile_idx, r)
+    pack_limit = dense_route_limit(_route)
+    if _split is not None and not 1 <= _split <= TILE_MAX_SPLIT:
+        raise ValueError(f"_split must be in [1, {TILE_MAX_SPLIT}], got {_split}")
     if table.device.type == "cpu":
         return stream_select_pairwise_plain(table, qvecs, cand3, tile_idx, r, exact)
     device, stream = _build.cuda_target(
@@ -150,6 +255,7 @@ def stream_select_pairwise(
         scratch = query_groups.scratch(qvecs.shape[0], out.numel(), table.device)
     else:
         scratch = None if exact else torch.empty_like(qvecs)
+    split = _split or tile_split(cand3.shape[0], sm_count(table.device))
     _build.bind("stream_select_pairwise", _PAIRWISE_ARGS)(
         table.data_ptr(),
         _DTYPE_CODE[table.dtype],
@@ -166,6 +272,8 @@ def stream_select_pairwise(
         None if scratch is None else scratch.data_ptr(),
         DENSE_ITEM_SLOTS,
         dense_max_items(qvecs.shape[0], out.numel()),
+        split,
+        pack_limit,
         device,
         stream,
     )
@@ -233,6 +341,7 @@ _SELECT_ARGS = (
     ctypes.c_void_p,  # grouping scratch
     ctypes.c_int,  # slots per work item
     ctypes.c_longlong,  # work-item bound
+    ctypes.c_longlong,  # pack limit
     ctypes.c_int,  # device
     ctypes.c_void_p,  # stream
 )
@@ -275,6 +384,8 @@ def stream_select(
     tile_idx: torch.Tensor,
     r: int = KERNEL_TILE_ROWS,
     precision: str = "exact",
+    *,
+    _route: str = "auto",
 ) -> torch.Tensor:
     """Score every candidate slot of dense tiles: K2 on the card, the plain
     version on CPU.
@@ -290,13 +401,17 @@ def stream_select(
     :param r: Rows per table tile.
     :param precision: ``"exact"`` or ``"high"`` (true fp32 dots) or
         ``"fast"`` (bf16-rounded operands, fp32 accumulation).
-    :raises ValueError: On shapes, layouts, tiers or devices the kernel does
-        not take.
+    :param _route: Each query's route on the card: chosen from its slot
+        count (``"auto"``) or forced (``"items"``, ``"packed"``); the same
+        bits either way.
+    :raises ValueError: On shapes, layouts, tiers, routes or devices the
+        kernel does not take.
     :raises TypeError: On a table dtype the kernel does not take.
     :raises RuntimeError: When the launch fails (with the CUDA error).
     :return: Scores per slot, ``(Tv, CAP/128, 128)`` fp32.
     """
     dim = _check_select(table, qvecs_t, cand3, tile_idx, r, precision)
+    pack_limit = dense_route_limit(_route)
     if table.device.type == "cpu":
         return stream_select_plain(table, qvecs_t, cand3, tile_idx, r, precision)
     device, stream = _build.cuda_target(
@@ -324,6 +439,7 @@ def stream_select(
         scratch.data_ptr(),
         DENSE_ITEM_SLOTS,
         dense_max_items(qvecs_t.shape[1], out.numel()),
+        pack_limit,
         device,
         stream,
     )

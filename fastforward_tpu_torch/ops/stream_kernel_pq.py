@@ -89,7 +89,8 @@ _U8_TABLE_WIDTH = 256
 ADC_ROUTES = ("auto", "table", "slots")
 
 #: a query's route as :func:`adc_routes` reports it
-ROUTE_NONE, ROUTE_TABLE, ROUTE_SLOTS = 0, 1, 2
+ROUTE_NONE, ROUTE_TABLE, ROUTE_SLOTS = (
+    query_groups.ROUTE_NONE, query_groups.ROUTE_LONG, query_groups.ROUTE_SHORT)
 
 #: the cost model of the route choice (:func:`adc_slot_limit`), in bytes a
 #: subspace: a query's lookup table costs about ``ADC_TABLE_PASSES`` passes
@@ -145,10 +146,6 @@ _SELECT_ARGS = (
     _P, _I, _P, _I, _I, _P, _LL, _LL, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _LL, _P, _I,
     _I, _I, _LL, _I, _P,
 )
-
-#: argument types of ``ff_adc_routes`` (in K4's object): cand, slots, qb,
-#: slot limit, scratch, routes, device, stream
-_ROUTES_ARGS = (_P, _LL, _I, _LL, _P, _P, _I, _P)
 
 
 #: 64-bit words of the grouping scratch (:func:`query_groups.scratch_words`)
@@ -214,42 +211,17 @@ def adc_route_limit(route: str, ks: int, ds: int, code_dtype: torch.dtype = torc
     return _NO_TABLES if route == "slots" else adc_slot_limit(ks, ds, code_dtype)
 
 
-def adc_query_routes_plain(cand3: torch.Tensor, qb: int, slot_limit: int) -> torch.Tensor:
-    """Each query's route for the packed candidates ``cand3`` at
-    ``slot_limit``: ``ROUTE_NONE`` without slots, ``ROUTE_SLOTS`` with
-    fewer than ``slot_limit``, else ``ROUTE_TABLE`` (``(qb,)`` int32, on
-    ``cand3``'s device): the kernels' rule, in PyTorch."""
-    counts = torch.bincount((cand3.reshape(-1).long() % qb), minlength=qb)
-    routes = torch.where(counts < slot_limit, ROUTE_SLOTS, ROUTE_TABLE)
-    return torch.where(counts == 0, ROUTE_NONE, routes).to(torch.int32)
+#: each query's route for packed candidates at a slot limit, in PyTorch
+#: (the kernels' rule; ``ROUTE_TABLE`` long, ``ROUTE_SLOTS`` short)
+adc_query_routes_plain = query_groups.routes_plain
 
 
 def adc_routes(cand3: torch.Tensor, qb: int, slot_limit: int) -> torch.Tensor:
     """Each query's route as K3 and K4 decide it on the card (the grouping
     and the rule of ``csrc/adc_lut.cuh``), or :func:`adc_query_routes_plain`
-    for CPU tensors.
-
-    :param cand3: Packed candidates ``local * Qb + qno``, int32,
-        contiguous.
-    :param qb: Queries of the block.
-    :param slot_limit: As :func:`adc_route_limit` returns it.
-    :raises ValueError: On a tensor the card cannot take.
-    :raises RuntimeError: When the launch fails (with the CUDA error).
-    :return: ``(qb,)`` int32 of ``ROUTE_NONE``, ``ROUTE_TABLE`` and
-        ``ROUTE_SLOTS``.
-    """
-    if cand3.dtype != torch.int32:
-        raise ValueError(f"cand3 must be int32, got {cand3.dtype}")
-    if cand3.device.type == "cpu":
-        return adc_query_routes_plain(cand3, qb, slot_limit)
-    device, stream = _build.cuda_target((("cand3", cand3),))
-    routes = torch.empty(qb, dtype=torch.int32, device=cand3.device)
-    scratch = query_groups.scratch(qb, cand3.numel(), device)
-    _build.bind("stream_select_pq", _ROUTES_ARGS, "adc_routes")(
-        cand3.data_ptr(), cand3.numel(), qb, slot_limit, scratch.data_ptr(), routes.data_ptr(),
-        device, stream,
-    )
-    return routes
+    for CPU tensors (:func:`query_groups.routes`; ``slot_limit`` as
+    :func:`adc_route_limit` returns it)."""
+    return query_groups.routes("stream_select_pq", cand3, qb, slot_limit)
 
 
 def _launch_adc(name, argtypes, head, qb, codes, codebooks, n_slots, route, device, stream) -> None:

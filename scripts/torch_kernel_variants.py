@@ -5,7 +5,7 @@ Each variant is a JSON object of overrides: a key starting with ``k`` sets
 a ``constexpr int`` constant of the kernel headers
 (``fastforward_tpu_torch/ops/csrc/*.cuh``) in a private copy of the kernel
 sources, from which the kernels are built; an upper-case key sets a
-wrapper constant (``DENSE_ITEM_SLOTS`` of ``ops/stream_kernel.py``,
+wrapper constant (``DENSE_ITEM_SLOTS`` or ``DENSE_PACK_LIMIT`` of ``ops/stream_kernel.py``,
 ``ADC_ITEM_SLOTS`` of ``ops/stream_kernel_pq.py``).  Each variant times one
 wrapper call (CUDA events: the median of 25 single calls, and 25 calls back
 to back) on layouts like ``chip_smoke.py``'s, 512 queries x 1000 random
@@ -21,7 +21,26 @@ rows from seed 0 at dim 768:
 - K4: PQ(96, 256) codes of 262,144 rows (cap 1024), and a staged tail
   block of the hybrid tier at PQ(96, 256) (uint8) and PQ(96, 1024)
   (uint16): 512 queries of 35-105 random rows of 32,768, the rest of its
-  64 x 1024 slots padding.
+  64 x 1024 slots padding;
+- K1 and K2 on the same tail-block layout: K1 on fp32 (both tiers), bf16
+  and int8 rows, K2 on int8 and fp32 rows (3D, as the hybrid tier hands
+  them over).
+
+``--split`` adds one traced call of each case, its device time split by
+kernel (``torch.profiler``), and the host time of one call with and
+without its kernel entry (the entry's time is its launches').
+
+``--dense-routes`` adds the sweep that calibrates the dense-dot body's
+route choice (``stream_kernel.DENSE_PACK_LIMIT``): K2 on int8 rows, 512
+queries of n random rows each (n in ``ROUTE_SLOTS``, about
+``ROUTE_TILE_PAIRS`` pairs a 512-row tile, cap 1024), with every query on
+work items, every query packed, and as the wrapper sets it (``auto``).
+``--tile-split`` adds the sweep that calibrates K1's fp32 split
+(``stream_kernel.tile_split``): fp32 rows at a tail block's density
+(about ``SPLIT_TILE_SLOTS`` real slots a 512-row tile, 512 queries, cap
+1024) over n tiles (n in ``SPLIT_TILES``), each tile split over S blocks
+(S in ``SPLIT_BLOCKS``) and as the wrapper sets it.  In both sweeps every
+route or split must give the same bits as the first.
 
 ``--routes`` adds the sweep that calibrates K3/K4's route choice
 (``stream_kernel_pq.adc_slot_limit``): K4 at PQ(96, Ks), Ks in
@@ -40,6 +59,7 @@ names are assumed.  Run from the repository root::
     python3 scripts/torch_kernel_variants.py --kernels K1,K2 '[{}, {"kRowsInFlight": 2}]'
     python3 scripts/torch_kernel_variants.py --root _parent --kernels K1 '[{}]'
     python3 scripts/torch_kernel_variants.py --kernels K4 --routes '[{}, {"kSlotSlots": 1}]'
+    python3 scripts/torch_kernel_variants.py --kernels K1,K2 --split '[{}]'
 
 Prints one JSON line per variant.  Needs ``nvcc`` and a CUDA device.
 """
@@ -51,6 +71,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import time
 from pathlib import Path
 
 import numpy as np
@@ -66,6 +87,12 @@ TAIL_ROWS, TAIL_SLOTS = 32_768, (35, 105)
 ROUTE_KS = (256, 1024, 32_768)
 ROUTE_SLOTS = (16, 32, 64, 128, 256, 512, 1024, 2048, 4096)
 ROUTE_TILE_PAIRS = 900
+#: the dense-dot route sweep's slots a query
+DENSE_ROUTE_SLOTS = (16, 32, 48, 64, 96, 128, 192, 256, 512, 1024)
+#: the fp32 split sweep: tiles, real slots a tile, blocks a tile
+SPLIT_TILES = (16, 32, 64, 128, 256, 512, 1024)
+SPLIT_TILE_SLOTS = 560
+SPLIT_BLOCKS = (1, 2, 4, 8, 16)
 
 
 def layout(scoring, rng, n: int, r: int = 512):
@@ -167,6 +194,54 @@ def call_memory(fn) -> int:
     return torch.cuda.max_memory_allocated() - held
 
 
+def host_ms(fn, stub_entries: bool = False) -> float:
+    """Median host time of one call (its checks, allocations and launches;
+    the card is drained between calls, so no launch waits on a queue); with
+    ``stub_entries``, of the call with its kernel entry replaced by a no-op
+    (the wrapper's Python side alone)."""
+    from fastforward_tpu_torch.ops import _build
+
+    bind = _build.bind
+    if stub_entries:
+        _build.bind = lambda *args, **kwargs: (lambda *call_args: None)
+    try:
+        return _host_ms(fn)
+    finally:
+        _build.bind = bind
+
+
+def _host_ms(fn) -> float:
+    times = []
+    for _ in range(CALLS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return float(np.median(times))
+
+
+def traced_ms_by_kernel(fn) -> dict:
+    """Device time (ms) of each kernel and copy one traced call of ``fn``
+    launches, by name (a device item ahead of the call keeps the profiler
+    from dropping the call's first item)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.zeros(1, device="cuda")
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            name = re.sub(r"\(.*", "", ev.name)[:60]
+            out[name] = out.get(name, 0.0) + ev.time_range.elapsed_us() / 1e3
+    return out
+
+
 def use_variant(root: Path, modules: dict, consts: dict) -> None:
     """Point the kernel build at a copy of ``root``'s ``csrc`` with the
     header constants of ``consts`` set, and set its wrapper constants."""
@@ -197,8 +272,11 @@ def use_variant(root: Path, modules: dict, consts: dict) -> None:
     _build.bind.cache_clear()
 
 
-def cases(kernels, modules, rng, routes=False) -> dict:
-    """name -> (kernel call, plain call) on the card."""
+def cases(kernels, modules, rng, routes=False, sweeps=None) -> dict:
+    """name -> (kernel call, plain call) on the card (``sweeps``: the
+    names of the K1/K2 sweeps to add, ``dense_routes`` and
+    ``tile_split``)."""
+    sweeps = sweeps or {}
     sk, skpq, scoring = modules["sk"], modules["skpq"], modules["scoring"]
     gen = torch.Generator("cuda").manual_seed(0)
     q = torch.randn(QUERIES, DIM, device="cuda", generator=gen)
@@ -251,6 +329,29 @@ def cases(kernels, modules, rng, routes=False) -> dict:
                 lambda c=codes, cd=cand3, ti=tidx: skpq.stream_select_pq(c, cb, q.t(), cd, ti),
                 lambda c=codes, cd=cand3, ti=tidx: skpq.stream_select_pq_plain(c, cb, q.t(), cd, ti),
             )
+    if "K1" in kernels or "K2" in kernels:
+        cand3, tidx = count_layout(scoring, rng, TAIL_ROWS,
+                                   rng.integers(TAIL_SLOTS[0], TAIL_SLOTS[1] + 1, size=QUERIES))
+        tail32 = torch.randn(TAIL_ROWS, DIM, device="cuda", generator=gen)
+        tail8 = torch.randint(-127, 128, (TAIL_ROWS, DIM // 128, 128), dtype=torch.int8,
+                              device="cuda", generator=gen)
+        if "K1" in kernels:
+            for name, table, exact in (("fp32 exact", tail32, True), ("fp32 fast", tail32, False),
+                                       ("bf16 exact", tail32.to(torch.bfloat16), True),
+                                       ("int8 exact", tail8, True)):
+                out[f"K1 tail block {name}"] = (
+                    lambda t=table, e=exact, c=cand3, ti=tidx: sk.stream_select_pairwise(
+                        t, q, c, ti, exact=e),
+                    lambda t=table, e=exact, c=cand3, ti=tidx: sk.stream_select_pairwise_plain(
+                        t, q, c, ti, exact=e),
+                )
+        if "K2" in kernels:
+            for name, table in (("int8", tail8), ("fp32", tail32.view(TAIL_ROWS, DIM // 128, 128))):
+                out[f"K2 tail block {name} high"] = (
+                    lambda t=table, c=cand3, ti=tidx: sk.stream_select(t, q.t(), c, ti, precision="high"),
+                    lambda t=table, c=cand3, ti=tidx: sk.stream_select_plain(
+                        t, q.t(), c, ti, precision="high"),
+                )
     if "K4" in kernels:
         cand3, tidx = count_layout(scoring, rng, TAIL_ROWS,
                                    rng.integers(TAIL_SLOTS[0], TAIL_SLOTS[1] + 1, size=QUERIES))
@@ -262,6 +363,33 @@ def cases(kernels, modules, rng, routes=False) -> dict:
                 lambda c=codes, b=cb_t, cd=cand3, ti=tidx: skpq.stream_select_pq_plain(
                     c, b, q.t(), cd, ti),
             )
+    if sweeps.get("dense_routes"):
+        sweep_rows = max(8, -(-QUERIES * max(DENSE_ROUTE_SLOTS) // ROUTE_TILE_PAIRS)) * 512
+        sweep8 = torch.randint(-127, 128, (sweep_rows, DIM // 128, 128), dtype=torch.int8,
+                               device="cuda", generator=gen)
+        for n in DENSE_ROUTE_SLOTS:
+            n_rows = max(8, -(-QUERIES * n // ROUTE_TILE_PAIRS)) * 512
+            cand3, tidx = count_layout(scoring, rng, n_rows, np.full(QUERIES, n))
+            plain = (lambda cd=cand3, ti=tidx: sk.stream_select_plain(
+                sweep8, q.t(), cd, ti, precision="high"))
+            for route in ("items", "packed", "auto"):
+                out[f"dense routes n{n} {route}"] = (
+                    lambda cd=cand3, ti=tidx, rt=route: sk.stream_select(
+                        sweep8, q.t(), cd, ti, precision="high", _route=rt),
+                    plain,
+                )
+    if sweeps.get("tile_split"):
+        sweep32 = torch.randn(max(SPLIT_TILES) * 512, DIM, device="cuda", generator=gen)
+        for n in SPLIT_TILES:
+            per_query = SPLIT_TILE_SLOTS * n // QUERIES
+            cand3, tidx = count_layout(scoring, rng, n * 512, np.full(QUERIES, per_query))
+            plain = (lambda cd=cand3, ti=tidx: sk.stream_select_pairwise_plain(sweep32, q, cd, ti))
+            for split in (*SPLIT_BLOCKS, None):
+                out[f"tile split n{n} S{split or 'auto'}"] = (
+                    lambda cd=cand3, ti=tidx, sp=split: sk.stream_select_pairwise(
+                        sweep32, q, cd, ti, _split=sp),
+                    plain,
+                )
     if routes:
         for ks in ROUTE_KS:
             dtype = np.uint8 if ks <= 256 else np.uint16
@@ -289,6 +417,14 @@ def main() -> int:
                         help="checkout whose kernels are timed")
     parser.add_argument("--routes", action="store_true",
                         help="add the sweep of K3/K4's two routes over Ks and slots a query")
+    parser.add_argument("--split", action="store_true",
+                        help="add one traced call of each case, split by kernel")
+    parser.add_argument("--verbose", action="store_true",
+                        help="name each case on stderr before it runs")
+    parser.add_argument("--dense-routes", action="store_true",
+                        help="add the sweep of the dense-dot body's two routes over slots a query")
+    parser.add_argument("--tile-split", action="store_true",
+                        help="add the sweep of K1's fp32 split over tiles and blocks a tile")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("torch_kernel_variants: no CUDA device is available", file=sys.stderr)
@@ -303,31 +439,40 @@ def main() -> int:
     kernels = [k for k in args.kernels.split(",") if k]
     if set(kernels) - set(KERNELS):
         parser.error(f"unknown kernels {set(kernels) - set(KERNELS)}")
-    calls = cases(kernels, modules, np.random.default_rng(0), args.routes)
+    calls = cases(kernels, modules, np.random.default_rng(0), args.routes,
+                  {"dense_routes": args.dense_routes, "tile_split": args.tile_split})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     print(json.dumps({"card": smi, "root": str(root), "cases": list(calls)}), flush=True)
     defaults = {name: getattr(m, name) for m in (sk, skpq) for name in dir(m)
-                if name.endswith("ITEM_SLOTS")}
+                if name.endswith(("ITEM_SLOTS", "PACK_LIMIT"))}
     for consts in json.loads(args.variants):
         for name, value in defaults.items():  # each variant starts from the wrappers' own
             setattr(sk if hasattr(sk, name) else skpq, name, value)
         use_variant(root, modules, consts)
         result = {"variant": consts}
         for name, (fn, plain) in calls.items():
+            if args.verbose:
+                print(f"{json.dumps(consts)} {name}", file=sys.stderr, flush=True)
             got = fn()
-            if name.startswith("routes ") and not name.endswith(" table"):
-                table = calls[name.rsplit(" ", 1)[0] + " table"][0]()
-                if not torch.equal(got, table):
-                    raise RuntimeError(f"{name}: not the table route's bits")
+            for prefix, first in (("routes ", " table"), ("dense routes ", " items"),
+                                  ("tile split ", " S1")):
+                if name.startswith(prefix) and not name.endswith(first):
+                    want = calls[name.rsplit(" ", 1)[0] + first][0]()
+                    if not torch.equal(got, want):
+                        raise RuntimeError(f"{name}: not the{first} bits")
             result[name] = {
                 "max_abs_err": (got - plain()).abs().max().item(),
                 "ms": median_ms(fn),
                 "back_to_back_ms": back_to_back_ms(fn),
                 "peak_bytes_above_held": call_memory(fn),
             }
+            if args.split:
+                result[name]["traced_ms_by_kernel"] = traced_ms_by_kernel(fn)
+                result[name]["host_ms"] = host_ms(fn)
+                result[name]["host_ms_without_entry"] = host_ms(fn, stub_entries=True)
         print(json.dumps(result), flush=True)
     return 0
 

@@ -954,6 +954,133 @@ def test_cuda_hybrid_tail_blocks_match_cpu(cuda, kind, mode):
     _assert_pairs_close(out["cpu"], out["cuda"])
 
 
+#: the layouts of K1's fp32 split and the dense-dot routes: a staged tail
+#: block (512 queries of about 70 slots over 32,768 rows, 64 x 1024 slots),
+#: a mixed one (half of the queries above the pack limit, half below), the
+#: small ``LAYOUTS`` and a flagship-like one (64 queries x depth 1000 over
+#: 32,768 rows: every query far above the limit)
+SPLIT_ROUTE_LAYOUTS = ["tail_block", "mixed", *LAYOUTS, "flagship_small"]
+
+
+def _split_route_inputs(table_kind: str, layout: str, cap: int, device, seed: int = 41):
+    """Table (fp32, bf16 or 3D int8 rows of ``DIM``), queries and a layout of
+    ``SPLIT_ROUTE_LAYOUTS`` at ``cap`` on ``device``."""
+    rng = np.random.default_rng(seed)
+    n_pad = TAIL_BLOCK_ROWS if layout in ("tail_block", "flagship_small") else N_PAD
+    if table_kind == "int8":
+        table = torch.from_numpy(rng.integers(-127, 128, size=(n_pad, DIM // 128, 128)).astype(np.int8))
+    else:
+        table = torch.from_numpy(rng.standard_normal((n_pad, DIM), dtype=np.float32))
+        if table_kind == "bf16":
+            table = table.to(torch.bfloat16)
+    if layout in ("tail_block", "mixed"):
+        qb = TAIL_BLOCK_QUERIES if layout == "tail_block" else MIXED_QUERIES
+        cand3, tile_idx = route_layout(rng, layout, n_pad, qb, sk.KERNEL_TILE_ROWS, cap,
+                                       sk.DENSE_PACK_LIMIT)
+    elif layout == "flagship_small":
+        qb = 64
+        rows = np.concatenate([rng.choice(n_pad, 1000, replace=False) for _ in range(qb)])
+        cand, tile_idx, _ = scoring.build_streamed_layout(rows, np.repeat(np.arange(qb), 1000),
+                                                          n_pad, qb, cap=cap)
+        cand3 = cand.reshape(cand.shape[0], cap // 128, 128)
+    else:
+        qb, cand3, tile_idx = _layout(rng, layout, cap)
+    q = torch.from_numpy(rng.standard_normal((qb, DIM), dtype=np.float32))
+    return [t.to(device) for t in (table, q, torch.from_numpy(cand3), torch.from_numpy(tile_idx))]
+
+
+@pytest.mark.parametrize("layout", SPLIT_ROUTE_LAYOUTS)
+@pytest.mark.parametrize("exact", [True, False], ids=["exact", "fast"])
+@pytest.mark.parametrize("cap", [512, 1024])
+def test_cuda_k1_fp32_splits(cuda, cap, exact, layout):
+    """K1's fp32 body with each tile split over 1, 2, 3, 8 and 16 blocks and
+    over ``tile_split``'s choice gives the same bits, which hold the plain
+    version's tolerance; the tail block is split over 8 blocks on an H100
+    SXM (7 on a PCIe card)."""
+    table, q, cand3, tile_idx = _split_route_inputs("fp32", layout, cap, cuda)
+    outs = {s: sk.stream_select_pairwise(table, q, cand3, tile_idx, exact=exact, _split=s)
+            for s in (1, 2, 3, 8, sk.TILE_MAX_SPLIT)}
+    before = sk.stream_select_pairwise.launches
+    auto = sk.stream_select_pairwise(table, q, cand3, tile_idx, exact=exact)
+    assert sk.stream_select_pairwise.launches == before + 1
+    torch.cuda.synchronize()
+    for split, out in outs.items():
+        assert torch.equal(out, outs[1]), split
+    assert torch.equal(auto, outs[1])
+    want = sk.stream_select_pairwise_plain(table, q, cand3, tile_idx, exact=exact)
+    absdot = sk.stream_select_pairwise_plain(table.abs(), q.abs(), cand3, tile_idx, exact=exact)
+    _assert_within_sum_order(auto, want, absdot, DIM)
+    if layout == "tail_block" and cap == 1024:
+        assert sk.tile_split(cand3.shape[0], sk.sm_count(cuda)) > 1
+
+
+@pytest.mark.parametrize("layout", SPLIT_ROUTE_LAYOUTS)
+@pytest.mark.parametrize("kernel,table_kind,tier", [
+    ("K1", "bf16", "exact"), ("K1", "bf16", "fast"), ("K1", "int8", "exact"), ("K1", "int8", "fast"),
+    ("K2", "fp32", "exact"), ("K2", "fp32", "fast"), ("K2", "bf16", "high"), ("K2", "int8", "high"),
+    ("K2", "int8", "fast"),
+])
+def test_cuda_dense_routes(cuda, kernel, table_kind, tier, layout):
+    """The query-major body (K1's bf16 and int8 branches, K2) with every
+    query on work items, every query packed, and each query on its own route
+    (``"auto"``) gives the same bits, which hold the plain version's
+    tolerance; the routes the card takes are the Python mirror's
+    (``dense_routes``), and the tail block and mixed layouts take both."""
+    cap = 512 if kernel == "K1" else 1024
+    table, q, cand3, tile_idx = _split_route_inputs(table_kind, layout, cap, cuda)
+    if kernel == "K2" and table_kind == "fp32":
+        table = table.view(table.shape[0], DIM // 128, 128)
+
+    def call(route=None, t=table, qq=q):
+        if kernel == "K1":
+            exact = tier != "fast"
+            if route is None:
+                return sk.stream_select_pairwise_plain(t, qq, cand3, tile_idx, exact=exact)
+            return sk.stream_select_pairwise(t, qq, cand3, tile_idx, exact=exact, _route=route)
+        if route is None:
+            return sk.stream_select_plain(t, qq.t(), cand3, tile_idx, precision=tier)
+        return sk.stream_select(t, qq.t(), cand3, tile_idx, precision=tier, _route=route)
+
+    items, packed, auto = call("items"), call("packed"), call("auto")
+    torch.cuda.synchronize()
+    assert torch.equal(items, packed)
+    assert torch.equal(auto, items)
+    atol = 1e-3 if table_kind == "int8" else 1e-4
+    _assert_within_sum_order(auto, call(), call(None, table.abs(), q.abs()), DIM, atol=atol)
+    qb = q.shape[0]
+    routes = sk.dense_routes(cand3, qb, sk.DENSE_PACK_LIMIT)
+    want = sk.dense_query_routes_plain(cand3.cpu(), qb, sk.DENSE_PACK_LIMIT)
+    assert torch.equal(routes.cpu(), want)
+    if layout in ("tail_block", "mixed"):
+        assert {sk.ROUTE_ITEMS, sk.ROUTE_PACKED} <= set(want.tolist())
+
+
+@pytest.mark.parametrize("mode", ["PASSAGE", "MAXP"])
+@pytest.mark.parametrize("kind", ["dense", "int8"])
+def test_cuda_hybrid_tail_blocks_take_the_new_routes(cuda, kind, mode):
+    """A hybrid passage or MAXP re-rank over fp32 or int8 rows on the card
+    against the same index on the CPU (atol 1e-4, rtol 1e-5), with its tail
+    blocks on the new routes: each fp32 block's few tiles split over
+    several blocks, and the short queries of each int8 block packed."""
+    from fastforward_tpu_torch.ops import host_stream
+
+    out = {}
+    for device in ("cpu", "cuda"):
+        index, ranking = _hybrid_pair(kind, mode, device, HYBRID_BUDGETS[kind], 512)
+        out[device] = index(ranking)
+        if device == "cuda":
+            chunks = index._get_plan(ranking)["hybrid"]["chunks"]
+            qb = index._get_plan(ranking)["hybrid"]["res_plan"]["q_dev"][1].shape[0]
+            if kind == "dense":
+                assert all(sk.tile_split(c["cand"].shape[0], sk.sm_count(cuda)) > 1 for c in chunks)
+            else:  # K1 (cap <= r) and K2 alike
+                packed = [int((sk.dense_routes(c["cand"], qb, sk.DENSE_PACK_LIMIT)
+                               == sk.ROUTE_PACKED).sum()) for c in chunks]
+                assert all(n > 0 for n in packed), packed
+        host_stream.reset_stats()
+    _assert_pairs_close(out["cpu"], out["cuda"])
+
+
 def _assert_pairs_close(cpu_r, cuda_r):
     """The same (query, id) pairs, scores at atol 1e-4, rtol 1e-5, compared
     pair by pair (PQ codes tie often, and fp32 sums in another order may

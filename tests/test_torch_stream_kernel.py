@@ -304,7 +304,7 @@ def test_dense_work_items_fit_the_launch(layout):
     counts = np.bincount(cand3.reshape(-1) % qb, minlength=qb)
     items = -(-counts // sk.DENSE_ITEM_SLOTS)
     assert items.sum() <= sk.dense_max_items(qb, n) < 2**31
-    assert query_groups.scratch_words(qb, n) == 3 * qb + 2 + n
+    assert query_groups.scratch_words(qb, n) == 3 * qb + 4 + n
     assert n < 2**32
     pad_slots = int((cand3 % qb == qb - 1).sum())
     assert items[qb - 1] == -(-pad_slots // sk.DENSE_ITEM_SLOTS)

@@ -235,7 +235,7 @@ def test_adc_work_items_fit_the_launch(layout):
         n = cand3.size
     items = _items_of(cand3, qb)
     assert items.sum() <= skpq.adc_max_items(qb, n)
-    assert skpq.adc_scratch_words(qb, n) == 3 * qb + 2 + n
+    assert skpq.adc_scratch_words(qb, n) == 3 * qb + 4 + n
     pad_slots = int((cand3 % qb == qb - 1).sum())
     assert items[qb - 1] == -(-pad_slots // skpq.ADC_ITEM_SLOTS)
     if layout == "flagship":
