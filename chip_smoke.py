@@ -94,11 +94,20 @@ Phases, each of which must pass (any failure exits non-zero):
     TCT encoder as the index's query encoder: must launch K1 alone, every
     score of 32 queries and their top-10 against float64 of the vectors the
     index encoded;
-19. the disk index: ``fastforward_tpu_torch.index.disk`` imports; without
-    h5py, ``OnDiskIndex`` and ``OnDiskIndex.load`` must raise
-    ``ImportError`` naming it.  Where h5py is installed, a dense and a
-    ``PQ(96, 256)`` index of 8,192 rows go through ``add``,
-    ``load(hbm_cache=True)`` and a re-rank that must launch K1 and K3;
+19. the disk index, read and written by the port's own HDF5 codec (h5py
+    is never imported): a dense and a ``PQ(96, 256)`` index of 8,192 rows
+    go through ``add``, ``load(hbm_cache=True)`` and a re-rank that must
+    launch K1 and K3; then ``bench.py`` config #2's disk half at full
+    width: phase 12's MAXP corpus written to an ``OnDiskIndex`` in adds of
+    2^16 rows (6.1 GB), loaded with ``hbm_cache=True``: a cold and 5 warm
+    re-ranks of phase 12's run must launch K1 fp32 alone, match float64
+    on all 512 queries with an exact top-10, and equal phase 12's
+    ``InMemoryIndex`` scores bit for bit; 4,096 random documents read back
+    through the chunk memory maps (and by file reads) equal the corpus's
+    rows; loaded with ``hbm_budget=2 GiB`` (the tail read from the file),
+    one re-rank has the same top-10.  Its PQ half runs after phase 13, on
+    phase 9's quantizer: the same corpus as a PQ disk index, codes equal
+    to phase 9's, MAXP must launch K4 alone, checked against float64;
 20. the hybrid tier: a second fp32 index of the flagship corpus with
     ``hbm_budget=2 GiB`` must split at 488,448 resident rows (1.50 GB),
     1,511,552 host-tail rows (4.64 GB) and a 646,971,392-byte device
@@ -234,7 +243,6 @@ and power limit, the ``{"kernels": [...]}`` summary and, last,
 ``{"ok": true, "device": {...}}``.
 """
 
-import importlib.util
 import json
 import shutil
 import subprocess
@@ -288,8 +296,14 @@ BF16_RATES = {"pcie": 756e12, "nvl": 835e12, "sxm": 989e12}
 TOWER_VOCAB = 30_522
 TOWER_CHECK_QUERIES = 64
 TOWER_TIMED = 5
-#: phase 19 (where h5py is installed): a small dense and PQ disk index
+#: phase 19: a small dense and PQ disk index
 DISK_N, DISK_QUERIES, DISK_DEPTH = 8192, 32, 100
+#: phase 19's config #2 disk half (bench.py:689-766): rows of the MAXP
+#: document corpus written to an ``OnDiskIndex`` (all of them, a 6.3 GB
+#: file: the card machine's temporary directory holds 80 GB), rows an
+#: ``add`` writes, and random documents read back through the chunk maps
+DISK_DOC_N, DISK_ADD_ROWS, DISK_MMAP_IDS = N, 1 << 16, 4096
+DISK_TOP = 10  # the top of every query that must equal float64's
 
 #: phases 20-21: the hybrid tier's budgets (bytes): dense fp32, int8 and
 #: PQ(96, 256) tables of the flagship corpus
@@ -1672,15 +1686,12 @@ def tower_phase(index, ranking, run, queries, corpus_dev, q_index, wrappers, lau
 
 
 def disk_phase(corpus, qvecs, wrappers, launches) -> dict:
-    """Phase 19: the disk index's module imports; without h5py,
-    ``OnDiskIndex`` and ``OnDiskIndex.load`` raise ``ImportError`` naming
-    it.  Where h5py is installed instead, a dense and a ``PQ(96, 256)``
+    """Phase 19, the round trip: a dense and a ``PQ(96, 256)``
     ``OnDiskIndex`` of the first ``DISK_N`` rows, written with ``add`` and
-    opened with ``load(hbm_cache=True)``, re-rank a run of
-    ``DISK_QUERIES`` x ``DISK_DEPTH``: the dense index must launch K1 and
-    the PQ index K3, each alone, and every score match float64 (of the
-    decoded rows)."""
-    importlib.import_module("fastforward_tpu_torch.index.disk")
+    opened with ``load(hbm_cache=True)``, re-rank a run of ``DISK_QUERIES``
+    x ``DISK_DEPTH``: the dense index must launch K1 and the PQ index K3,
+    each alone, and every score match float64 (of the decoded rows).  The
+    port's own codec reads and writes the file: h5py is never imported."""
     from fastforward_tpu_torch.encoder import LambdaEncoder
     from fastforward_tpu_torch.index import Mode, OnDiskIndex
     from fastforward_tpu_torch.quantizer import PQ
@@ -1688,17 +1699,6 @@ def disk_phase(corpus, qvecs, wrappers, launches) -> dict:
 
     tmp = Path(tempfile.mkdtemp(prefix="ff-disk-"))
     try:
-        if importlib.util.find_spec("h5py") is None:
-            for what, make in (("OnDiskIndex", lambda: OnDiskIndex(tmp / "x.h5")),
-                               ("OnDiskIndex.load", lambda: OnDiskIndex.load(tmp / "x.h5"))):
-                try:
-                    make()
-                except ImportError as exc:
-                    check("h5py" in str(exc), f"{what} raised ImportError without naming h5py: {exc}")
-                    log(f"[disk] no h5py here: {what} raises ImportError: {exc}")
-                else:
-                    check(False, f"{what} built an index without h5py")
-            return {"h5py": False}
         rows = corpus[:DISK_N]
         by_text = {f"query {i}": qvecs[i] for i in range(DISK_QUERIES)}
         q_index = {f"q{i}": i for i in range(DISK_QUERIES)}
@@ -1708,7 +1708,7 @@ def disk_phase(corpus, qvecs, wrappers, launches) -> dict:
         qvecs_dev = torch.from_numpy(qvecs[:DISK_QUERIES]).cuda()
         pq = PQ(PQ_M, PQ_KS)
         pq.fit(rows)
-        out = {"h5py": True}
+        out = {}
         step = DISK_N // 4
         for label, quantizer, want in (("disk_dense", None, "stream_select_pairwise"),
                                        ("disk_pq", pq, "stream_select_pq_pairwise")):
@@ -1734,6 +1734,222 @@ def disk_phase(corpus, qvecs, wrappers, launches) -> dict:
             out[label] = {"s": time.perf_counter() - t0, "launches": counts}
             log(f"[disk] {label}: add, load(hbm_cache=True) and re-rank in {out[label]['s']:.1f} "
                 f"s; launches {counts}")
+        check("h5py" not in sys.modules, "the disk round trip imported h5py")
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def write_disk_index(path: Path, rows: np.ndarray, doc_ids: list, quantizer=None) -> dict:
+    """``bench.py`` config #2's write (``bench.py:728-739``): an
+    ``OnDiskIndex`` in ``Mode.MAXP``, ``add`` in steps of
+    ``DISK_ADD_ROWS`` rows with document ids only; returns the seconds, the
+    file's GB and the rate."""
+    from fastforward_tpu_torch.index import Mode, OnDiskIndex
+
+    t0 = time.perf_counter()
+    writer = OnDiskIndex(path, quantizer=quantizer, mode=Mode.MAXP)
+    for lo in range(0, rows.shape[0], DISK_ADD_ROWS):
+        writer.add(rows[lo : lo + DISK_ADD_ROWS], doc_ids=doc_ids[lo : lo + DISK_ADD_ROWS])
+    write_s = time.perf_counter() - t0
+    gb = path.stat().st_size / 1e9
+    check(len(writer) == rows.shape[0], f"{path.name}: {len(writer)} rows written of {rows.shape[0]}")
+    return {"write_s": write_s, "file_gb": gb, "write_gb_s": gb / write_s}
+
+
+def load_disk_index(path: Path, by_text: dict, **kwargs) -> tuple:
+    """``(index, seconds)`` of ``OnDiskIndex.load`` in ``Mode.MAXP`` (the id
+    maps' bulk load) with the flagship queries' encoder."""
+    from fastforward_tpu_torch.encoder import LambdaEncoder
+    from fastforward_tpu_torch.index import Mode, OnDiskIndex
+
+    t0 = time.perf_counter()
+    index = OnDiskIndex.load(path, LambdaEncoder(by_text.__getitem__), mode=Mode.MAXP, **kwargs)
+    return index, time.perf_counter() - t0
+
+
+def view_upload_s(index) -> float:
+    """Seconds of the first ``_device_view()``: the table read from the
+    file and uploaded to the card."""
+    t0 = time.perf_counter()
+    index._device_view()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def check_exact_top(result, exact, queries: int, k: int, what: str) -> None:
+    """Every score of the first ``queries`` queries against ``exact``
+    (as ``check_rerank``), and each query's ``k`` best ids by score are the
+    ``k`` best by ``exact``'s float64 scores; an id may trade places at the
+    boundary only with one whose float64 score lies within the two ids'
+    sum-order tolerances of it."""
+    df = result._df
+    check(len(df) > 0 and bool(np.isfinite(df["score"].to_numpy(np.float64)).all()),
+          f"{what}: empty result or non-finite scores")
+    worst, n_pairs = 0.0, 0
+    by_q = df.groupby(df["q_id"].astype(str)).indices
+    all_ids = df["id"].astype(str).to_numpy()
+    scores = df["score"].to_numpy(np.float64)
+    for qi in range(queries):
+        sel = by_q[f"q{qi}"]
+        ids = all_ids[sel]
+        ref, tol = (t.cpu().numpy() for t in exact(f"q{qi}", ids))
+        err = np.abs(scores[sel] - ref)
+        check(bool((err <= tol).all()), f"{what}: q{qi} max err {err.max()} vs float64")
+        worst, n_pairs = max(worst, float(err.max())), n_pairs + len(sel)
+        got = set(ids[np.argsort(-scores[sel], kind="stable")[:k]])
+        order = np.argsort(-ref, kind="stable")
+        want = set(ids[order[:k]])
+        kth = order[k - 1]
+        pos = {i: j for j, i in enumerate(ids)}
+        for i in got ^ want:
+            j = pos[i]
+            check(abs(ref[j] - ref[kth]) <= tol[j] + tol[kth],
+                  f"{what}: q{qi} top-{k} holds {sorted(got)}, float64's {sorted(want)}")
+    log(f"  {what}: {n_pairs} pairs of {queries} queries match float64 (max err {worst:.3e}), "
+        f"their top {k} float64's")
+
+
+def disk_doc_phase(corpus, doc_ids, doc_counts, doc_starts, by_text, doc_rank, exact_max, mem_maxp,
+                   mem_figures, wrappers, launches) -> dict:
+    """Phase 19, config #2's disk half at full width (``bench.py:689-766``):
+    the MAXP document corpus (``DISK_DOC_N`` rows) written to an
+    ``OnDiskIndex`` in ``add`` steps of ``DISK_ADD_ROWS`` and opened with
+    ``load(hbm_cache=True)`` at phase 12's precision: a cold and
+    ``WARM_CALLS`` warm re-ranks of phase 12's run must launch K1 fp32
+    alone, match float64 on every query with an exact top ``DISK_TOP``,
+    and equal phase 12's ``InMemoryIndex`` scores bit for bit (the same
+    kernel on the same layout).  Then the file loaded with
+    ``memory_mapped=True`` returns ``DISK_MMAP_IDS`` random documents'
+    rows through the chunk maps (and the file reads, without them), equal
+    to the corpus's; loaded with ``hbm_budget=HYBRID_BUDGET`` (the hybrid
+    tier's tail read from the file), one re-rank has the same top
+    ``DISK_TOP``.  ``mem_figures`` are phase 12's ``InMemoryIndex``
+    figures printed beside these."""
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="ff-disk-doc-"))
+    try:
+        rows = corpus[:DISK_DOC_N]
+        out = {"rows": DISK_DOC_N, "free_gb_before": shutil.disk_usage(tmp).free / 1e9,
+               "tmp_dir": tempfile.gettempdir()}
+        path = tmp / "maxp.h5"
+        out.update(write_disk_index(path, rows, doc_ids[:DISK_DOC_N]))
+        log(f"[disk doc] wrote {DISK_DOC_N} x {DIM} fp32 in {len(set(doc_ids[:DISK_DOC_N]))} "
+            f"documents: {out['file_gb']:.3f} GB in {out['write_s']:.2f} s ({out['write_gb_s']:.3f} "
+            f"GB/s) to {out['tmp_dir']} ({out['free_gb_before']:.1f} GB free before); "
+            f"InMemoryIndex.add {mem_figures['add_s']:.2f} s")
+
+        index, out["load_s"] = load_disk_index(path, by_text, hbm_cache=True, precision="high")
+        out["upload_s"] = view_upload_s(index)
+        check(index._device_view().kind == "dense", "the disk index's view is not a whole dense table")
+        reset_counts(wrappers)
+        t0 = time.perf_counter()
+        cold = index(doc_rank)
+        torch.cuda.synchronize()
+        out["cold_ms"] = (time.perf_counter() - t0) * 1e3
+        out["warm_ms"], warm = timed_calls(lambda: index(doc_rank), WARM_CALLS)
+        counts = read_counts(wrappers)
+        launches["disk_doc_maxp"] = counts
+        check(counts["stream_select_pairwise"] == 1 + WARM_CALLS
+              and sum(counts.values()) == counts["stream_select_pairwise"],
+              f"disk MAXP launches {counts}, want K1 alone x {1 + WARM_CALLS}")
+        check(cold == warm, "disk MAXP: cold and warm re-rank disagree")
+        check(len(warm._df) == len(doc_rank._df), "disk MAXP re-rank lost pairs")
+        check_exact_top(warm, exact_max, QUERIES, DISK_TOP, "disk MAXP re-rank")
+        got, want = (r._df.sort_values(["q_id", "id"]) for r in (warm, mem_maxp))
+        check(got[["q_id", "id"]].astype(str).equals(want[["q_id", "id"]].astype(str))
+              and got["score"].to_numpy().tobytes() == want["score"].to_numpy().tobytes(),
+              "disk MAXP scores differ from phase 12's InMemoryIndex bit for bit")
+        log(f"[disk doc] load {out['load_s']:.2f} s (id bulk load); device view upload "
+            f"{out['upload_s']:.2f} s (InMemoryIndex {mem_figures['upload_s']:.2f} s); MAXP re-rank "
+            f"cold {out['cold_ms']:.1f} ms, warm median {out['warm_ms']:.2f} ms (phase 12's "
+            f"InMemoryIndex {mem_figures['warm_ms']:.2f} ms), bit-equal to it; launches {counts}")
+        del index, cold
+        torch.cuda.empty_cache()
+
+        rng = np.random.default_rng(SEED + 19)
+        docs = rng.choice(doc_counts.shape[0], DISK_MMAP_IDS, replace=False)
+        want_rows = np.concatenate([corpus[doc_starts[d] : doc_starts[d] + doc_counts[d]] for d in docs])
+        ids = [f"d{d}" for d in docs]
+        for label, kwargs in (("mmap", {"memory_mapped": True}), ("pread", {})):
+            reader, _ = load_disk_index(path, by_text, **kwargs)
+            t0 = time.perf_counter()
+            vecs, _ = reader._get_vectors(ids)
+            out[f"{label}_ms"] = (time.perf_counter() - t0) * 1e3
+            check(np.array_equal(vecs, want_rows), f"disk {label} reads differ from the corpus")
+        log(f"[disk doc] {DISK_MMAP_IDS} random documents ({want_rows.shape[0]} rows) read back "
+            f"equal: through the chunk memory maps in {out['mmap_ms']:.1f} ms, by file reads in "
+            f"{out['pread_ms']:.1f} ms")
+
+        hyb, _ = load_disk_index(path, by_text, hbm_cache=True, precision="high",
+                                 hbm_budget=HYBRID_BUDGET)
+        out["hybrid_upload_s"] = view_upload_s(hyb)
+        view = hyb._device_view()
+        split = (view.tail_start, view.host_tail.shape[0]) if view.kind == "hybrid" else None
+        check(split is not None and (DISK_DOC_N != N or split == HYBRID_DENSE_SPLIT[:2]),
+              f"disk hybrid view {view.kind}, split {split}")
+        reset_counts(wrappers)
+        t0 = time.perf_counter()
+        got = hyb(doc_rank)
+        torch.cuda.synchronize()
+        out["hybrid_ms"] = (time.perf_counter() - t0) * 1e3
+        counts = read_counts(wrappers)
+        launches["disk_doc_maxp_hybrid"] = counts
+        check(counts["stream_select_pairwise"] >= 1
+              and sum(counts.values()) == counts["stream_select_pairwise"],
+              f"disk hybrid MAXP launches {counts}")
+        check_same_top(got, warm, QUERIES, "disk hybrid MAXP re-rank", k=DISK_TOP)
+        log(f"[disk doc] hbm_budget {HYBRID_BUDGET}: tail read from the file and view built in "
+            f"{out['hybrid_upload_s']:.2f} s, split {view.tail_start} / {view.host_tail.shape[0]}; "
+            f"one MAXP re-rank {out['hybrid_ms']:.1f} ms; launches {counts}")
+        del hyb, view, got, warm
+        torch.cuda.empty_cache()
+        check("h5py" not in sys.modules, "the disk phase imported h5py")
+        out["phase_s"] = time.perf_counter() - t_phase
+        log(f"[disk doc] phase in {out['phase_s']:.1f} s")
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def disk_pq_phase(corpus, doc_ids, by_text, doc_rank, pq, pq_codes, exact_max, wrappers,
+                  launches) -> dict:
+    """Phase 19's PQ half (run after phase 13: it needs phase 9's fitted
+    ``PQ(96, 256)``): the MAXP document corpus written to a PQ
+    ``OnDiskIndex`` as ``disk_doc_phase`` writes it (encoded on the card
+    add by add) and loaded with ``hbm_cache=True``: its codes must equal
+    phase 9's, and a cold and ``WARM_CALLS`` warm MAXP re-ranks launch K4
+    alone and match float64 of the decoded rows."""
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="ff-disk-pq-"))
+    try:
+        path = tmp / "maxp_pq.h5"
+        out = write_disk_index(path, corpus[:DISK_DOC_N], doc_ids[:DISK_DOC_N], quantizer=pq)
+        index, out["load_s"] = load_disk_index(path, by_text, hbm_cache=True, precision="exact")
+        codes = np.concatenate([v for v, _, _ in index._batch_iter(DISK_ADD_ROWS)])
+        check(np.array_equal(codes, pq_codes[:DISK_DOC_N]), "the disk PQ codes differ from phase 9's")
+        out["upload_s"] = view_upload_s(index)
+        reset_counts(wrappers)
+        t0 = time.perf_counter()
+        cold = index(doc_rank)
+        torch.cuda.synchronize()
+        out["cold_ms"] = (time.perf_counter() - t0) * 1e3
+        out["warm_ms"], warm = timed_calls(lambda: index(doc_rank), WARM_CALLS)
+        counts = read_counts(wrappers)
+        launches["disk_pq_doc_maxp"] = counts
+        check(counts["stream_select_pq"] == 1 + WARM_CALLS
+              and sum(counts.values()) == counts["stream_select_pq"],
+              f"disk PQ MAXP launches {counts}, want K4 alone x {1 + WARM_CALLS}")
+        check(cold == warm, "disk PQ MAXP: cold and warm re-rank disagree")
+        check_rerank(warm, exact_max, "disk PQ MAXP re-rank")
+        log(f"[disk pq] PQ({PQ_M}, {PQ_KS}) MAXP: wrote {out['file_gb']:.3f} GB in "
+            f"{out['write_s']:.2f} s (encoded on the card), codes equal phase 9's; load "
+            f"{out['load_s']:.2f} s, upload {out['upload_s']:.2f} s; re-rank cold "
+            f"{out['cold_ms']:.1f} ms, warm median {out['warm_ms']:.2f} ms; launches {counts}")
+        del index, cold, warm
+        check("h5py" not in sys.modules, "the disk PQ phase imported h5py")
+        out["phase_s"] = time.perf_counter() - t_phase
+        log(f"[disk pq] phase in {out['phase_s']:.1f} s")
         return out
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -1816,8 +2032,9 @@ def check_same_top(got, want, queries: int, what: str, k: "int | None" = None) -
     against another index's, as sets (tied scores may order differently),
     scores within rtol 1e-5 and atol 1e-5."""
     g, w = got._df, want._df
+    g_by, w_by = (df.groupby(df["q_id"].astype(str)).indices for df in (g, w))
     for qi in range(queries):
-        gq, wq = g[g["q_id"].astype(str) == f"q{qi}"], w[w["q_id"].astype(str) == f"q{qi}"]
+        gq, wq = g.iloc[g_by.get(f"q{qi}", [])], w.iloc[w_by.get(f"q{qi}", [])]
         if k is not None:
             gq, wq = gq.nlargest(k, "score"), wq.nlargest(k, "score")
         gs = dict(zip(gq["id"].astype(str), gq["score"]))
@@ -2925,7 +3142,9 @@ def main() -> int:
         mode=Mode.PASSAGE,
         precision="high",
     )
+    t_add = time.perf_counter()
     index.add(corpus, doc_ids=doc_ids, psg_ids=psg_ids)
+    mem_add_s = time.perf_counter() - t_add
     log(f"[setup] corpus {corpus.shape} fp32 in {doc_counts.shape[0]} documents of 1-"
         f"{DOC_MAX_PSGS} passages + {len(ranking._df)} passage and {len(doc_rank._df)} document "
         f"pairs built in {time.perf_counter() - t0:.1f} s")
@@ -3027,6 +3246,7 @@ def main() -> int:
     check(len(warm._df) == len(doc_rank._df), "MAXP re-rank lost pairs")
     check(cold == warm, "cold and warm MAXP re-rank disagree")
     check_rerank(warm, exact_doc["MAXP"], "MAXP re-rank")
+    mem_maxp = warm  # phase 19's disk index must equal it bit for bit
     flows["doc_maxp_rerank"] = {"cold_ms": cold_ms, "warm_ms": warm_ms, "qps": QUERIES / warm_ms * 1e3}
     doc_plan = index._get_plan(doc_rank)
     doc_k = doc_plan["k"]
@@ -3352,8 +3572,14 @@ def main() -> int:
     index.query_encoder = LambdaEncoder(by_text.__getitem__)
     torch.cuda.empty_cache()
 
-    # -- 19. the disk index: its module without h5py, or a round trip with it --------
+    # -- 19. the disk index: a round trip, and config #2's disk half at full width --------
     flows["disk"] = disk_phase(corpus, qvecs, wrappers, launches)
+    mem_figures = {"add_s": mem_add_s, "upload_s": flows["preload"]["stats"]["upload_s"],
+                   "warm_ms": flows["doc_maxp_rerank"]["warm_ms"]}
+    flows["disk_doc"] = disk_doc_phase(corpus, doc_ids, doc_counts, doc_starts, by_text, doc_rank,
+                                       exact_doc["MAXP"], mem_maxp, mem_figures, wrappers, launches)
+    flows["disk_doc"]["in_memory"] = mem_figures
+    del mem_maxp
 
     # -- 20. the hybrid tier beyond device memory, dense fp32 (K1) --------------------
     flows.update(hybrid_dense_phase(corpus, doc_ids, psg_ids, by_text, ranking, doc_rank, run, queries,
@@ -3530,6 +3756,10 @@ def main() -> int:
     k4_doc_plan = pq_index._get_plan(doc_rank)
     k4_doc_inputs = (view.table, view.codebooks, k4_doc_plan["q_dev"][1],
                      *k4_doc_plan["stream_pq"][:2])
+    # -- 19 (its PQ half, on phase 9's quantizer): a PQ disk index, MAXP (K4) ------------
+    flows["disk_pq"] = disk_pq_phase(
+        corpus, doc_ids, by_text, doc_rank, pq, pq_index._store[:N],
+        doc_exact(pq_ref, qvecs_dev, q_index, doc_counts, doc_starts, "max", DIM), wrappers, launches)
     # -- 21. the hybrid tier over the same PQ codes (K3, K4) ------------------------
     flows.update(hybrid_quantized_phase(
         "hybrid_pq", "pq", pq_index, HYBRID_PQ_BUDGET, view.codebooks.numel() * 4,

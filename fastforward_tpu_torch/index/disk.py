@@ -15,9 +15,9 @@ the index's device once (as ``InMemoryIndex`` lays it out), or with
 in blocks), while the HDF5 file stays canonical; ``to_memory()`` copies the
 index into an ``InMemoryIndex``.
 
-h5py is imported by the functions that read or write a file, never when
-this module is imported: without h5py, ``OnDiskIndex(...)`` and
-``OnDiskIndex.load(...)`` raise ``ImportError`` naming it.
+The file is read and written by the port's own codec (``h5file``), which
+handles the part of HDF5 this layout uses as h5py writes it; the port
+never imports h5py.
 """
 
 import logging
@@ -31,6 +31,7 @@ import torch
 import fastforward_tpu_torch
 from fastforward_tpu_torch.device import resolve_device
 from fastforward_tpu_torch.encoder.base import Encoder
+from fastforward_tpu_torch.index import h5file
 from fastforward_tpu_torch.index.base import DeviceView, IDSequence, Index
 from fastforward_tpu_torch.index.memory import (
     InMemoryIndex,
@@ -44,21 +45,6 @@ from fastforward_tpu_torch.parallel.mesh import MeshConfig, process_count
 from fastforward_tpu_torch.quantizer import PQ, Quantizer, ScalarQuantizer
 
 LOGGER = logging.getLogger(__name__)
-
-
-def _h5py():
-    """The h5py module.
-
-    :raises ImportError: When h5py is not installed.
-    """
-    try:
-        import h5py
-    except ImportError as exc:
-        raise ImportError(
-            "OnDiskIndex needs h5py to read and write its HDF5 file, and h5py "
-            "is not installed"
-        ) from exc
-    return h5py
 
 
 def _check_options(precision: str, mesh_config, hbm_budget) -> None:
@@ -125,11 +111,9 @@ class OnDiskIndex(Index):
             ``InMemoryIndex``).
         :param device: Torch device the index scores on; ``None`` means
             ``"cuda"``.
-        :raises ImportError: When h5py is not installed.
         :raises ValueError: When the file exists and ``overwrite=False``.
         :raises RuntimeError: When the device is CUDA and none is available.
         """
-        h5py = _h5py()
         _check_options(precision, mesh_config, hbm_budget)
         index_file = Path(index_file)
         if index_file.exists() and not overwrite:
@@ -151,7 +135,7 @@ class OnDiskIndex(Index):
         self._mmap_chunks: list[np.memmap] | None = None
 
         LOGGER.debug("creating file %s", self._index_file)
-        with h5py.File(self._index_file, "w") as fp:
+        with h5file.File(self._index_file, "w") as fp:
             fp.attrs["num_vectors"] = 0
             fp.attrs["ff_version"] = fastforward_tpu_torch.__version__
 
@@ -183,7 +167,7 @@ class OnDiskIndex(Index):
             )
 
     def _on_quantizer_set(self) -> None:
-        with _h5py().File(self._index_file, "a") as fp:
+        with h5file.File(self._index_file, "a") as fp:
             if "quantizer" in fp:
                 del fp["quantizer"]
             meta, attributes, data = self._quantizer.serialize()
@@ -196,11 +180,11 @@ class OnDiskIndex(Index):
                 group.create_dataset(key, data=value)
 
     def _get_num_vectors(self) -> int:
-        with _h5py().File(self._index_file, "r") as fp:
+        with h5file.File(self._index_file, "r") as fp:
             return int(fp.attrs["num_vectors"])
 
     def _get_internal_dim(self) -> int | None:
-        with _h5py().File(self._index_file, "r") as fp:
+        with h5file.File(self._index_file, "r") as fp:
             if "vectors" in fp:
                 return fp["vectors"].shape[1]
         return None
@@ -227,7 +211,7 @@ class OnDiskIndex(Index):
     def _add(
         self, vectors: np.ndarray, doc_ids: IDSequence, psg_ids: IDSequence
     ) -> None:
-        with _h5py().File(self._index_file, "a") as fp:
+        with h5file.File(self._index_file, "a") as fp:
             if "vectors" not in fp:
                 self._create_datasets(fp, vectors.shape[-1], vectors.dtype)
             # id lengths are bounded by the stored string width
@@ -264,7 +248,7 @@ class OnDiskIndex(Index):
         """Read rows by (sorted) HDF5 fancy indexing, in bounded batches."""
         order = np.argsort(rows, kind="stable")
         sorted_rows = rows[order]
-        with _h5py().File(self._index_file, "r") as fp:
+        with h5file.File(self._index_file, "r") as fp:
             ds = fp["vectors"]
             parts = [
                 ds[sorted_rows[i : i + self._max_indexing_size].tolist()]
@@ -282,19 +266,14 @@ class OnDiskIndex(Index):
             rows (the chunk width must equal the vector dimension).
         """
         if self._mmap_chunks is None:
-            with _h5py().File(self._index_file, "r") as fp:
+            with h5file.File(self._index_file, "r") as fp:
                 ds = fp["vectors"]
                 if ds.chunks is None or ds.chunks[1] != ds.shape[1]:
                     raise RuntimeError("This index does not support memory maps.")
                 self._mmap_chunks = [
-                    np.memmap(
-                        self._index_file,
-                        mode="r",
-                        shape=ds.chunks,
-                        offset=ds.id.get_chunk_info(i).byte_offset,
-                        dtype=ds.dtype,
-                    )
-                    for i in range(ds.id.get_num_chunks())
+                    np.memmap(self._index_file, mode="r", shape=ds.chunks, offset=offset,
+                              dtype=ds.dtype)
+                    for offset in ds.chunk_offsets()
                 ]
             LOGGER.debug("created %s chunk memory maps", len(self._mmap_chunks))
         return self._mmap_chunks
@@ -322,7 +301,7 @@ class OnDiskIndex(Index):
     def _batch_iter(
         self, batch_size: int
     ) -> Iterator[tuple[np.ndarray, IDSequence, IDSequence]]:
-        with _h5py().File(self._index_file, "r") as fp:
+        with h5file.File(self._index_file, "r") as fp:
             num_vectors = int(fp.attrs["num_vectors"])
             for i in range(0, num_vectors, batch_size):
                 j = min(i + batch_size, num_vectors)
@@ -354,7 +333,7 @@ class OnDiskIndex(Index):
                     return None
                 view = self._lazy_sharded_view(num)
                 if view is None:
-                    with _h5py().File(self._index_file, "r") as fp:
+                    with h5file.File(self._index_file, "r") as fp:
                         raw = fp["vectors"][:num]
                     if self._hbm_budget is not None:
                         view = hybrid_view(
@@ -385,7 +364,7 @@ class OnDiskIndex(Index):
         is_scalar = isinstance(self._quantizer, ScalarQuantizer)
         if self._quantizer is not None and not (is_pq or is_scalar):
             return None
-        with _h5py().File(self._index_file, "r") as fp:
+        with h5file.File(self._index_file, "r") as fp:
             width = fp["vectors"].shape[1]
             stored = fp["vectors"].dtype
         if not is_pq and width % 128:
@@ -403,7 +382,7 @@ class OnDiskIndex(Index):
             hi = min(stop, num)
             if hi <= start:
                 return np.zeros((0, width), dtype=dtype)
-            with _h5py().File(path, "r") as fp:
+            with h5file.File(path, "r") as fp:
                 return np.asarray(fp["vectors"][start:hi], dtype=dtype)
 
         table = put_row_sharded_lazy(mesh, shape, dtype, read_rows)
@@ -427,7 +406,7 @@ class OnDiskIndex(Index):
             score_transport=self._score_transport,
             device=self._device,
         )
-        with _h5py().File(self._index_file, "r") as fp:
+        with h5file.File(self._index_file, "r") as fp:
             num_vectors = int(fp.attrs["num_vectors"])
             step = batch_size or max(num_vectors, 1)
             for i in range(0, num_vectors, step):
@@ -479,11 +458,11 @@ class OnDiskIndex(Index):
         :param score_transport: ``"f32"`` or ``"u16"``.
         :param device: Torch device the index scores on (and a loaded PQ
             quantizer encodes on); ``None`` means ``"cuda"``.
-        :raises ImportError: When h5py is not installed.
+        :raises h5file.UnsupportedHDF5: When the file holds a structure outside
+            the part of HDF5 the codec reads.
         :raises RuntimeError: When the device is CUDA and none is available.
         :return: The index.
         """
-        h5py = _h5py()
         _check_options(precision, mesh_config, hbm_budget)
         index_file = Path(index_file)
         LOGGER.debug("reading file %s", index_file)
@@ -508,7 +487,7 @@ class OnDiskIndex(Index):
         index._view_lock = threading.Lock()
         index._mmap_chunks = None
 
-        with h5py.File(index_file, "r") as fp:
+        with h5file.File(index_file, "r") as fp:
             if "quantizer" in fp:
                 index._quantizer = Quantizer.deserialize(
                     dict(fp["quantizer/meta"].attrs),

@@ -5,8 +5,8 @@ Copied with the same data, assertions and tolerances: ``TestRaggedDocs``
 (5), ``TestMissingIdPassageMode`` (1), ``TestStreamedPath`` (1),
 ``TestStreamedKReduction`` (4), ``TestBf16Table`` (1),
 ``TestFlatVsGroupedParity`` (1), ``TestStreamedPQ`` (3),
-``TestDiskHbmCacheQuantized`` (1; needs h5py, which the card's machine
-lacks, so it skips there) and ``TestPrecisionTiers``'
+``TestDiskHbmCacheQuantized`` (1; the port's own HDF5 codec, so it runs
+on the card too) and ``TestPrecisionTiers``'
 ``test_index_precision_reaches_device_view`` and
 ``test_sharded_views_carry_precision`` (the latter as
 ``TestShardedPrecision``: its 8-shard mesh runs on 8 CPU slots only).
@@ -384,7 +384,6 @@ class TestDiskHbmCacheQuantized(unittest.TestCase):
     device = "cpu"
 
     def test_pq_and_scalar_hbm_cache(self):
-        pytest.importorskip("h5py")  # absent on the card's machine
         import shutil
         import tempfile
         from pathlib import Path

@@ -3,8 +3,9 @@
 ``ranking.interpolate(index(ranking), alpha).cut(cutoff)``.
 
 Copied with the same data, assertions and tolerances (``places=4``): 25
-of the 30 cases, on ``TestServe`` and (needing h5py, absent on the card's
-machine, where it skips) ``TestServeOnDisk::test_ondisk_hbm_cache_serve``.
+of the 30 cases, on ``TestServe`` and ``TestServeOnDisk::
+test_ondisk_hbm_cache_serve`` (the port's own HDF5 codec: it runs on the
+card too).
 ``test_refine_ignores_stale_query_upload`` injects its stale upload as
 the port's cached query block, ``plan["q_dev"]`` ``(Qb, dim)``, where the
 JAX package caches the transposed ``plan["q_t_dev"]``.
@@ -426,12 +427,12 @@ class TestServe(unittest.TestCase):
 
 
 class TestServeOnDisk(unittest.TestCase):
-    """``TestServe::test_ondisk_hbm_cache_serve``: it needs h5py."""
+    """``TestServe::test_ondisk_hbm_cache_serve`` on the port's
+    ``OnDiskIndex``."""
 
     device = "cpu"
 
     def test_ondisk_hbm_cache_serve(self):
-        pytest.importorskip("h5py")  # absent on the card's machine
         import tempfile
         from pathlib import Path
 

@@ -11,6 +11,7 @@ two packages compute from one file agree within
 """
 
 import itertools
+import json
 import shutil
 import subprocess
 import sys
@@ -779,27 +780,63 @@ def test_unported_options_and_no_card(tmp_path):
             OnDiskIndex.load(tmp_path / "c.h5")
 
 
-def test_without_h5py_the_module_imports_and_the_index_names_it(tmp_path):
-    """A fresh interpreter with h5py blocked imports the disk module;
-    building or loading an ``OnDiskIndex`` raises ``ImportError`` naming
-    h5py."""
+def test_without_h5py_the_index_writes_loads_and_ranks(tmp_path):
+    """A fresh interpreter with h5py blocked writes an ``OnDiskIndex`` (adds
+    in three steps across chunk growth), loads it, copies it to memory,
+    reads rows through the chunk memory maps and re-ranks, on the CPU; h5py
+    and the JAX package's ``OnDiskIndex.load`` then open the same file:
+    equal rows and ids, and the same ranking."""
+    vectors, doc_ids, psg_ids, queries, doc_run, _, qvecs = _rows()
+    data = tmp_path / "rows.npz"
+    np.savez(data, vectors=vectors, qvecs=np.stack(list(qvecs.values())))
+    (tmp_path / "ids.json").write_text(json.dumps(
+        {"doc_ids": doc_ids, "psg_ids": psg_ids, "queries": queries, "run": doc_run,
+         "texts": list(qvecs)}))
+    path, out_path = tmp_path / "index.h5", tmp_path / "ranking.json"
     code = f"""
-import sys
+import json, sys
 sys.modules["h5py"] = None
-import fastforward_tpu_torch.index.disk as disk
-from fastforward_tpu_torch.index import OnDiskIndex
-for call in (lambda: OnDiskIndex({str(tmp_path / 'x.h5')!r}, device="cpu"),
-             lambda: OnDiskIndex.load({str(tmp_path / 'x.h5')!r}, device="cpu")):
-    try:
-        call()
-    except ImportError as exc:
-        assert "h5py" in str(exc), exc
-    else:
-        raise AssertionError("no ImportError")
-print("ok")
+import numpy as np
+from fastforward_tpu_torch.encoder import LambdaEncoder
+from fastforward_tpu_torch.index import Mode, OnDiskIndex
+from fastforward_tpu_torch.ranking import Ranking
+arrays = np.load({str(data)!r})
+meta = json.loads(open({str(tmp_path / "ids.json")!r}).read())
+vectors, doc_ids, psg_ids = arrays["vectors"], meta["doc_ids"], meta["psg_ids"]
+qvecs = dict(zip(meta["texts"], arrays["qvecs"]))
+index = OnDiskIndex({str(path)!r}, init_size=64, chunk_size=64, device="cpu")
+for lo, hi in ((0, 50), (50, 130), (130, len(vectors))):
+    index.add(vectors[lo:hi], doc_ids=doc_ids[lo:hi], psg_ids=psg_ids[lo:hi])
+loaded = OnDiskIndex.load({str(path)!r}, LambdaEncoder(qvecs.__getitem__), mode=Mode.MAXP,
+                          device="cpu")
+mapped = OnDiskIndex.load({str(path)!r}, mode=Mode.PASSAGE, memory_mapped=True, device="cpu")
+assert len(loaded) == len(vectors) and loaded.doc_ids == set(doc_ids)
+rows = np.random.default_rng(0).permutation(len(vectors))[:64]
+got, ids = mapped._get_vectors([psg_ids[r] for r in rows])
+assert np.array_equal(got, vectors[rows]) and ids == [psg_ids[r] for r in rows]
+memory = loaded.to_memory(batch_size=100)
+assert np.array_equal(np.concatenate([v for v, _, _ in memory._batch_iter(1000)]), vectors)
+ranking = Ranking.from_run(meta["run"], queries=meta["queries"])
+result = loaded(ranking)
+assert result == memory(ranking)
+out = [[str(q), str(i), float(s)] for q, i, s in result._df[["q_id", "id", "score"]].itertuples(index=False)]
+open({str(out_path)!r}, "w").write(json.dumps(out))
+print("h5py imported" if sys.modules.get("h5py") is not None else "ok")
 """
     out = subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120
     )
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip().endswith("ok")
+    assert out.stdout.strip().endswith("ok"), out.stdout
+
+    import h5py
+
+    with h5py.File(path, "r") as fp:
+        assert int(fp.attrs["num_vectors"]) == N_ROWS
+        np.testing.assert_array_equal(fp["vectors"][:N_ROWS], vectors)
+        assert fp["doc_ids"].asstr()[:N_ROWS].tolist() == doc_ids
+        assert fp["psg_ids"].asstr()[:N_ROWS].tolist() == psg_ids
+    jax_index = JaxOnDiskIndex.load(path, JaxLambdaEncoder(qvecs.__getitem__), mode=JaxMode.MAXP)
+    want = jax_index(JaxRanking.from_run(doc_run, queries=queries))
+    got = Ranking(pd.DataFrame(json.loads(out_path.read_text()), columns=["q_id", "id", "score"]))
+    _assert_rankings_close(got, want)

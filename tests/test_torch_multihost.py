@@ -5,7 +5,7 @@ subprocesses, each with four CPU slots, join one ``torch.distributed`` job
 (``parallel.multihost.initialize(backend="gloo")``), so the global mesh is
 ``(data=2, shard=4)`` with the shard axis across the processes.  Each builds
 the same sharded ``InMemoryIndex`` (dense, MAXP documents, int8, PQ; the
-int8 one narrowed to its shards' host rows) and, where h5py is installed,
+int8 one narrowed to its shards' host rows) and
 ``OnDiskIndex(hbm_cache=True, mesh_config=...)`` tables read per shard from
 the file; re-ranks, serves and early-stops through the public API, checks
 its scores against numpy inside the worker, and prints a digest; the launcher requires both to
@@ -194,46 +194,41 @@ def _worker(rank: int, port: str) -> None:
 
     # OnDiskIndex(hbm_cache=True, mesh_config=...): each process reads only
     # its shards' rows from the file (dense, int8 and PQ tables)
-    try:
-        import h5py  # noqa: F401
-    except ImportError:
-        h5py = None
-    if h5py is not None:
-        import tempfile
-        from pathlib import Path
+    import tempfile
+    from pathlib import Path
 
-        from fastforward_tpu_torch.index import OnDiskIndex
+    from fastforward_tpu_torch.index import OnDiskIndex
 
-        h5dir = Path(tempfile.mkdtemp())
-        reads = []
-        real_lazy = multihost.put_row_sharded_lazy
+    h5dir = Path(tempfile.mkdtemp())
+    reads = []
+    real_lazy = multihost.put_row_sharded_lazy
 
-        def recording_lazy(mesh_, shape, dtype, read_rows):
-            def recorded(a, b):
-                reads.append((a, b))
-                return read_rows(a, b)
+    def recording_lazy(mesh_, shape, dtype, read_rows):
+        def recorded(a, b):
+            reads.append((a, b))
+            return read_rows(a, b)
 
-            return real_lazy(mesh_, shape, dtype, recorded)
+        return real_lazy(mesh_, shape, dtype, recorded)
 
-        for tag, quantizer, tol in (("dense", None, 1e-3), ("int8", sq, 0.05), ("pq", pq, 0.05)):
-            path = h5dir / f"mh_{tag}_{rank}.h5"
-            writer = OnDiskIndex(path, enc, quantizer=quantizer, mode=Mode.PASSAGE, device="cpu")
-            writer.add(corpus, psg_ids=[f"p{i}" for i in range(n)])
-            loaded = OnDiskIndex.load(path, enc, mode=Mode.PASSAGE, hbm_cache=True, mesh_config=cfg,
-                                      device="cpu")
-            reads.clear()
-            multihost.put_row_sharded_lazy = recording_lazy
-            try:
-                view = loaded._device_view()
-            finally:
-                multihost.put_row_sharded_lazy = real_lazy
-            assert reads and sum(b - a for a, b in reads) <= n // 2, (tag, reads)
-            assert view.mesh is not None and view.table.local_shards() == ([0, 1] if rank == 0 else [2, 3])
-            out = loaded(ranking)["q1"]
-            rows_ref = corpus if quantizer is None else quantizer.decode(quantizer.encode(corpus))
-            for pid in list(out)[:8]:
-                assert abs(float(rows_ref[int(pid[1:])] @ qvecs["a"]) - out[pid]) < tol, (tag, pid)
-            digests.append(sum(sorted(out.values())[:50]))
+    for tag, quantizer, tol in (("dense", None, 1e-3), ("int8", sq, 0.05), ("pq", pq, 0.05)):
+        path = h5dir / f"mh_{tag}_{rank}.h5"
+        writer = OnDiskIndex(path, enc, quantizer=quantizer, mode=Mode.PASSAGE, device="cpu")
+        writer.add(corpus, psg_ids=[f"p{i}" for i in range(n)])
+        loaded = OnDiskIndex.load(path, enc, mode=Mode.PASSAGE, hbm_cache=True, mesh_config=cfg,
+                                  device="cpu")
+        reads.clear()
+        multihost.put_row_sharded_lazy = recording_lazy
+        try:
+            view = loaded._device_view()
+        finally:
+            multihost.put_row_sharded_lazy = real_lazy
+        assert reads and sum(b - a for a, b in reads) <= n // 2, (tag, reads)
+        assert view.mesh is not None and view.table.local_shards() == ([0, 1] if rank == 0 else [2, 3])
+        out = loaded(ranking)["q1"]
+        rows_ref = corpus if quantizer is None else quantizer.decode(quantizer.encode(corpus))
+        for pid in list(out)[:8]:
+            assert abs(float(rows_ref[int(pid[1:])] @ qvecs["a"]) - out[pid]) < tol, (tag, pid)
+        digests.append(sum(sorted(out.values())[:50]))
 
     # early stopping and the fused serve across processes
     es = dict(early_stopping=8, early_stopping_alpha=0.4, early_stopping_depths=(64, 512, 2048))
