@@ -26,6 +26,7 @@ import torch
 from fastforward_tpu_torch.device import resolve_device
 from fastforward_tpu_torch.encoder.base import Encoder
 from fastforward_tpu_torch.models import bert
+from fastforward_tpu_torch.utils.tracing import annotate
 
 _POOLING = {
     "cls": bert.pool_cls,
@@ -103,13 +104,13 @@ class TransformerEncoder(Encoder):
     def _encode(self, texts: Sequence[str]) -> np.ndarray:
         call_args = dict(self._tokenizer_call_args)
         call_args.setdefault("padding", True)
-        with self._tokenizer_lock:
+        with annotate("ff.tokenize"), self._tokenizer_lock:
             tokenized = self._tokenizer(
                 self._get_tokenizer_inputs(texts), return_tensors="np", **call_args
             )
-        ids = torch.from_numpy(tokenized["input_ids"]).to(self._device)
-        mask = torch.from_numpy(tokenized["attention_mask"]).to(self._device)
-        with torch.inference_mode():
+        with annotate("ff.tower"), torch.inference_mode():
+            ids = torch.from_numpy(tokenized["input_ids"]).to(self._device)
+            mask = torch.from_numpy(tokenized["attention_mask"]).to(self._device)
             hidden = self._tower(ids, mask)
             pooled = _POOLING[self._pooling](hidden, mask)
             if self._normalize:

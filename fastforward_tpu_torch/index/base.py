@@ -480,10 +480,11 @@ def _numbered_frame(ranking: Ranking) -> "tuple[pd.DataFrame, list, pd.Index]":
     """A copy of the ranking's frame with dense query numbers ``q_no``
     (``pd.factorize`` numbers queries by first appearance), the query
     strings in that order and the unique ``q_id`` values."""
-    df = ranking._df.copy()
-    q_codes, q_uniques = pd.factorize(df["q_id"], sort=False)
-    df["q_no"] = q_codes
-    queries = df.loc[~df["q_id"].duplicated(), "query"].tolist()
+    with annotate("ff.frame"):
+        df = ranking._df.copy()
+        q_codes, q_uniques = pd.factorize(df["q_id"], sort=False)
+        df["q_no"] = q_codes
+        queries = df.loc[~df["q_id"].duplicated(), "query"].tolist()
     return df, queries, q_uniques
 
 
@@ -1365,21 +1366,22 @@ class Index(abc.ABC):
 
         :raises IndexError: When an ID is missing from the index.
         """
-        view = self._device_view()
-        if view is not None and self.mode in (Mode.PASSAGE, Mode.FIRSTP):
-            # exactly one row per pair: resolve the whole id column directly
-            # (zero-copy from the arrow buffers)
-            rows, _ = self._ids.resolve(df["id"], self.mode)
-            return view, rows[:, None], np.ones(len(df), dtype=np.int32), 1
-        pair_id_pos, ids_unique = pd.factorize(df["id"], sort=False)
-        view, rows_concat, counts = self._gather_view(ids_unique)
-        k_max = int(counts.max()) if counts.size else 1
-        if k_max > self._MAX_GROUP_K:
-            return None
-        k = max(1, 1 << (k_max - 1).bit_length())
-        rows_mat, counts_pp = expand_pairs_grouped(
-            pair_id_pos.astype(np.int64), rows_concat, counts, k
-        )
+        with annotate("ff.resolve"):
+            view = self._device_view()
+            if view is not None and self.mode in (Mode.PASSAGE, Mode.FIRSTP):
+                # exactly one row per pair: resolve the whole id column
+                # directly (zero-copy from the arrow buffers)
+                rows, _ = self._ids.resolve(df["id"], self.mode)
+                return view, rows[:, None], np.ones(len(df), dtype=np.int32), 1
+            pair_id_pos, ids_unique = pd.factorize(df["id"], sort=False)
+            view, rows_concat, counts = self._gather_view(ids_unique)
+            k_max = int(counts.max()) if counts.size else 1
+            if k_max > self._MAX_GROUP_K:
+                return None
+            k = max(1, 1 << (k_max - 1).bit_length())
+            rows_mat, counts_pp = expand_pairs_grouped(
+                pair_id_pos.astype(np.int64), rows_concat, counts, k
+            )
         return view, rows_mat, counts_pp, k
 
     def _compute_scores(self, data: pd.DataFrame, query_vectors: np.ndarray) -> np.ndarray:
@@ -1393,11 +1395,18 @@ class Index(abc.ABC):
         prep = self._candidate_arrays(data)
         if prep is not None:
             view, rows_mat, counts_pp, k = prep
-            return self._device_score_grouped(view, query_vectors, rows_mat, pair_qno, counts_pp, k)
-        pair_id_pos, ids_unique = pd.factorize(data["id"], sort=False)
-        view, rows_concat, counts = self._gather_view(ids_unique)
-        rows, qno, seg = expand_pairs(pair_id_pos.astype(np.int64), pair_qno, rows_concat, counts)
-        return self._device_score_flat(view, query_vectors, rows, qno, seg, len(data))
+            with annotate("ff.score"):
+                return self._device_score_grouped(
+                    view, query_vectors, rows_mat, pair_qno, counts_pp, k
+                )
+        with annotate("ff.resolve"):
+            pair_id_pos, ids_unique = pd.factorize(data["id"], sort=False)
+            view, rows_concat, counts = self._gather_view(ids_unique)
+            rows, qno, seg = expand_pairs(
+                pair_id_pos.astype(np.int64), pair_qno, rows_concat, counts
+            )
+        with annotate("ff.score"):
+            return self._device_score_flat(view, query_vectors, rows, qno, seg, len(data))
 
     def _score_and_sort(
         self,
@@ -1501,37 +1510,38 @@ class Index(abc.ABC):
             segments = plan["segments"]
             qid_arr, id_arr, query_arr = plan["out_arrays"]
         else:
-            n_q = len(q_uniques)
-            q_rank = _query_ranks(q_uniques)
-            if plan is not None:
-                # categorical columns: reordering is then a take on int
-                # codes instead of on string arrays; the dictionary build
-                # amortizes over the plan
-                qid_arr = pd.Categorical(df["q_id"])
-                id_arr = pd.Categorical(df["id"])
-                query_arr = pd.Categorical(df["query"])
-            else:
-                qid_arr = df["q_id"].array
-                id_arr = df["id"].array
-                query_arr = df["query"].array
-            # the high 32 key bits depend only on the candidate layout
-            qkey = q_rank[pair_qno] << np.uint64(32)
-            # per-query segment bounds: the input frame is (q_id, score)-
-            # sorted so each query's rows are contiguous; the output block
-            # of query rank r starts where the ranks before it end
-            segments = None
-            if n_pairs == 0 or (np.diff(pair_qno) >= 0).all():
-                seg_starts = np.searchsorted(pair_qno, np.arange(n_q + 1)).astype(
-                    np.int64
-                )
-                lengths = np.diff(seg_starts)
-                by_rank = np.empty(n_q, dtype=np.int64)
-                by_rank[q_rank.astype(np.int64)] = np.arange(n_q)
-                cum = np.zeros(n_q + 1, dtype=np.int64)
-                np.cumsum(lengths[by_rank], out=cum[1:])
-                out_starts = np.empty(n_q, dtype=np.int64)
-                out_starts[by_rank] = cum[:-1]
-                segments = (seg_starts, out_starts)
+            with annotate("ff.columns"):
+                n_q = len(q_uniques)
+                q_rank = _query_ranks(q_uniques)
+                if plan is not None:
+                    # categorical columns: reordering is then a take on int
+                    # codes instead of on string arrays; the dictionary build
+                    # amortizes over the plan
+                    qid_arr = pd.Categorical(df["q_id"])
+                    id_arr = pd.Categorical(df["id"])
+                    query_arr = pd.Categorical(df["query"])
+                else:
+                    qid_arr = df["q_id"].array
+                    id_arr = df["id"].array
+                    query_arr = df["query"].array
+                # the high 32 key bits depend only on the candidate layout
+                qkey = q_rank[pair_qno] << np.uint64(32)
+                # per-query segment bounds: the input frame is (q_id, score)-
+                # sorted so each query's rows are contiguous; the output block
+                # of query rank r starts where the ranks before it end
+                segments = None
+                if n_pairs == 0 or (np.diff(pair_qno) >= 0).all():
+                    seg_starts = np.searchsorted(pair_qno, np.arange(n_q + 1)).astype(
+                        np.int64
+                    )
+                    lengths = np.diff(seg_starts)
+                    by_rank = np.empty(n_q, dtype=np.int64)
+                    by_rank[q_rank.astype(np.int64)] = np.arange(n_q)
+                    cum = np.zeros(n_q + 1, dtype=np.int64)
+                    np.cumsum(lengths[by_rank], out=cum[1:])
+                    out_starts = np.empty(n_q, dtype=np.int64)
+                    out_starts[by_rank] = cum[:-1]
+                    segments = (seg_starts, out_starts)
         scores_np = take = None
         materialized = False
         cats = (qid_arr, id_arr, query_arr)
@@ -1579,28 +1589,28 @@ class Index(abc.ABC):
                         "query": query_arr.take(take),
                     }
                 )
-        if plan is not None and not plan.get("ready"):
-            plan.update(
-                n_pairs=n_pairs,
-                pair_qno=pair_qno,
-                rows_mat=rows_mat,
-                counts_pp=counts_pp,
-                k=k,
-                q_rank=q_rank,
-                qkey=qkey,
-                segments=segments,
-                out_arrays=(qid_arr, id_arr, query_arr),
-                cand_ready=True,
-                ready=True,
-            )
-        q_ids = None
-        if plan is not None:
-            q_ids = plan.get("q_ids_set")
-            if q_ids is None:
-                q_ids = set(np.asarray(q_uniques, dtype=object))
-                plan["q_ids_set"] = q_ids
-            q_ids = q_ids.copy()  # rankings must not share the mutable set
-        return Ranking._from_trusted_frame(out, "fast-forward", q_ids=q_ids)
+            if plan is not None and not plan.get("ready"):
+                plan.update(
+                    n_pairs=n_pairs,
+                    pair_qno=pair_qno,
+                    rows_mat=rows_mat,
+                    counts_pp=counts_pp,
+                    k=k,
+                    q_rank=q_rank,
+                    qkey=qkey,
+                    segments=segments,
+                    out_arrays=(qid_arr, id_arr, query_arr),
+                    cand_ready=True,
+                    ready=True,
+                )
+            q_ids = None
+            if plan is not None:
+                q_ids = plan.get("q_ids_set")
+                if q_ids is None:
+                    q_ids = set(np.asarray(q_uniques, dtype=object))
+                    plan["q_ids_set"] = q_ids
+                q_ids = q_ids.copy()  # rankings must not share the mutable set
+            return Ranking._from_trusted_frame(out, "fast-forward", q_ids=q_ids)
 
     def _early_stopping(
         self,
@@ -1843,9 +1853,7 @@ class Index(abc.ABC):
             early_stopping_alpha is None or early_stopping_depths is None
         ):
             raise ValueError("Early stopping requires alpha and depths.")
-        from fastforward_tpu_torch.utils.tracing import maybe_trace
-
-        with maybe_trace():
+        with annotate("ff.call"):
             return self._call(
                 ranking, early_stopping, early_stopping_alpha, early_stopping_depths, batch_size
             )
@@ -1925,20 +1933,22 @@ class Index(abc.ABC):
                     for start in range(0, len(queries), batch_size)
                 ]
             )
-        result["score"] = result["ff_score"]
-
-        # order rows by (q_id desc, score desc) with an integer lexsort over
-        # query codes instead of a string sort
-        order = np.lexsort(
-            (
-                -result["score"].to_numpy(dtype=np.float64),
-                _query_ranks(q_uniques)[result["q_no"].to_numpy()],
+        with annotate("ff.assemble"):
+            result["score"] = result["ff_score"]
+            # order rows by (q_id desc, score desc) with an integer lexsort
+            # over query codes instead of a string sort
+            order = np.lexsort(
+                (
+                    -result["score"].to_numpy(dtype=np.float64),
+                    _query_ranks(q_uniques)[result["q_no"].to_numpy()],
+                )
             )
-        )
+            out = Ranking(
+                result.iloc[order], name="fast-forward", dtype=score_dtype, copy=False,
+                is_sorted=True,
+            )
         LOGGER.info("computed scores in %s seconds", perf_counter() - t0)
-        return Ranking(
-            result.iloc[order], name="fast-forward", dtype=score_dtype, copy=False, is_sorted=True
-        )
+        return out
 
     def submit(self, ranking: Ranking) -> ScoreFuture:
         """Launch scoring for a ranking and return a future (pipelined

@@ -1,42 +1,49 @@
-"""Profiling hooks around the scoring hot path.
+"""Named ranges around the phases of a call.
 
-Set ``FFTPU_TRACE_DIR=/path`` to capture a ``torch.profiler`` trace (host
-and CUDA activity) of every ``Index.__call__``; each call writes one Chrome
-trace file into that directory (viewable with Perfetto).  :func:`annotate`
-names the host phases of a call (``ff.*`` ranges) in any such trace.
+:func:`annotate` opens a ``torch.profiler.record_function`` range: it costs
+a few microseconds when no profiler runs, and under ``torch.profiler``
+(host and CUDA activity) it names the host phase and, beside it on the
+card, the device work launched inside it.  The ranges of the port:
+
+Re-rank (``Index.__call__``)
+
+- ``ff.call``: the whole call;
+- ``ff.frame``: ``_numbered_frame``: the frame's copy, the query factorize
+  and the query list;
+- ``ff.encode``: ``encode_queries``, every micro-batch of the encoder;
+- ``ff.tokenize``: one micro-batch's tokenization on the host
+  (``TransformerEncoder``);
+- ``ff.tower``: one micro-batch on the tower's device, from the token
+  upload through the pooled vectors' fetch (``TransformerEncoder``);
+- ``ff.resolve``: string ids to table rows (``_candidate_arrays``, the
+  flat path's factorize, ``_gather_view`` and ``expand_pairs``), with an
+  ``OnDiskIndex``'s host read and upload where no table is on the card;
+- ``ff.score``: the scoring's device work (grouped and flat);
+- ``ff.layout``: the streamed layout's build on the host;
+- ``ff.columns``: a new plan's result columns, query ranks, sort keys and
+  per-query segments;
+- ``ff.fetch_sort``: the score copy overlapped with the per-query sort;
+- ``ff.assemble``: the result frame, the plan's update and the ranking.
+
+Early stopping, serving and the tier beyond device memory
+
+- ``ff.es_score``: one depth round's scoring under early stopping;
+- ``ff.prep``: a server request's candidates (``_serve_prep``);
+- ``ff.serve_tail``: a serve call's top-k tail on the device;
+- ``ff.fetch``: a serve call's result copy, and the hybrid tier's score
+  copy;
+- ``ff.tail_gather``, ``ff.tail_copy``: a tail block gathered into pinned
+  memory, and its copy to the card;
+- ``ff.hybrid_resident``, ``ff.hybrid_tail``: the resident prefix's and
+  the tail's scoring.
+
+No range opens inside a range of its own name, so the time of a name is the
+sum of its ranges.
 """
-
-import os
-import time
-from contextlib import contextmanager, nullcontext
-from pathlib import Path
-
-
-@contextmanager
-def _torch_trace(trace_dir: str):
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities) as prof:
-        yield
-    Path(trace_dir).mkdir(parents=True, exist_ok=True)
-    name = f"ff_call_{os.getpid()}_{time.time_ns()}.json"
-    prof.export_chrome_trace(str(Path(trace_dir) / name))
-
-
-def maybe_trace():
-    """Context manager: a torch profiler trace when ``FFTPU_TRACE_DIR`` is set."""
-    trace_dir = os.environ.get("FFTPU_TRACE_DIR")
-    if trace_dir:
-        return _torch_trace(trace_dir)
-    return nullcontext()
 
 
 def annotate(name: str):
-    """Named range for a host-side phase (``torch.profiler.record_function``;
+    """Named range for a phase of a call (``torch.profiler.record_function``;
     a few microseconds when no profiler is running)."""
     import torch
 
