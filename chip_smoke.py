@@ -2632,7 +2632,7 @@ def sharded_phase(index, pq_index, ranking, doc_rank, sparse, corpus, corpus_dev
     index.mode = Mode.PASSAGE
     # the sparse run: the gather path on each shard's rows, no kernel
     sp = index._candidate_arrays(sparse._df)
-    _, sp_rows, sp_counts, sp_k = sp
+    _, sp_rows, sp_counts, sp_k, _ = sp
     sp_qno = sparse._df["q_id"].map(lambda q: int(q[1:])).to_numpy(dtype=np.int64)
     q_sp = np.zeros((scoring.bucket(QUERIES), DIM), dtype=np.float32)
     q_sp[:QUERIES] = qvecs_dev.cpu().numpy()

@@ -280,16 +280,125 @@ def _synchronize(view: DeviceView) -> None:
             torch.cuda.synchronize(dev)
 
 
-def _cat_from_codes(codes: np.ndarray, like: "pd.Categorical") -> "pd.Categorical":
-    """Wrap already-gathered codes in ``like``'s categorical dtype.
+def _cat_from_codes(codes: np.ndarray, dtype: "pd.CategoricalDtype") -> "pd.Categorical":
+    """Wrap codes that are valid by construction in a categorical dtype.
 
-    ``validate=False`` skips the O(n) code-range scan — the codes are takes
-    of ``like.codes`` so they are valid by construction.
+    ``validate=False`` skips the O(n) code-range scan.
     """
     try:
-        return pd.Categorical.from_codes(codes, dtype=like.dtype, validate=False)
+        return pd.Categorical.from_codes(codes, dtype=dtype, validate=False)
     except TypeError:  # pragma: no cover - pandas < 2.1
-        return pd.Categorical.from_codes(codes, dtype=like.dtype)
+        return pd.Categorical.from_codes(codes, dtype=dtype)
+
+
+#: a fresh plan's result-column builds by the route that numbered the ``id``
+#: column: ``rows`` (each pair's table row, numbered natively), ``factorize``
+#: (the grouped modes' factorize from ``ff.resolve``, reused), and
+#: ``fallback`` (``pd.Categorical`` of the column: no numbering, no native
+#: library, or an ``id`` column that is categorical already); reset with
+#: :func:`reset_column_stats`
+COLUMN_STATS = {"rows": 0, "factorize": 0, "fallback": 0}
+_COLUMN_STATS_LOCK = threading.Lock()
+
+
+def reset_column_stats() -> None:
+    """Zero the result-column route counters."""
+    with _COLUMN_STATS_LOCK:
+        COLUMN_STATS.update(rows=0, factorize=0, fallback=0)
+
+
+def _count_columns(route: str) -> None:
+    with _COLUMN_STATS_LOCK:
+        COLUMN_STATS[route] += 1
+
+
+def _per_query_categorical(col: pd.Series, heads: np.ndarray, q_no: np.ndarray) -> "pd.Categorical":
+    """``pd.Categorical(col)`` for a column constant on each query's rows:
+    the categories of the queries' own values (``heads`` holds each query
+    number's first row), sorted as ``pd.Categorical`` sorts them, and the
+    codes mapped through the query numbers."""
+    per_query = pd.Categorical(col.array.take(heads))
+    return _cat_from_codes(per_query.codes[q_no], per_query.dtype)
+
+
+def _sorted_id_categorical(
+    id_col: pd.Series, numbering, ranks: np.ndarray
+) -> "tuple[str, pd.Categorical] | None":
+    """``pd.Categorical(id_col)`` from ``ff.resolve``'s numbering, with no
+    string hashed or compared: the route and the column, or ``None`` where
+    the native library is missing.
+
+    ``numbering`` is each pair's table row, or the ids' factorize with a
+    table row of each distinct id; the native numbering of those rows by
+    ``ranks`` (the ids' byte order, :meth:`NativeIdMap.ranks`) gives
+    ``pd.Categorical``'s codes, and the strings at each code's first
+    position its sorted categories.
+    """
+    from fastforward_tpu_torch.runtime.idmap import number_rows, take_strings
+
+    if isinstance(numbering, np.ndarray):
+        route, rows = "rows", numbering
+    else:
+        route, (pair_codes, uniques, rows) = "factorize", numbering
+    numbered = number_rows(rows, ranks)
+    if numbered is None:
+        return None
+    codes, first = numbered
+    if route == "rows":
+        gathered = take_strings(id_col, first)
+        if gathered is None:
+            categories = id_col.array.take(first)
+        else:
+            categories = pd.array(gathered, dtype=id_col.dtype)
+    else:
+        # each unique has its own row: the uniques' codes place them
+        categories = uniques.take(first)
+        codes = codes[pair_codes]
+    # unique by construction: no second hash to check it
+    dtype = pd.CategoricalDtype._from_fastpath(pd.Index(categories), ordered=False)
+    return route, _cat_from_codes(codes, dtype)
+
+
+def _result_columns(
+    df: pd.DataFrame, numbering=None, ranks: "np.ndarray | None" = None
+) -> "tuple[pd.Categorical, pd.Categorical, pd.Categorical]":
+    """A new plan's ``q_id``, ``id`` and ``query`` columns: the categoricals
+    of ``pd.Categorical``, wrapped around the numbering the call already has
+    instead of hashing and sorting the strings again.
+
+    ``q_id`` and ``query`` take their codes from the frame's query numbers
+    (``q_no``) through a table of one entry a query; a ``query`` column that
+    is not constant on each query's rows, and a frame whose queries are not
+    contiguous runs in first-appearance order, take ``pd.Categorical``
+    itself.  ``id`` is numbered from ``ff.resolve``'s table rows
+    (``numbering``, see :func:`_sorted_id_categorical`) and sorted by the
+    id map's ``ranks``; without them, or for an ``id`` column that is
+    categorical already, it is ``pd.Categorical`` of the column.
+    :data:`COLUMN_STATS` counts the route.
+    """
+    q_no = df["q_no"].to_numpy()
+    q_head = np.diff(q_no, prepend=-1) != 0  # the first row of each query run
+    heads = np.flatnonzero(q_head)
+    if np.array_equal(q_no[heads], np.arange(heads.shape[0])):
+        qid_arr = _per_query_categorical(df["q_id"], heads, q_no)
+        if (_run_heads(df["query"]) & ~q_head).any():  # the text changes inside a query
+            query_arr = pd.Categorical(df["query"])
+        else:
+            query_arr = _per_query_categorical(df["query"], heads, q_no)
+    else:
+        qid_arr = pd.Categorical(df["q_id"])
+        query_arr = pd.Categorical(df["query"])
+
+    built = None
+    if (
+        numbering is not None
+        and ranks is not None
+        and not isinstance(df["id"].dtype, pd.CategoricalDtype)
+    ):
+        built = _sorted_id_categorical(df["id"], numbering, ranks)
+    route, id_arr = built or ("fallback", pd.Categorical(df["id"]))
+    _count_columns(route)
+    return qid_arr, id_arr, query_arr
 
 
 class _PackedScores(NamedTuple):
@@ -1356,23 +1465,32 @@ class Index(abc.ABC):
         view = DeviceView("dense", table, precision=getattr(self, "_precision", "exact"))
         return view, rows, counts.astype(np.int32)
 
+    def _id_ranks(self, numbering) -> "np.ndarray | None":
+        """The id map's ranks of the ids this index's mode resolves, where a
+        call has a ``numbering`` to order by them (:func:`_result_columns`)."""
+        return None if numbering is None else self._ids.ranks(self.mode)
+
     def _candidate_arrays(
         self, df: pd.DataFrame
-    ) -> "tuple[DeviceView, np.ndarray, np.ndarray, int] | None":
+    ) -> "tuple[DeviceView, np.ndarray, np.ndarray, int, object] | None":
         """Resolve every row of ``df`` to the grouped candidate arrays
-        ``(view, rows_mat, counts_pp, k)`` — the ``(pairs, K)`` layout of
-        :meth:`_device_score_grouped`, K a power of two — or ``None`` when a
-        document has more than ``_MAX_GROUP_K`` passages.
+        ``(view, rows_mat, counts_pp, k, numbering)`` — the ``(pairs, K)``
+        layout of :meth:`_device_score_grouped`, K a power of two, and how
+        the ids map to table rows, for a new plan's ``id`` column
+        (:func:`_sorted_id_categorical`): each pair's one row, or the ids'
+        factorize ``(codes, uniques, a row of each unique)``; ``None``
+        without a device table — or ``None`` when a document has more than
+        ``_MAX_GROUP_K`` passages.
 
         :raises IndexError: When an ID is missing from the index.
         """
         with annotate("ff.resolve"):
-            view = self._device_view()
-            if view is not None and self.mode in (Mode.PASSAGE, Mode.FIRSTP):
+            table = self._device_view()
+            if table is not None and self.mode in (Mode.PASSAGE, Mode.FIRSTP):
                 # exactly one row per pair: resolve the whole id column
                 # directly (zero-copy from the arrow buffers)
                 rows, _ = self._ids.resolve(df["id"], self.mode)
-                return view, rows[:, None], np.ones(len(df), dtype=np.int32), 1
+                return table, rows[:, None], np.ones(len(df), dtype=np.int32), 1, rows
             pair_id_pos, ids_unique = pd.factorize(df["id"], sort=False)
             view, rows_concat, counts = self._gather_view(ids_unique)
             k_max = int(counts.max()) if counts.size else 1
@@ -1382,7 +1500,10 @@ class Index(abc.ABC):
             rows_mat, counts_pp = expand_pairs_grouped(
                 pair_id_pos.astype(np.int64), rows_concat, counts, k
             )
-        return view, rows_mat, counts_pp, k
+        numbering = None
+        if table is not None:  # the host gather's rows index a table of its own
+            numbering = (pair_id_pos, ids_unique, rows_concat[np.cumsum(counts) - counts])
+        return view, rows_mat, counts_pp, k, numbering
 
     def _compute_scores(self, data: pd.DataFrame, query_vectors: np.ndarray) -> np.ndarray:
         """Semantic scores for the (query, ID) pairs of ``data`` (columns
@@ -1394,7 +1515,7 @@ class Index(abc.ABC):
         pair_qno = data["q_no"].to_numpy(dtype=np.int64)
         prep = self._candidate_arrays(data)
         if prep is not None:
-            view, rows_mat, counts_pp, k = prep
+            view, rows_mat, counts_pp, k, _ = prep
             with annotate("ff.score"):
                 return self._device_score_grouped(
                     view, query_vectors, rows_mat, pair_qno, counts_pp, k
@@ -1446,13 +1567,14 @@ class Index(abc.ABC):
             counts_pp = plan["counts_pp"]
             k = plan["k"]
             view = self._device_view()
+            numbering = plan.get("id_numbering")
         else:
             n_pairs = len(df)
             pair_qno = df["q_no"].to_numpy(dtype=np.int64)
             prep = self._candidate_arrays(df)
             if prep is None:
                 return None
-            view, rows_mat, counts_pp, k = prep
+            view, rows_mat, counts_pp, k, numbering = prep
         with annotate("ff.score"):
             scores_dev = self._device_score_grouped(
                 view,
@@ -1483,6 +1605,7 @@ class Index(abc.ABC):
                 rows_mat,
                 counts_pp,
                 k,
+                numbering,
             )
 
         if defer:
@@ -1501,8 +1624,14 @@ class Index(abc.ABC):
         rows_mat: np.ndarray,
         counts_pp: np.ndarray,
         k: int,
+        numbering=None,
     ) -> Ranking:
-        """Fetch + order + assemble the result of a launched fast path."""
+        """Fetch + order + assemble the result of a launched fast path.
+
+        ``numbering``: how the candidates' resolution mapped the ids to
+        table rows (:meth:`_candidate_arrays`), which a new plan's ``id``
+        column is built from (:func:`_result_columns`).
+        """
         # result order: q_id desc (via per-query rank), then score desc
         if plan is not None and plan.get("ready"):
             q_rank = plan["q_rank"]
@@ -1515,11 +1644,11 @@ class Index(abc.ABC):
                 q_rank = _query_ranks(q_uniques)
                 if plan is not None:
                     # categorical columns: reordering is then a take on int
-                    # codes instead of on string arrays; the dictionary build
-                    # amortizes over the plan
-                    qid_arr = pd.Categorical(df["q_id"])
-                    id_arr = pd.Categorical(df["id"])
-                    query_arr = pd.Categorical(df["query"])
+                    # codes instead of on string arrays; they wrap the
+                    # numbering the call already has, and the plan keeps them
+                    qid_arr, id_arr, query_arr = _result_columns(
+                        df, numbering, self._id_ranks(numbering)
+                    )
                 else:
                     qid_arr = df["q_id"].array
                     id_arr = df["id"].array
@@ -1574,10 +1703,10 @@ class Index(abc.ABC):
                 score_col, qid_col, id_col, query_col = dst_cols
                 out = pd.DataFrame(
                     {
-                        "q_id": _cat_from_codes(qid_col, qid_arr),
-                        "id": _cat_from_codes(id_col, id_arr),
+                        "q_id": _cat_from_codes(qid_col, qid_arr.dtype),
+                        "id": _cat_from_codes(id_col, id_arr.dtype),
                         "score": score_col.astype(score_dtype, copy=False),
-                        "query": _cat_from_codes(query_col, query_arr),
+                        "query": _cat_from_codes(query_col, query_arr.dtype),
                     }
                 )
             else:
@@ -1735,7 +1864,7 @@ class Index(abc.ABC):
                             1,
                         )
                     elif prep is not None:
-                        view, rows_mat, counts_pp, k = prep
+                        view, rows_mat, counts_pp, k, _ = prep
                         scored = self._device_score_grouped(
                             view, query_vectors, rows_mat[need], q_no[need], counts_pp[need], k
                         )
@@ -1793,9 +1922,16 @@ class Index(abc.ABC):
             # per-row high key bits (query rank): candidate layout only
             qhi = _query_ranks(q_uniques)[df["q_no"].to_numpy()] << np.uint64(32)
             if plan is not None and plan.get("es_hot"):
-                qid_arr = pd.Categorical(df["q_id"])
-                id_arr = pd.Categorical(df["id"])
-                query_arr = pd.Categorical(df["query"])
+                # the rows resolved so far number the ids only when every
+                # row was resolved
+                state = plan["es_state"]
+                prep, lazy_rows = state["prep"], state["lazy_rows"]
+                numbering = None if prep is None else prep[4]
+                if lazy_rows is not None and (lazy_rows >= 0).all():
+                    numbering = lazy_rows
+                qid_arr, id_arr, query_arr = _result_columns(
+                    df, numbering, self._id_ranks(numbering)
+                )
                 plan["es_arrays"] = (qhi, qid_arr, id_arr, query_arr)
             else:
                 qid_arr = df["q_id"].array
@@ -2183,13 +2319,14 @@ class Index(abc.ABC):
             prep = self._candidate_arrays(ranking._df)
             if prep is None:
                 return None
-            view, rows_mat, counts_pp, k = prep
+            view, rows_mat, counts_pp, k, numbering = prep
             plan.update(
                 n_pairs=n_pairs,
                 pair_qno=pair_qno,
                 rows_mat=rows_mat,
                 counts_pp=counts_pp,
                 k=k,
+                id_numbering=numbering,
                 cand_ready=True,
             )
         device = view.table.device
@@ -2324,7 +2461,7 @@ class Index(abc.ABC):
             prep = self._candidate_arrays(df)
         if prep is None:
             return None
-        _view, rows_mat, counts_pp, k = prep
+        _view, rows_mat, counts_pp, k, _ = prep
         # query codes from run boundaries: the Ranking ctor sorts frames by
         # (q_id desc, score desc), so each query's pairs are one contiguous
         # run.  A repeated run head means a foreign frame that is not

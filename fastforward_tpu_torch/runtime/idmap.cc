@@ -112,8 +112,8 @@ struct IdMap {
   FlatU64Map<const std::vector<int32_t>*> doc_rows64;
   FlatU64Map<int32_t> psg_row64;
   // insertion order (needed to enumerate ids deterministically)
-  std::vector<const std::string*> doc_order;
-  std::vector<const std::string*> psg_order;
+  std::vector<const StrMap<std::vector<int32_t>>::value_type*> doc_order;
+  std::vector<const StrMap<int32_t>::value_type*> psg_order;
 };
 
 inline std::string_view make_view(const char* data, int64_t width) {
@@ -125,6 +125,30 @@ inline std::string_view make_view(const char* data, int64_t width) {
 
 inline std::string make_key(const char* data, int64_t width) {
   return std::string(make_view(data, width));
+}
+
+// Gather the strings of an Arrow UTF-8 array (data buffer + offsets) at
+// positions idx into a new one: out_offsets holds m + 1 entries and
+// out_data room for the strings, at most the input's bytes for distinct
+// positions.  Returns the bytes written.
+template <typename Off>
+int64_t gather_strings(const char* data, const Off* offsets, const int64_t* idx,
+                       int64_t m, Off* out_offsets, char* out_data) {
+  constexpr int64_t kPrefetch = 16;
+  Off at = 0;
+  out_offsets[0] = 0;
+  for (int64_t j = 0; j < m; ++j) {
+    if (j + kPrefetch < m) {
+      __builtin_prefetch(&offsets[idx[j + kPrefetch]]);
+      __builtin_prefetch(data + offsets[idx[j + kPrefetch / 2]]);
+    }
+    const Off lo = offsets[idx[j]];
+    const Off len = offsets[idx[j] + 1] - lo;
+    std::memcpy(out_data + at, data + lo, static_cast<size_t>(len));
+    at += len;
+    out_offsets[j + 1] = at;
+  }
+  return static_cast<int64_t>(at);
 }
 
 }  // namespace
@@ -150,7 +174,7 @@ int64_t idmap_add(void* handle, const char* doc_ids, const char* psg_ids,
         auto [it, inserted] =
             m->psg_row.emplace(std::move(key), static_cast<int32_t>(start_row + i));
         if (!inserted) return -(i + 1);
-        m->psg_order.push_back(&it->first);
+        m->psg_order.push_back(&*it);
         uint64_t k64;
         if (pack_u64(it->first, &k64)) m->psg_row64.insert(k64, it->second);
       }
@@ -160,7 +184,7 @@ int64_t idmap_add(void* handle, const char* doc_ids, const char* psg_ids,
       if (!key.empty()) {
         auto [it, inserted] = m->doc_rows.emplace(
             std::move(key), std::vector<int32_t>{});
-        if (inserted) m->doc_order.push_back(&it->first);
+        if (inserted) m->doc_order.push_back(&*it);
         it->second.push_back(static_cast<int32_t>(start_row + i));
         uint64_t k64;
         if (inserted && pack_u64(it->first, &k64)) {
@@ -200,7 +224,7 @@ int64_t idmap_num_psgs(void* handle) {
 void idmap_doc_ids(void* handle, char* out, int64_t width) {
   IdMap* m = static_cast<IdMap*>(handle);
   for (size_t i = 0; i < m->doc_order.size(); ++i) {
-    const std::string& key = *m->doc_order[i];
+    const std::string& key = m->doc_order[i]->first;
     std::memset(out + i * width, 0, static_cast<size_t>(width));
     std::memcpy(out + i * width, key.data(), key.size());
   }
@@ -209,7 +233,7 @@ void idmap_doc_ids(void* handle, char* out, int64_t width) {
 void idmap_psg_ids(void* handle, char* out, int64_t width) {
   IdMap* m = static_cast<IdMap*>(handle);
   for (size_t i = 0; i < m->psg_order.size(); ++i) {
-    const std::string& key = *m->psg_order[i];
+    const std::string& key = m->psg_order[i]->first;
     std::memset(out + i * width, 0, static_cast<size_t>(width));
     std::memcpy(out + i * width, key.data(), key.size());
   }
@@ -371,6 +395,59 @@ void segmented_rank_argsort_f32(const float* scores, const int64_t* seg_starts,
   }
 }
 
+// Number int32 rows by their ids' byte order: codes[i] is the place of
+// rows[i]'s id among the distinct ids of `rows` sorted in byte order, the
+// order of pd.Categorical's categories, and pos[c] the first position where
+// code c appears (pos holds n entries; the first `returned` are written).
+// rank holds the id map's rank of each of n_ranks table rows
+// (idmap_rank_rows).  The rows' ranks mark a bitmap of n_ranks bits; a
+// rank's place among the marked ones is the count of marked bits below it,
+// a running count per 64-bit word plus one popcount, so no hash table and
+// no sort is needed, and the bitmap (a bit a table row) stays in cache.
+// A call's resolved rows number its distinct candidate ids this way without
+// hashing or comparing a string.  Returns the number of distinct rows, or
+// -1 if a row has no rank.
+int64_t number_rows_i32(const int32_t* rows, int64_t n, const int32_t* rank,
+                        int64_t n_ranks, int32_t* codes, int64_t* pos) {
+  std::vector<uint64_t> marked(static_cast<size_t>((n_ranks + 63) / 64), 0);
+  constexpr int64_t kPrefetch = 16;
+  for (int64_t i = 0; i < n; ++i) {
+    if (i + kPrefetch < n) __builtin_prefetch(&rank[rows[i + kPrefetch]]);
+    const int32_t row = rows[i];
+    if (row < 0 || row >= n_ranks || rank[row] < 0) return -1;
+    const int32_t r = rank[row];
+    codes[i] = r;
+    marked[r >> 6] |= uint64_t{1} << (r & 63);
+  }
+  std::vector<int32_t> below(marked.size());
+  int32_t total = 0;
+  for (size_t w = 0; w < marked.size(); ++w) {
+    below[w] = total;
+    total += __builtin_popcountll(marked[w]);
+  }
+  // backwards, so that each code's last write is its first position
+  for (int64_t i = n - 1; i >= 0; --i) {
+    const int32_t r = codes[i];
+    const uint64_t lower = marked[r >> 6] & ((uint64_t{1} << (r & 63)) - 1);
+    const int32_t c = below[r >> 6] + __builtin_popcountll(lower);
+    codes[i] = c;
+    pos[c] = i;
+  }
+  return total;
+}
+
+int64_t gather_strings32(const char* data, const int32_t* offsets,
+                         const int64_t* idx, int64_t m, int32_t* out_offsets,
+                         char* out_data) {
+  return gather_strings(data, offsets, idx, m, out_offsets, out_data);
+}
+
+int64_t gather_strings64(const char* data, const int64_t* offsets,
+                         const int64_t* idx, int64_t m, int64_t* out_offsets,
+                         char* out_data) {
+  return gather_strings(data, offsets, idx, m, out_offsets, out_data);
+}
+
 }  // extern "C"
 
 namespace {
@@ -427,6 +504,56 @@ int64_t resolve_views(IdMap* m, GetView get_view, int64_t n, int32_t mode,
     }
   }
   return total;
+}
+
+// The permutation that sorts ids in byte order: an LSD radix sort on each
+// id's first 8 bytes, read big-endian so that the integer order is the byte
+// order (the keys travel with their indices, so each pass reads and writes
+// in sequence), then a full comparison inside each run of ids that share
+// those bytes.
+std::vector<int64_t> byte_order(const std::vector<std::string_view>& ids) {
+  constexpr int kBits = 11;
+  constexpr uint64_t kMask = (uint64_t{1} << kBits) - 1;
+  const size_t n = ids.size();
+  std::vector<uint64_t> key(n), key2(n);
+  std::vector<int64_t> perm(n), perm2(n);
+  for (size_t i = 0; i < n; ++i) {
+    unsigned char b[8] = {0};
+    std::memcpy(b, ids[i].data(), std::min<size_t>(8, ids[i].size()));
+    uint64_t k = 0;
+    for (unsigned char c : b) k = (k << 8) | c;
+    key[i] = k;
+    perm[i] = static_cast<int64_t>(i);
+  }
+  std::vector<size_t> count(size_t{1} << kBits);
+  for (int shift = 0; shift < 64; shift += kBits) {
+    std::fill(count.begin(), count.end(), 0);
+    for (size_t i = 0; i < n; ++i) ++count[(key[i] >> shift) & kMask];
+    if (std::find(count.begin(), count.end(), n) != count.end()) continue;
+    size_t total = 0;
+    for (size_t& c : count) {
+      const size_t here = c;
+      c = total;
+      total += here;
+    }
+    for (size_t i = 0; i < n; ++i) {
+      const size_t pos = count[(key[i] >> shift) & kMask]++;
+      key2[pos] = key[i];
+      perm2[pos] = perm[i];
+    }
+    key.swap(key2);
+    perm.swap(perm2);
+  }
+  for (size_t i = 0; i < n;) {
+    size_t j = i + 1;
+    while (j < n && key[j] == key[i]) ++j;
+    if (j - i > 1) {
+      std::sort(perm.begin() + i, perm.begin() + j,
+                [&ids](int64_t a, int64_t b) { return ids[a] < ids[b]; });
+    }
+    i = j;
+  }
+  return perm;
 }
 
 }  // namespace
@@ -506,7 +633,7 @@ void idmap_bulk_load(void* handle, const char* doc_ids, const char* psg_ids,
       if (!key.empty()) {
         auto [it, inserted] =
             m->doc_rows.emplace(std::move(key), std::vector<int32_t>{});
-        if (inserted) m->doc_order.push_back(&it->first);
+        if (inserted) m->doc_order.push_back(&*it);
         it->second.push_back(static_cast<int32_t>(i));
         uint64_t k64;
         if (inserted && pack_u64(it->first, &k64)) {
@@ -520,7 +647,7 @@ void idmap_bulk_load(void* handle, const char* doc_ids, const char* psg_ids,
         auto [it, inserted] =
             m->psg_row.emplace(std::move(key), static_cast<int32_t>(i));
         if (inserted) {
-          m->psg_order.push_back(&it->first);
+          m->psg_order.push_back(&*it);
         } else {
           it->second = static_cast<int32_t>(i);
         }
@@ -549,6 +676,33 @@ int64_t idmap_lookup(void* handle, const char* id, int64_t width,
   int64_t count = mode == 2 ? 1 : static_cast<int64_t>(rows.size());
   for (int64_t i = 0; i < count && i < max_out; ++i) out[i] = rows[i];
   return count;
+}
+
+// Rank of each table row's id among all ids of one kind (0 = passage ids,
+// 1 = document ids, every row of a document sharing its rank) in byte order,
+// the order pandas sorts str categories in: out[row], -1 for a row without
+// such an id; out holds n_rows entries.  A call that needs its ids sorted
+// then sorts these integers instead of the strings.
+void idmap_rank_rows(void* handle, int32_t kind, int32_t* out, int64_t n_rows) {
+  IdMap* m = static_cast<IdMap*>(handle);
+  std::fill(out, out + n_rows, -1);
+  const auto put = [&](int32_t row, size_t rank) {
+    if (row >= 0 && row < n_rows) out[row] = static_cast<int32_t>(rank);
+  };
+  std::vector<std::string_view> ids;
+  if (kind == 0) {
+    ids.reserve(m->psg_order.size());
+    for (const auto* e : m->psg_order) ids.emplace_back(e->first);
+    const std::vector<int64_t> perm = byte_order(ids);
+    for (size_t r = 0; r < perm.size(); ++r) put(m->psg_order[perm[r]]->second, r);
+  } else {
+    ids.reserve(m->doc_order.size());
+    for (const auto* e : m->doc_order) ids.emplace_back(e->first);
+    const std::vector<int64_t> perm = byte_order(ids);
+    for (size_t r = 0; r < perm.size(); ++r) {
+      for (int32_t row : m->doc_order[perm[r]]->second) put(row, r);
+    }
+  }
 }
 
 }  // extern "C"

@@ -8,6 +8,7 @@ the shared object builds.
 
 import ctypes
 import logging
+import threading
 from collections import defaultdict
 from collections.abc import Sequence
 
@@ -110,6 +111,33 @@ def _get_lib():
             ctypes.c_int64,
             ctypes.POINTER(ctypes.c_int64),
         ]
+        lib.idmap_rank_rows.restype = None
+        lib.idmap_rank_rows.argtypes = [
+            ctypes.c_void_p,
+            ctypes.c_int32,
+            ctypes.POINTER(ctypes.c_int32),
+            ctypes.c_int64,
+        ]
+        lib.number_rows_i32.restype = ctypes.c_int64
+        lib.number_rows_i32.argtypes = [
+            ctypes.POINTER(ctypes.c_int32),
+            ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_int32),
+            ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_int32),
+            ctypes.POINTER(ctypes.c_int64),
+        ]
+        for name in ("gather_strings32", "gather_strings64"):
+            fn = getattr(lib, name)
+            fn.restype = ctypes.c_int64
+            fn.argtypes = [
+                ctypes.c_void_p,  # utf8 data buffer
+                ctypes.c_void_p,  # offsets buffer
+                ctypes.POINTER(ctypes.c_int64),
+                ctypes.c_int64,
+                ctypes.c_void_p,
+                ctypes.c_void_p,
+            ]
         for name in ("idmap_resolve_offsets32", "idmap_resolve_offsets64"):
             fn = getattr(lib, name)
             fn.restype = ctypes.c_int64
@@ -190,6 +218,9 @@ class NativeIdMap:
         self._lib = _get_lib()
         self._handle = ctypes.c_void_p(self._lib.idmap_create())
         self._max_width = 1
+        self._n_rows = 0  # one past the last row given an id
+        self._ranks: dict[int, np.ndarray] = {}  # by kind, until the next add
+        self._ranks_lock = threading.Lock()
 
     def __del__(self):
         if getattr(self, "_handle", None):
@@ -231,6 +262,12 @@ class NativeIdMap:
         rc = self._lib.idmap_add(self._handle, doc_buf, psg_buf, n, width, start_row)
         if rc < 0:  # pragma: no cover - pre-validated above
             raise RuntimeError(f"Passage ID {psg_ids[-rc - 1]} already exists.")
+        self._added(start_row + n)
+
+    def _added(self, end_row: int) -> None:
+        self._n_rows = max(self._n_rows, end_row)
+        with self._ranks_lock:
+            self._ranks.clear()
 
     def check_new_psgs(self, psg_ids: Sequence[str | None]) -> None:
         """Raise ``RuntimeError`` if any passage ID already exists."""
@@ -263,6 +300,23 @@ class NativeIdMap:
             else None
         )
         self._lib.idmap_bulk_load(self._handle, doc_buf, psg_buf, n, width)
+        self._added(n)
+
+    def ranks(self, mode: Mode) -> np.ndarray:
+        """Each row's rank among the ids that ``mode`` resolves (passage ids
+        in ``Mode.PASSAGE``, else document ids), sorted in byte order: the
+        order of ``pd.Categorical``'s sorted categories.  int32 by row, -1
+        for a row without such an id; built natively on first use after an
+        add and kept until the next.
+        """
+        kind = 0 if mode == Mode.PASSAGE else 1
+        with self._ranks_lock:
+            ranks = self._ranks.get(kind)
+            if ranks is None:
+                ranks = np.empty(self._n_rows, dtype=np.int32)
+                self._lib.idmap_rank_rows(self._handle, kind, _i32ptr(ranks), self._n_rows)
+                self._ranks[kind] = ranks
+        return ranks
 
     @property
     def num_docs(self) -> int:
@@ -436,6 +490,11 @@ class PyIdMap:
             np.asarray(counts, dtype=np.int32),
         )
 
+    def ranks(self, mode: Mode) -> None:
+        """No rank table without the native library (see
+        :meth:`NativeIdMap.ranks`)."""
+        return None
+
     def inverse(self, n_rows: int):
         doc_out: list[str | None] = [None] * n_rows
         psg_out: list[str | None] = [None] * n_rows
@@ -525,6 +584,64 @@ def radix_argsort(keys: np.ndarray) -> np.ndarray | None:
         out.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
     )
     return out
+
+
+def number_rows(
+    rows: np.ndarray, ranks: np.ndarray
+) -> "tuple[np.ndarray, np.ndarray] | None":
+    """Number table rows by their ids' byte order, natively, or ``None``.
+
+    ``ranks`` is the id map's rank of each table row
+    (:meth:`NativeIdMap.ranks`).  Returns ``(codes, first)``: ``codes[i]``
+    (int32) is the place of ``rows[i]``'s id among the distinct ids of
+    ``rows`` in byte order (``pd.Categorical``'s sorted categories), and
+    ``first[c]`` (int64) the position where code ``c`` first appears.  The
+    rows are cast to int32 (table rows).  ``None`` too where a row has no
+    rank (an id map changed since the rows were resolved).
+    """
+    lib = _get_lib()
+    if lib is None:
+        return None
+    rows = np.ascontiguousarray(rows, dtype=np.int32)
+    ranks = np.ascontiguousarray(ranks, dtype=np.int32)
+    n = rows.shape[0]
+    codes = np.empty(n, dtype=np.int32)
+    first = np.empty(n, dtype=np.int64)
+    m = lib.number_rows_i32(
+        _i32ptr(rows), n, _i32ptr(ranks), ranks.shape[0], _i32ptr(codes), _i64ptr(first)
+    )
+    if m < 0:
+        return None
+    return codes, first[:m]
+
+
+def take_strings(ids, positions: np.ndarray):
+    """The strings of an arrow-backed pandas string array at distinct
+    ``positions``, gathered natively into a new arrow array, or ``None``
+    (no native library, or not arrow strings without nulls).  Arrow's own
+    take costs several times more where the positions jump about."""
+    lib = _get_lib()
+    arrow = _arrow_view(ids)
+    if lib is None or arrow is None:
+        return None
+    import pyarrow as pa
+
+    combined, data_addr, offsets_addr, _n, is_large = arrow
+    positions = np.ascontiguousarray(positions, dtype=np.int64)
+    m = positions.shape[0]
+    offsets = np.empty(m + 1, dtype=np.int64 if is_large else np.int32)
+    # distinct positions hold at most the input's bytes
+    data = np.empty(max(combined.buffers()[2].size, 1), dtype=np.uint8)
+    gather = lib.gather_strings64 if is_large else lib.gather_strings32
+    size = gather(
+        data_addr, offsets_addr, _i64ptr(positions), m, offsets.ctypes.data, data.ctypes.data
+    )
+    del combined
+    return pa.Array.from_buffers(
+        pa.large_string() if is_large else pa.string(),
+        m,
+        [None, pa.py_buffer(offsets), pa.py_buffer(data[:size])],
+    )
 
 
 def segmented_rank_argsort(

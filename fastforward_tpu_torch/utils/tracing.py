@@ -20,8 +20,11 @@ Re-rank (``Index.__call__``)
   ``OnDiskIndex``'s host read and upload where no table is on the card;
 - ``ff.score``: the scoring's device work (grouped and flat);
 - ``ff.layout``: the streamed layout's build on the host;
-- ``ff.columns``: a new plan's result columns, query ranks, sort keys and
-  per-query segments;
+- ``ff.columns``: a new plan's query ranks, sort keys, per-query segments
+  and categorical result columns, wrapped around the numbering the call
+  already has (the query numbers of ``ff.frame``; the rows or the ids'
+  factorize of ``ff.resolve``, numbered here by the id map's byte-order
+  ranks, which the first such call after an add builds);
 - ``ff.fetch_sort``: the score copy overlapped with the per-query sort;
 - ``ff.assemble``: the result frame, the plan's update and the ranking.
 
