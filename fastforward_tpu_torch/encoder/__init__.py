@@ -2,8 +2,9 @@
 
 ``Encoder`` is the abstract contract, ``LambdaEncoder`` adapts arbitrary
 per-text functions (reference: ``encoder/__init__.py:32-44``), and the
-Transformer encoders (the port's BERT towers on the card) live in
-``fastforward_tpu_torch.encoder.transformer``, imported on first use.
+Transformer encoders (the port's BERT and Mistral towers on the card)
+live in ``fastforward_tpu_torch.encoder.transformer``, imported on first
+use.
 """
 
 from collections.abc import Callable, Sequence
@@ -21,6 +22,7 @@ __all__ = [
     "TASBEncoder",
     "ContrieverEncoder",
     "BGEEncoder",
+    "E5MistralEncoder",
 ]
 
 

@@ -2,9 +2,12 @@
 
 The port of ``fastforward_tpu/encoder/transformer.py``: the same five
 pretrained dual-encoder variants (TCT-ColBERT query/document, TAS-B,
-Contriever, BGE) with their input templates, lengths and pooling rules.
-Texts are tokenized on the host with the checkpoint's ``AutoTokenizer``;
-the tower (``fastforward_tpu_torch.models.bert``), the pooling and the
+Contriever, BGE) with their input templates, lengths and pooling rules,
+and one the JAX package lacks, the decoder embedder E5-Mistral-7B-instruct
+(``E5MistralEncoder``).  The checkpoint's ``model_type`` picks the tower:
+``bert`` and ``distilbert`` run ``models.bert.BertTower``, ``mistral``
+runs ``models.mistral.MistralTower``.  Texts are tokenized on the host
+with the checkpoint's ``AutoTokenizer``; the tower, the pooling and the
 normalization run on the encoder's device: the card unless the caller
 passes ``device="cpu"``.  Batches keep the tokenizer's own length (no
 length buckets: eager PyTorch needs no stable shapes, and the unmasked
@@ -25,7 +28,7 @@ import torch
 
 from fastforward_tpu_torch.device import resolve_device
 from fastforward_tpu_torch.encoder.base import Encoder
-from fastforward_tpu_torch.models import bert
+from fastforward_tpu_torch.models import bert, mistral
 from fastforward_tpu_torch.utils.tracing import annotate
 
 _POOLING = {
@@ -33,11 +36,39 @@ _POOLING = {
     "mean_from_4": bert.pool_mean_from,
     "masked_mean_from_4": bert.pool_masked_mean_from,
     "masked_mean": bert.pool_masked_mean,
+    "last_token": mistral.pool_last_token,
 }
+
+#: the tower of each checkpoint ``model_type``
+_TOWERS = {
+    "bert": bert.from_hf_torch,
+    "distilbert": bert.from_hf_torch,
+    "mistral": mistral.from_hf_torch,
+}
+
+#: every tower micro-batch's sequences, their real (mask 1) tokens and the
+#: tokens the padded batches ran (sequences x padded length); reset with
+#: :func:`reset_tower_stats`
+TOWER_STATS = {"sequences": 0, "real_tokens": 0, "padded_tokens": 0}
+_TOWER_STATS_LOCK = threading.Lock()
+
+
+def reset_tower_stats() -> None:
+    """Zero the tower counters."""
+    with _TOWER_STATS_LOCK:
+        TOWER_STATS.update(sequences=0, real_tokens=0, padded_tokens=0)
+
+
+def _count_tower(mask: np.ndarray) -> None:
+    with _TOWER_STATS_LOCK:
+        TOWER_STATS["sequences"] += mask.shape[0]
+        TOWER_STATS["real_tokens"] += int(mask.sum())
+        TOWER_STATS["padded_tokens"] += mask.size
 
 
 class TransformerEncoder(Encoder):
-    """Encoder backed by a pre-trained BERT-family Transformer.
+    """Encoder backed by a pre-trained Transformer (BERT, DistilBERT or
+    Mistral, by the checkpoint's ``model_type``).
 
     By default the CLS-token output of the last hidden layer is used.
     """
@@ -68,6 +99,7 @@ class TransformerEncoder(Encoder):
         :param compute_dtype: ``"float32"`` (IEEE fp32 matmuls) or
             ``"bfloat16"`` (bf16 weights and activations, fp32 accumulation).
         :raises RuntimeError: When the device is CUDA and none is available.
+        :raises ValueError: For a checkpoint of another ``model_type``.
         """
         if compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(
@@ -77,7 +109,10 @@ class TransformerEncoder(Encoder):
         from transformers import AutoModel, AutoTokenizer
 
         torch_model = AutoModel.from_pretrained(model, **model_args)
-        tower = bert.from_hf_torch(torch_model, dtype=compute_dtype)
+        model_type = torch_model.config.model_type
+        if model_type not in _TOWERS:
+            raise ValueError(f"no tower for model_type {model_type!r}; known: {sorted(_TOWERS)}")
+        tower = _TOWERS[model_type](torch_model, dtype=compute_dtype)
         del torch_model
         self._tower = tower.to(self._device).eval()
         self._tokenizer = AutoTokenizer.from_pretrained(model, **tokenizer_args)
@@ -93,7 +128,7 @@ class TransformerEncoder(Encoder):
         return self._device
 
     @property
-    def config(self) -> bert.BertConfig:
+    def config(self) -> "bert.BertConfig | mistral.MistralConfig":
         """The tower's configuration (``dtype`` is the compute type)."""
         return self._tower.config
 
@@ -101,16 +136,22 @@ class TransformerEncoder(Encoder):
         """Hook: prepare raw texts for tokenization (template insertion)."""
         return list(texts)
 
-    def _encode(self, texts: Sequence[str]) -> np.ndarray:
+    def _tokenize(self, texts: Sequence[str]) -> tuple[np.ndarray, np.ndarray]:
+        """Hook: token ids and attention mask of a micro-batch, ``(B, L)``."""
         call_args = dict(self._tokenizer_call_args)
         call_args.setdefault("padding", True)
+        tokenized = self._tokenizer(
+            self._get_tokenizer_inputs(texts), return_tensors="np", **call_args
+        )
+        return tokenized["input_ids"], tokenized["attention_mask"]
+
+    def _encode(self, texts: Sequence[str]) -> np.ndarray:
         with annotate("ff.tokenize"), self._tokenizer_lock:
-            tokenized = self._tokenizer(
-                self._get_tokenizer_inputs(texts), return_tensors="np", **call_args
-            )
+            ids_np, mask_np = self._tokenize(texts)
+        _count_tower(mask_np)
         with annotate("ff.tower"), torch.inference_mode():
-            ids = torch.from_numpy(tokenized["input_ids"]).to(self._device)
-            mask = torch.from_numpy(tokenized["attention_mask"]).to(self._device)
+            ids = torch.from_numpy(ids_np).to(self._device)
+            mask = torch.from_numpy(mask_np).to(self._device)
             hidden = self._tower(ids, mask)
             pooled = _POOLING[self._pooling](hidden, mask)
             if self._normalize:
@@ -262,3 +303,68 @@ class BGEEncoder(TransformerEncoder):
         super().__init__(
             model, device=device, normalize=True, compute_dtype=compute_dtype
         )
+
+
+#: E5-Mistral's instruction for MS MARCO passage retrieval (its model card's)
+E5_WEB_SEARCH_TASK = "Given a web search query, retrieve relevant passages that answer the query"
+
+
+class E5MistralEncoder(TransformerEncoder):
+    """E5-Mistral-7B-instruct query tower (paper: https://arxiv.org/abs/2401.00368).
+
+    A Mistral-7B decoder used as an embedder: the query goes into the
+    instruct template ``Instruct: <task>\\nQuery: <query>``, BOS in front
+    and EOS appended, and the final hidden state at the EOS, L2-normalized,
+    is the query vector (the model card's recipe).  Runs in bf16 by default.
+    """
+
+    _pooling = "last_token"
+
+    def __init__(
+        self,
+        model: "str | Path" = "intfloat/e5-mistral-7b-instruct",
+        device: "str | torch.device | None" = None,
+        task: str = E5_WEB_SEARCH_TASK,
+        max_length: int = 4096,
+        compute_dtype: str = "bfloat16",
+    ) -> None:
+        """Create an E5-Mistral query encoder.
+
+        :param model: Pre-trained E5-Mistral model (name or path).
+        :param device: Torch device of the tower; ``None`` means ``"cuda"``.
+        :param task: The instruction of the template.
+        :param max_length: Maximum number of tokens, BOS and EOS included.
+        :param compute_dtype: ``"bfloat16"`` or ``"float32"``.
+        :raises ValueError: When the tokenizer has no BOS or EOS token.
+        """
+        self._task = task
+        self._max_length = max_length
+        super().__init__(model, device=device, normalize=True, compute_dtype=compute_dtype)
+        tok = self._tokenizer
+        if tok.bos_token_id is None or tok.eos_token_id is None:
+            raise ValueError("the E5-Mistral tokenizer needs a BOS and an EOS token")
+        self._specials = (tok.bos_token_id, tok.eos_token_id,
+                          tok.eos_token_id if tok.pad_token_id is None else tok.pad_token_id)
+
+    def _get_tokenizer_inputs(self, texts: Sequence[str]) -> list[str]:
+        return [f"Instruct: {self._task}\nQuery: {q}" for q in texts]
+
+    def _tokenize(self, texts: Sequence[str]) -> tuple[np.ndarray, np.ndarray]:
+        """``BOS <template tokens> EOS`` a text, right-padded to the
+        micro-batch's longest."""
+        bos, eos, pad = self._specials
+        pieces = self._tokenizer(
+            self._get_tokenizer_inputs(texts),
+            add_special_tokens=False,
+            truncation=True,
+            max_length=self._max_length - 2,
+            return_attention_mask=False,
+        )["input_ids"]
+        width = max(len(p) for p in pieces) + 2
+        ids = np.full((len(pieces), width), pad, dtype=np.int64)
+        mask = np.zeros((len(pieces), width), dtype=np.int64)
+        for row, piece in enumerate(pieces):
+            n = len(piece)
+            ids[row, 0], ids[row, 1 : n + 1], ids[row, n + 1] = bos, piece, eos
+            mask[row, : n + 2] = 1
+        return ids, mask

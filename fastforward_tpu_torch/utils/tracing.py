@@ -15,6 +15,13 @@ Re-rank (``Index.__call__``)
   (``TransformerEncoder``);
 - ``ff.tower``: one micro-batch on the tower's device, from the token
   upload through the pooled vectors' fetch (``TransformerEncoder``);
+- ``ff.attn``: inside ``ff.tower``, one decoder layer's attention block on
+  one micro-batch: the input norm, the q/k/v projections, RoPE, the
+  attention, the output projection and the residual
+  (``models.mistral.MistralTower``; BERT towers open none);
+- ``ff.mlp``: inside ``ff.tower``, the same layer's MLP block: the
+  post-attention norm, the gate and up projections, the SiLU product, the
+  down projection and the residual;
 - ``ff.resolve``: string ids to table rows (``_candidate_arrays``, the
   flat path's factorize, ``_gather_view`` and ``expand_pairs``), with an
   ``OnDiskIndex``'s host read and upload where no table is on the card;
