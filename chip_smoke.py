@@ -222,9 +222,23 @@ Phases, each of which must pass (any failure exits non-zero):
     bf16-rounded operands in the fast tier) and every result order against
     the oracle's; K1 must launch for fp32, K2 for int8 MAXP, K3 and K4 for
     PQ.  The phase's seconds are printed beside the card's name and power
-    limit.
+    limit;
+28. the decoder tower's kernels (``decoder_phase``): ``ops/csrc/decoder.cu``
+    built with ``nvcc``; E5-Mistral-7B-instruct's tower at its published
+    widths (``MistralConfig()``: 32 layers, bf16, weights drawn as the
+    benchmark draws them) runs one call of the ``e5mistral.batch-encode``
+    cell, 512 queries of 18-31 tokens in micro-batches of 32 right-padded
+    to their longest, and must launch each layer's two RMSNorms, its
+    RoPE + attention and its SwiGLU kernel and the final RMSNorm on every
+    micro-batch, and no more; on the longest micro-batch each kernel is
+    held against its plain version (``*_plain``) on the activations it
+    sees at layers 0, 15 and 31 (and the final norm), in bf16 and on the
+    same values in fp32 (fp32 within 1e-5 of the largest output, bf16
+    within one bf16 step), then timed on layer 0's (CUDA events, a traced
+    call, the bytes bound) beside its plain version on the card, and the
+    whole tower through the kernels against the plain tower on the card.
 
-The phases run in the order 1-5, 12, 14-20, 22, 23, 6-11, 24-27 (phases 13
+The phases run in the order 1-5, 12, 14-20, 22, 23, 6-11, 24-28 (phases 13
 and 21 inside 7 and 9, while their indexes exist).  After phases 12 (for 4 and 12 together),
 14 and 7-10, one warm call of each flow (and one cold early-stopping call)
 runs under
@@ -334,6 +348,15 @@ MP_TIMEOUT_S = 420
 #: of the skewed, tied and near-duplicate runs, and the depth-1 run's queries
 CONTRACT_MEGA, CONTRACT_TIE_ROWS, CONTRACT_NEAR_PAIRS = 4096, 256, 64
 CONTRACT_QUERIES, CONTRACT_DEPTH, CONTRACT_DEPTH1_QUERIES = 64, 1000, 512
+
+#: phase 28: one call of the ``e5mistral.batch-encode`` cell (queries,
+#: micro-batch, least and most tokens a query), the layers whose
+#: activations the kernels are held on, and each decoder kernel's name in
+#: the profiler by its wrapper's
+DECODER_QUERIES, DECODER_BATCH, DECODER_TOKENS = 512, 32, (18, 31)
+DECODER_CHECK_LAYERS = (0, 15, 31)
+DECODER_KERNELS = {"rms_norm": "rms_norm_kernel", "rope_attention": "rope_attention_kernel",
+                   "swiglu": "swiglu_kernel"}
 
 QUANT_FIT = 1 << 16  # training vectors of the quantizers
 DENSE_N = 262_144  # rows of the dense-tile phases: ~1,000 pairs per 512-row tile
@@ -1683,6 +1706,205 @@ def tower_phase(index, ranking, run, queries, corpus_dev, q_index, wrappers, lau
         encoders.clear()
         shutil.rmtree(tmp, ignore_errors=True)
     return {"towers": towers, "tower_rerank": rerank}
+
+
+def decoder_phase(rates) -> list:
+    """Phase 28: the decoder tower's kernels at E5-Mistral-7B-instruct's
+    widths (see the module docstring).  Returns the three kernels' rows of
+    the ``{"kernels": [...]}`` summary."""
+    import torch.nn.functional as F
+
+    from fastforward_tpu_torch.device import fp32_matmul
+    from fastforward_tpu_torch.models import mistral
+    from fastforward_tpu_torch.ops import _build
+
+    t_phase = time.perf_counter()
+    lib_path = _build.build_kernel("decoder")
+    log(f"[decoder] decoder.cu built in {time.perf_counter() - t_phase:.2f} s: {lib_path.name}")
+    for line in lib_path.with_suffix(".log").read_text().splitlines():
+        if "Used" in line or "spill" in line:
+            log("  ptxas:", line.strip())
+
+    # the tower, drawn as bench_port/encoders/E5MistralEncoder.py draws it:
+    # N(0, 0.02^2) in fp32, matrices cast to bf16, gains 1 + N(0, 0.02^2)
+    t0 = time.perf_counter()
+    cfg = mistral.MistralConfig()
+    eps, dev = cfg.rms_norm_eps, torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(SEED)
+
+    def drawn(shape, gain):
+        t = torch.randn(shape, generator=gen, device=dev).mul_(0.02)
+        return t.add_(1) if gain else t.to(torch.bfloat16)
+
+    state = {"embed_tokens.weight": drawn((cfg.vocab_size, cfg.hidden_size), False),
+             "norm.weight": drawn((cfg.hidden_size,), True)}
+    for i in range(cfg.num_layers):
+        for key, name in mistral.LAYER_NAMES.items():
+            state[f"layers.{i}.{name}"] = drawn(cfg.shapes()[key], key in mistral.NORMS)
+    tower = mistral.MistralTower.from_arrays(cfg, state).eval()
+    del state
+    rng = np.random.default_rng(SEED)
+    lengths = rng.integers(DECODER_TOKENS[0], DECODER_TOKENS[1] + 1, size=DECODER_QUERIES)
+    batches = []
+    for start in range(0, DECODER_QUERIES, DECODER_BATCH):
+        n = lengths[start:start + DECODER_BATCH]
+        mask = torch.from_numpy(np.arange(n.max())[None] < n[:, None]).long().to(dev)
+        ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=mask.shape)).to(dev)
+        batches.append((ids, mask))
+    torch.cuda.synchronize()
+    log(f"[decoder] tower of {cfg.num_layers} layers ({sum(p.numel() for p in tower.parameters())} "
+        f"parameters, bf16) drawn in {time.perf_counter() - t0:.1f} s; {len(batches)} micro-batches "
+        f"of {DECODER_BATCH} x {[int(b[0].shape[1]) for b in batches]} tokens")
+
+    # one call of the cell: every micro-batch through the kernels, and no more
+    wrappers = {kernel.__name__: kernel for kernel in mistral.KERNELS}
+    with torch.inference_mode():
+        tower(*batches[0])  # the first forward binds the object
+        torch.cuda.synchronize()
+        reset_counts(wrappers)
+        t0 = time.perf_counter()
+        for ids, mask in batches:
+            tower(ids, mask)
+        torch.cuda.synchronize()
+        call_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_counts(wrappers)
+    blocks = len(batches) * cfg.num_layers
+    want = {"rms_norm": 2 * blocks + len(batches), "rope_attention": blocks, "swiglu": blocks}
+    check(launches == want, f"one call of the cell launched {launches}, not {want}")
+    log(f"[decoder] one call ({DECODER_QUERIES} queries) in {call_ms:.1f} ms (host clock, "
+        f"synchronized) launched {json.dumps(launches)}")
+
+    # each kernel against its plain version on the activations it sees in
+    # the tower: the longest micro-batch, at DECODER_CHECK_LAYERS
+    ids, mask = max(batches, key=lambda b: b[0].shape[1])
+    b, length = ids.shape
+    heads, kv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    cos, sin = mistral.rope_tables(length, d, cfg.rope_theta, dev)
+    keys = mask.to(torch.int32)
+    errs = {name: [] for name in wrappers}
+    timed_inputs = {}
+
+    def hold_kernel(name, got, want, where):
+        check(got.dtype == want.dtype and got.shape == want.shape and bool(torch.isfinite(got).all()),
+              f"{name} {where}: {got.dtype} {tuple(got.shape)} vs {want.dtype} {tuple(want.shape)}")
+        top = want.abs().max().item()
+        # fp32: sums in other orders (the attention's online softmax); bf16:
+        # both round an fp32 value, which may land one step apart
+        tol = (2.0**-8 if want.dtype == torch.bfloat16 else 1e-5) * top
+        err = (got.float() - want.float()).abs().max().item()
+        check(err <= tol, f"{name} {where}: max err {err:.3e} over {tol:.3e}")
+        errs[name].append({"at": where, "max_abs_err": err, "tolerance": tol})
+
+    def calls(x, layer, dtype):
+        """name -> (kernel call, plain call) on ``x`` at ``layer``, in ``dtype``."""
+        x = x.to(dtype)
+        h = mistral.rms_norm_plain(x, layer.attn_norm, eps, dtype)
+        q, k, v = (F.linear(h.bfloat16(), w).to(dtype).view(b, length, -1, d)
+                   for w in (layer.q, layer.k, layer.v))
+        gate, up = (F.linear(h.bfloat16(), w).to(dtype) for w in (layer.gate, layer.up))
+        return {
+            "rms_norm": (lambda: mistral.rms_norm(x, layer.attn_norm, eps),
+                         lambda: mistral.rms_norm_plain(x, layer.attn_norm, eps, dtype)),
+            "rope_attention": (lambda: mistral.rope_attention(q, k, v, cos, sin, keys, cfg.sliding_window),
+                               lambda: mistral.rope_attention_plain(q, k, v, cos, sin, keys,
+                                                                    cfg.sliding_window)),
+            "swiglu": (lambda: mistral.swiglu(gate, up), lambda: mistral.swiglu_plain(gate, up)),
+        }
+
+    with torch.inference_mode(), fp32_matmul(dev):
+        x = tower.embed[ids]
+        for i, layer in enumerate(tower.layers):
+            if i in DECODER_CHECK_LAYERS:
+                for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+                    pairs = calls(x, layer, dtype)
+                    for name, (fn, plain) in pairs.items():
+                        hold_kernel(name, fn(), plain(), f"layer {i} {tag}")
+                    if i == 0:
+                        timed_inputs[tag] = pairs
+            x = tower._attention(x, layer, cos, sin, keys)
+            x = tower._mlp(x, layer)
+        hold_kernel("rms_norm", mistral.rms_norm(x, tower.norm, eps, torch.float32),
+                    mistral.rms_norm_plain(x, tower.norm, eps, torch.float32), "final norm")
+        got = tower(ids, mask)
+        torch.cuda.synchronize()
+
+    # the whole tower: through the kernels, then with the plain versions on the card
+    chains = {name: getattr(mistral, name) for name in wrappers}
+    plains = {"rms_norm": lambda x, g, e, out_dtype=None: mistral.rms_norm_plain(
+                  x, g, e, x.dtype if out_dtype is None else out_dtype),
+              "rope_attention": mistral.rope_attention_plain, "swiglu": mistral.swiglu_plain}
+    with torch.inference_mode():
+        tower_ms = median_ms(lambda: tower(ids, mask), 5, warmup=1)
+        try:
+            for name, fn in plains.items():
+                setattr(mistral, name, fn)
+            want_out = tower(ids, mask)
+            plain_tower_ms = median_ms(lambda: tower(ids, mask), 5, warmup=1)
+        finally:
+            for name, fn in chains.items():
+                setattr(mistral, name, fn)
+    real = mask.bool()
+    diff = (got[real] - want_out[real]).abs()
+    whole = {"tokens": [b, length], "ms": tower_ms, "plain_ms": plain_tower_ms,
+             "max_abs_diff_vs_plain": diff.max().item(),
+             "max_abs_plain": want_out[real].abs().max().item(),
+             "rms_diff_vs_plain": diff.pow(2).mean().sqrt().item()}
+    log(f"[decoder] the tower on {b} x {length} tokens: {tower_ms:.2f} ms through the kernels, "
+        f"{plain_tower_ms:.2f} ms plain on the card (CUDA events, median of 5); "
+        f"{json.dumps(whole)}")
+
+    # each kernel timed on layer 0's activations of that micro-batch
+    summary = []
+    for name, kname in DECODER_KERNELS.items():
+        rows_k = []
+        for tag, pairs in timed_inputs.items():
+            fn, plain = pairs[name]
+            out = fn()
+            moved = decoder_bytes(name, out, cfg, b, length)
+            row = {"variant": f"{tag} {b} x {length}", "bytes": moved, "bound_ms": moved / rates[0] * 1e3,
+                   "ms": median_ms(fn, TIMED_LAUNCHES), "back_to_back_ms": back_to_back_ms(fn, TIMED_LAUNCHES),
+                   "traced_ms": traced_kernels(fn, (kname,)).get(kname),
+                   "plain_ms": median_ms(plain, TIMED_LAUNCHES)}
+            rows_k.append(row)
+            log(f"  {name} {row['variant']}: {row['ms']:.4f} ms ({row['back_to_back_ms']:.4f} back to "
+                f"back), traced {row['traced_ms']} ms, bound {row['bound_ms']:.5f} ms "
+                f"({moved} B), plain {row['plain_ms']:.4f} ms")
+        main = rows_k[0]
+        summary.append({
+            "name": name,
+            "route": "cuda",
+            "source": "fastforward_tpu_torch/ops/csrc/decoder.cu",
+            "replaces": None,  # the JAX package has no decoder tower
+            "launches": launches[name],
+            "max_abs_err": max(e["max_abs_err"] for e in errs[name]),
+            "tolerance": "fp32 1e-5 x max|plain|; bf16 one bf16 step at max|plain|",
+            "ms": main["ms"],
+            "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": None,
+            "launches_by_phase": {"decoder": launches[name]},
+            "checks": errs[name],
+            "variants": rows_k,
+        })
+    summary[0]["tower"] = whole
+    del tower, batches, timed_inputs, got, want_out
+    torch.cuda.empty_cache()
+    log(f"[decoder] phase 28 passed in {time.perf_counter() - t_phase:.1f} s on {smi_line()}")
+    return summary
+
+
+def decoder_bytes(name: str, out: torch.Tensor, cfg, batch: int, length: int) -> int:
+    """Bytes one decoder kernel call must move: its inputs read once and
+    its output written once (the gains, RoPE tables and mask included)."""
+    tokens, es = batch * length, out.element_size()
+    if name == "rms_norm":
+        return 2 * tokens * cfg.hidden_size * es + 4 * cfg.hidden_size
+    if name == "rope_attention":
+        d = cfg.head_dim
+        return (tokens * d * (2 * cfg.num_heads + 2 * cfg.num_kv_heads) * es
+                + 2 * 4 * length * d + 4 * tokens)
+    return 3 * tokens * cfg.intermediate_size * es
 
 
 def disk_phase(corpus, qvecs, wrappers, launches) -> dict:
@@ -3857,6 +4079,9 @@ def main() -> int:
     # -- 27. the contract suites' hard cases at full width (K1-K4) ------------------------
     flows["contract"] = contract_phase(corpus, sq, pq, wrappers, launches)
 
+    # -- 28. the decoder tower's kernels at E5-Mistral-7B's widths -------------------------
+    decoder_summary = decoder_phase(rates)
+
     small_by_kernel = {"stream_select_pairwise": "K1", "stream_select": "K2",
                        "stream_select_pq_pairwise": "K3", "stream_select_pq": "K4"}
     for kname, rows_k in held.items():
@@ -3888,6 +4113,7 @@ def main() -> int:
             "variants": rows_k,
         })
     summary[0]["fp32_query_major_body"] = fp32_query_major
+    summary += decoder_summary
     forbidden = [m for m in sys.modules if m == "jax" or m.startswith(("jax.", "fastforward_tpu."))
                  or m == "fastforward_tpu"]
     check(not forbidden, f"JAX or the JAX package was imported: {forbidden[:5]}")

@@ -25,13 +25,26 @@ embedder (Wang et al., 2024, arXiv:2401.00368), with ``n(.)`` RMSNorm
   projections accumulate in fp32, and q, k, the softmax weights and the
   context stay fp32 inside the attention; with ``"float32"`` everything is
   IEEE fp32.  TF32 is off inside :meth:`MistralTower.forward` either way
-  (the attention's fp32 products do not hold bf16 values only).
+  (the fp32 tower's projections, and the plain attention's fp32 products,
+  which do not hold bf16 values only).
 
-The matmuls are plain ``torch.nn.functional.linear``/``torch.matmul``, as
-in ``models/bert.py``; attention is written out (no
-``scaled_dot_product_attention``), so its numerics do not depend on the
-installed PyTorch.  Each layer's attention block runs in an ``ff.attn``
-range and its MLP block in an ``ff.mlp`` range (``utils/tracing.py``).
+The projections are plain ``torch.nn.functional.linear`` (cuBLAS on the
+card).  Each fp32 chain between two of them is one function:
+:func:`rms_norm` (the two norms of a layer and the final one),
+:func:`rope_attention` (RoPE, the mask, the logits, the softmax and the
+context) and :func:`swiglu`.  For CUDA tensors each launches its kernel
+written by hand in ``ops/csrc/decoder.cu`` (built by ``ops/_build.py`` at
+the first call), which reads its inputs once in the activation type,
+computes in fp32 on CUDA cores and writes its output once, rounded where
+the plain version rounds; for CPU tensors each runs its plain PyTorch
+version (``*_plain``: the tower's arithmetic written out, the attention
+with ``torch.matmul``).  The tensors' device picks the path.  Neither
+path uses ``scaled_dot_product_attention``, and the card's path no fused
+operator of PyTorch at all, so its numerics do not depend on the
+installed PyTorch.  Each layer's attention block (norm, q/k/v, attention,
+o, residual) runs in an ``ff.attn`` range and its MLP block (norm,
+gate/up, SwiGLU, down, residual) in an ``ff.mlp`` range
+(``utils/tracing.py``), kernels included.
 
 Weights load from a transformers ``MistralModel`` state dict
 (:func:`from_hf_torch`, :meth:`MistralTower.from_arrays`), whose tensors
@@ -39,6 +52,7 @@ the tower takes as they are where they already have the tower's dtype: a
 7B tower is never held twice.
 """
 
+import ctypes
 import math
 from collections.abc import Mapping
 from dataclasses import dataclass
@@ -48,6 +62,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from fastforward_tpu_torch.device import fp32_matmul
+from fastforward_tpu_torch.ops import _build
 from fastforward_tpu_torch.utils.tracing import annotate
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -116,11 +131,6 @@ class MistralConfig:
         }  # fmt: skip
 
 
-def rms_norm(x: torch.Tensor, gain: torch.Tensor, eps: float) -> torch.Tensor:
-    """RMSNorm in fp32 (``gain`` fp32), returned in ``x``'s dtype."""
-    return F.rms_norm(x.float(), (x.shape[-1],), gain, eps).to(x.dtype)
-
-
 def rope_tables(length: int, head_dim: int, theta: float, device) -> tuple:
     """``cos`` and ``sin`` of RoPE's angles at positions ``0..length-1``,
     ``(length, head_dim)`` fp32, each frequency twice (rotate-half form)."""
@@ -147,6 +157,193 @@ def allowed_keys(attention_mask: torch.Tensor, window: "int | None") -> torch.Te
     if window is not None:
         ok = ok & (pos[:, None] - pos[None, :] < window)
     return ok[None, None, None] & attention_mask[:, None, None, None, :].bool()
+
+
+# -- the fp32 chains between the GEMMs: plain versions and kernel wrappers ---------
+#
+# Each function below launches its kernel of ``ops/csrc/decoder.cu`` for
+# CUDA tensors and runs its plain version (``*_plain``, the tower's PyTorch
+# code) only for CPU tensors; a CUDA call the kernel does not take raises.
+
+
+def rms_norm_plain(x: torch.Tensor, gain: torch.Tensor, eps: float,
+                   out_dtype: torch.dtype) -> torch.Tensor:
+    """RMSNorm over the last axis in fp32 (``gain`` fp32), in ``out_dtype``."""
+    return F.rms_norm(x.float(), (x.shape[-1],), gain, eps).to(out_dtype)
+
+
+def rope_attention_plain(q, k, v, cos, sin, attention_mask, window) -> torch.Tensor:
+    """RoPE on ``q`` and ``k``, then causal windowed grouped-query attention
+    in fp32: :func:`rope_attention`'s arguments and result, written out."""
+    b, length, heads, d = q.shape
+    kv = k.shape[2]
+    allowed = allowed_keys(attention_mask, window)
+    # (B, L, heads, d) -> (B, kv, group, L, d): query head j = (j // group, j % group)
+    qr = apply_rope(q.float(), cos, sin).view(b, length, kv, heads // kv, d).permute(0, 2, 3, 1, 4)
+    kr = apply_rope(k.float(), cos, sin).permute(0, 2, 1, 3)[:, :, None]
+    vr = v.permute(0, 2, 1, 3)[:, :, None].float()
+    logits = torch.matmul(qr, kr.transpose(-1, -2)) / math.sqrt(d)
+    logits = logits.masked_fill(~allowed, torch.finfo(torch.float32).min)
+    ctx = torch.matmul(torch.softmax(logits, dim=-1), vr)  # (B, kv, group, L, d)
+    return ctx.permute(0, 3, 1, 2, 4).reshape(b, length, heads * d).to(q.dtype)
+
+
+def swiglu_plain(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+    """``silu(gate) * up`` in fp32, in ``gate``'s dtype."""
+    return (F.silu(gate.float()) * up.float()).to(gate.dtype)
+
+
+#: the kernels' activation types (the C interface's codes)
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+#: the head sizes the attention kernel is built for: E5-Mistral-7B's and
+#: :meth:`MistralConfig.tiny`'s
+KERNEL_HEAD_DIMS = (16, 128)
+
+#: threads a block of the attention kernel (``kAttnWarps``); a query row
+#: takes ``d / 16`` of them
+_ATTN_BLOCK_THREADS = 256
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_NORM_ARGS = (_P, _I, _P, _P, _I, ctypes.c_longlong, _I, ctypes.c_float, _I, _P)
+_ATTN_ARGS = (_P,) * 7 + (_I,) * 7 + (ctypes.c_float, _I, _P)
+_SWIGLU_ARGS = (_P, _P, _P, _I, ctypes.c_longlong, _I, _P)
+
+
+def _target(named) -> tuple[int, int]:
+    """The CUDA device index and stream of the named tensors, after checking
+    that they share one CUDA device and are contiguous and 16-byte aligned.
+
+    :raises ValueError: When they are not.
+    """
+    devices = {t.device for _, t in named}
+    if len(devices) != 1:
+        raise ValueError(f"all inputs must be on one device, got {sorted(map(str, devices))}")
+    target = _build.cuda_target(named)
+    for name, t in named:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    return target
+
+
+def _activation(name: str, t: torch.Tensor) -> int:
+    if t.dtype not in _DTYPE_CODE:
+        raise TypeError(f"{name} must be float32 or bfloat16, got {t.dtype}")
+    return _DTYPE_CODE[t.dtype]
+
+
+def rms_norm(x: torch.Tensor, gain: torch.Tensor, eps: float,
+             out_dtype: "torch.dtype | None" = None) -> torch.Tensor:
+    """RMSNorm ``x / sqrt(mean(x^2) + eps) * gain`` over the last axis in
+    fp32: the kernel on the card, :func:`rms_norm_plain` on the CPU.
+
+    :param x: Activations ``(..., H)``, fp32 or bf16.
+    :param gain: ``(H,)`` fp32.
+    :param out_dtype: The result's type (``x``'s when ``None``); the card
+        takes fp32 to fp32 and bf16 to bf16 or fp32.
+    :raises TypeError: On a type the kernel does not take.
+    :raises ValueError: On a shape, layout or device it does not take
+        (``H % 8 != 0`` on the card).
+    """
+    out_dtype = x.dtype if out_dtype is None else out_dtype
+    if x.device.type == "cpu":
+        return rms_norm_plain(x, gain, eps, out_dtype)
+    code = _activation("x", x)
+    if out_dtype not in _DTYPE_CODE or (code == 0 and out_dtype != torch.float32):
+        raise TypeError("the card's RMSNorm takes fp32 to fp32 and bf16 to bf16 or fp32, "
+                        f"not {x.dtype} to {out_dtype}")
+    hidden = x.shape[-1]
+    if gain.dtype != torch.float32 or tuple(gain.shape) != (hidden,):
+        raise ValueError(f"gain must be float32 ({hidden},), got {gain.dtype} {tuple(gain.shape)}")
+    if hidden % 8:
+        raise ValueError(f"the card's RMSNorm needs H % 8 == 0, got {hidden}")
+    device, stream = _target((("x", x), ("gain", gain)))
+    out = torch.empty(x.shape, dtype=out_dtype, device=x.device)
+    _build.bind("decoder", _NORM_ARGS, "decoder_rms_norm")(
+        x.data_ptr(), code, gain.data_ptr(), out.data_ptr(), _DTYPE_CODE[out_dtype],
+        x.numel() // hidden, hidden, eps, device, stream)
+    _build.count_launch(rms_norm)
+    return out
+
+
+def rope_attention(q, k, v, cos, sin, attention_mask, window) -> torch.Tensor:
+    """RoPE on ``q`` and ``k`` (fp32, from :func:`rope_tables`), then causal
+    windowed grouped-query attention (:func:`allowed_keys`; query head ``j``
+    on key/value head ``j // (heads / kv_heads)``), logits over
+    ``sqrt(d)``, softmax and context in fp32: the kernel on the card,
+    :func:`rope_attention_plain` on the CPU.
+
+    :param q: ``(B, L, heads, d)``, fp32 or bf16, as the q GEMM wrote it.
+    :param k: ``(B, L, kv_heads, d)``, as ``q``; ``v`` the same.
+    :param cos: ``(L, d)`` fp32; ``sin`` the same.
+    :param attention_mask: ``(B, L)``, 1 for real tokens (int32 on the card
+        saves a conversion).
+    :param window: Keys within ``q - k < window``, or ``None``.
+    :return: The context ``(B, L, heads * d)`` in ``q``'s type, as the o
+        GEMM reads it.
+    :raises TypeError: On a type the kernel does not take.
+    :raises ValueError: On a shape, layout or device it does not take.
+    """
+    if q.device.type == "cpu":
+        return rope_attention_plain(q, k, v, cos, sin, attention_mask, window)
+    code = _activation("q", q)
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q, k and v must share a type, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if q.ndim != 4 or k.ndim != 4 or tuple(k.shape) != tuple(v.shape) or k.shape[:2] != q.shape[:2] \
+            or k.shape[3] != q.shape[3] or q.shape[2] % k.shape[2]:
+        raise ValueError(f"q must be (B, L, heads, d) and k, v (B, L, kv_heads, d) with kv_heads "
+                         f"dividing heads, got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    b, length, heads, d = q.shape
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"the card's attention takes head sizes {KERNEL_HEAD_DIMS}, got {d}")
+    for name, t in (("cos", cos), ("sin", sin)):
+        if t.dtype != torch.float32 or tuple(t.shape) != (length, d):
+            raise ValueError(f"{name} must be float32 ({length}, {d}), got {t.dtype} {tuple(t.shape)}")
+    if tuple(attention_mask.shape) != (b, length):
+        raise ValueError(f"attention_mask must be ({b}, {length}), got {tuple(attention_mask.shape)}")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be None or positive, got {window}")
+    if -(-length * (heads // k.shape[2]) // (_ATTN_BLOCK_THREADS * 16 // d)) > 65535:
+        raise ValueError(f"{length} positions x {heads // k.shape[2]} query heads a key/value head "
+                         "exceed the attention kernel's grid")
+    mask = attention_mask if attention_mask.dtype == torch.int32 else attention_mask.to(torch.int32)
+    device, stream = _target((("q", q), ("k", k), ("v", v), ("cos", cos), ("sin", sin),
+                              ("attention_mask", mask)))
+    out = torch.empty((b, length, heads * d), dtype=q.dtype, device=q.device)
+    _build.bind("decoder", _ATTN_ARGS, "decoder_attention")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), cos.data_ptr(), sin.data_ptr(), mask.data_ptr(),
+        out.data_ptr(), code, b, length, heads, k.shape[2], d, window or 0, 1 / math.sqrt(d),
+        device, stream)
+    _build.count_launch(rope_attention)
+    return out
+
+
+def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+    """``silu(gate) * up`` in fp32, in ``gate``'s type: the kernel on the
+    card, :func:`swiglu_plain` on the CPU.
+
+    :raises TypeError: On a type the kernel does not take.
+    :raises ValueError: On a shape, layout or device it does not take.
+    """
+    if gate.device.type == "cpu":
+        return swiglu_plain(gate, up)
+    code = _activation("gate", gate)
+    if up.dtype != gate.dtype or up.shape != gate.shape:
+        raise ValueError(f"up must match gate, got {up.dtype} {tuple(up.shape)} and "
+                         f"{gate.dtype} {tuple(gate.shape)}")
+    device, stream = _target((("gate", gate), ("up", up)))
+    out = torch.empty_like(gate)
+    _build.bind("decoder", _SWIGLU_ARGS, "decoder_swiglu")(
+        gate.data_ptr(), up.data_ptr(), out.data_ptr(), code, gate.numel(), device, stream)
+    _build.count_launch(swiglu)
+    return out
+
+
+#: launches of each kernel (the plain versions do not count)
+rms_norm.launches = rope_attention.launches = swiglu.launches = 0
+
+#: the wrappers whose launches ``encoder.transformer.TOWER_STATS`` counts
+KERNELS = (rms_norm, rope_attention, swiglu)
 
 
 class MistralTower(nn.Module):
@@ -220,37 +417,28 @@ class MistralTower(nn.Module):
         cfg = self.config
         with fp32_matmul(input_ids.device):
             cos, sin = rope_tables(input_ids.shape[1], cfg.head_dim, cfg.rope_theta, input_ids.device)
-            allowed = allowed_keys(attention_mask, cfg.sliding_window)
+            keys = attention_mask.to(torch.int32)
             x = self.embed[input_ids]
             for layer in self.layers:
                 with annotate("ff.attn"):
-                    x = self._attention(x, layer, cos, sin, allowed)
+                    x = self._attention(x, layer, cos, sin, keys)
                 with annotate("ff.mlp"):
                     x = self._mlp(x, layer)
-            return F.rms_norm(x.float(), (x.shape[-1],), self.norm, cfg.rms_norm_eps)
+            return rms_norm(x, self.norm, cfg.rms_norm_eps, torch.float32)
 
-    def _attention(self, x, p, cos, sin, allowed) -> torch.Tensor:
+    def _attention(self, x, p, cos, sin, keys) -> torch.Tensor:
         cfg = self.config
         b, length, _ = x.shape
-        kv, d = cfg.num_kv_heads, cfg.head_dim
-        group = cfg.num_heads // kv
         h = rms_norm(x, p.attn_norm, cfg.rms_norm_eps)
-        # (B, L, heads, d) -> (B, kv, group, L, d): query head j = (j // group, j % group)
-        q = apply_rope(F.linear(h, p.q).view(b, length, kv * group, d).float(), cos, sin)
-        k = apply_rope(F.linear(h, p.k).view(b, length, kv, d).float(), cos, sin)
-        q = q.view(b, length, kv, group, d).permute(0, 2, 3, 1, 4)
-        k = k.permute(0, 2, 1, 3)[:, :, None]
-        v = F.linear(h, p.v).view(b, length, kv, d).permute(0, 2, 1, 3)[:, :, None].float()
-        logits = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(d)
-        logits = logits.masked_fill(~allowed, torch.finfo(torch.float32).min)
-        ctx = torch.matmul(torch.softmax(logits, dim=-1), v)  # (B, kv, group, L, d)
-        ctx = ctx.permute(0, 3, 1, 2, 4).reshape(b, length, kv * group * d).to(x.dtype)
+        q = F.linear(h, p.q).view(b, length, cfg.num_heads, cfg.head_dim)
+        k = F.linear(h, p.k).view(b, length, cfg.num_kv_heads, cfg.head_dim)
+        v = F.linear(h, p.v).view(b, length, cfg.num_kv_heads, cfg.head_dim)
+        ctx = rope_attention(q, k, v, cos, sin, keys, cfg.sliding_window)
         return x + F.linear(ctx, p.o)
 
     def _mlp(self, x, p) -> torch.Tensor:
         h = rms_norm(x, p.mlp_norm, self.config.rms_norm_eps)
-        act = F.silu(F.linear(h, p.gate).float()) * F.linear(h, p.up).float()
-        return x + F.linear(act.to(x.dtype), p.down)
+        return x + F.linear(swiglu(F.linear(h, p.gate), F.linear(h, p.up)), p.down)
 
 
 def pool_last_token(hidden: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:

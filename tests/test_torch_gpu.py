@@ -1190,3 +1190,160 @@ def test_cuda_progressive_preload(cuda, monkeypatch):
     table = index._device_view().table[: corpus.shape[0]].cpu().numpy()
     np.testing.assert_array_equal(table, corpus)
     _assert_rankings_close(want, index(ranking))
+
+
+# -- the decoder's kernels (models/mistral.py, ops/csrc/decoder.cu) ---------------
+
+#: (hidden, heads, kv_heads, head_dim, ffn, window): E5-Mistral-7B's widths,
+#: and MistralConfig.tiny()'s
+DECODER_WIDTHS = {"e5": (4096, 32, 8, 128, 14336, 4096), "tiny": (64, 4, 2, 16, 128, 8)}
+
+
+def _bf16_step(want: torch.Tensor) -> float:
+    """One bf16 step at the largest magnitude: where kernel and plain
+    version both round an fp32 value to bf16, their fp32 values differ in
+    the last bits, and a value next to a rounding boundary may land one
+    step apart."""
+    return 2.0**-8 * want.abs().max().item()
+
+
+def _decoder_mask(batch: int, length: int) -> torch.Tensor:
+    """Right padding: the first row full, the second one real token (its
+    positions past the window see no key), the rest from the seed."""
+    lengths = np.random.default_rng(length).integers(1, length + 1, size=batch)
+    lengths[0], lengths[1 % batch] = length, 1 if batch > 1 else length
+    return torch.from_numpy(np.arange(length)[None] < lengths[:, None]).to(torch.int32)
+
+
+@pytest.mark.parametrize("length", [1, 7, 31, 64, 300])
+@pytest.mark.parametrize("widths", list(DECODER_WIDTHS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_cuda_decoder_kernels_match_plain(cuda, dtype, widths, length):
+    """RMSNorm, RoPE + attention and SwiGLU on the card against their plain
+    versions on the card (the same inputs; TF32 off): fp32 within 1e-5 of
+    the largest output (sums in other orders; the attention's online
+    softmax), bf16 within one bf16 step.  The attention runs with its
+    window and with a window of 5 (shorter than L from 7 on)."""
+    from fastforward_tpu_torch.models import mistral
+
+    from .plain_mistral import no_tf32
+
+    hidden, heads, kv, d, ffn, window = DECODER_WIDTHS[widths]
+    batch = 3 if widths == "e5" and length == 300 else 8
+    gen = torch.Generator(cuda).manual_seed(length)
+
+    def act(*shape):
+        return torch.randn(*shape, device=cuda, generator=gen).to(dtype)
+
+    def close(got, want):
+        assert got.dtype == want.dtype and got.shape == want.shape
+        got, want = got.float(), want.float()
+        tol = 1e-5 * want.abs().max().item() if dtype == torch.float32 else _bf16_step(want)
+        torch.testing.assert_close(got, want, atol=tol, rtol=0)
+
+    x, gain = 3 * act(batch, length, hidden), 1 + 0.1 * torch.randn(hidden, device=cuda, generator=gen)
+    mask = _decoder_mask(batch, length).to(cuda)
+    cos, sin = mistral.rope_tables(length, d, 10000.0, cuda)
+    q, k, v = act(batch, length, heads, d), act(batch, length, kv, d), act(batch, length, kv, d)
+    gate, up = act(batch, length, ffn), act(batch, length, ffn)
+    with no_tf32(), torch.inference_mode():
+        close(mistral.rms_norm(x, gain, 1e-5), mistral.rms_norm_plain(x, gain, 1e-5, dtype))
+        close(mistral.rms_norm(x, gain, 1e-5, torch.float32),
+              mistral.rms_norm_plain(x, gain, 1e-5, torch.float32))
+        for w in (window, 5):
+            close(mistral.rope_attention(q, k, v, cos, sin, mask, w),
+                  mistral.rope_attention_plain(q, k, v, cos, sin, mask, w))
+        close(mistral.swiglu(gate, up), mistral.swiglu_plain(gate, up))
+        torch.cuda.synchronize()
+
+
+def test_cuda_decoder_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    from fastforward_tpu_torch.models import mistral
+
+    x, gain = torch.randn(2, 3, 64, device=cuda), torch.ones(64, device=cuda)
+    q, k = torch.randn(2, 3, 4, 16, device=cuda), torch.randn(2, 3, 2, 16, device=cuda)
+    cos, sin = mistral.rope_tables(3, 16, 10000.0, cuda)
+    mask = torch.ones(2, 3, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        mistral.rms_norm(x.half(), gain, 1e-5)
+    with pytest.raises(TypeError):
+        mistral.rms_norm(x, gain, 1e-5, torch.bfloat16)  # fp32 to bf16
+    with pytest.raises(ValueError, match="one device"):
+        mistral.rms_norm(x, gain.cpu(), 1e-5)
+    with pytest.raises(ValueError, match="contiguous"):
+        mistral.rms_norm(x.transpose(0, 1), gain, 1e-5)
+    with pytest.raises(ValueError, match="H % 8"):
+        mistral.rms_norm(x[..., :60].contiguous(), gain[:60].contiguous(), 1e-5)
+    with pytest.raises(TypeError):
+        mistral.rope_attention(q.half(), k.half(), k.half(), cos, sin, mask, None)
+    with pytest.raises(ValueError, match="one device"):
+        mistral.rope_attention(q, k.cpu(), k, cos, sin, mask, None)
+    with pytest.raises(ValueError, match="contiguous"):
+        mistral.rope_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, k, cos, sin, mask, None)
+    with pytest.raises(ValueError, match="head sizes"):
+        mistral.rope_attention(q[..., :8].contiguous(), k[..., :8].contiguous(), k[..., :8].contiguous(),
+                               cos[:, :8].contiguous(), sin[:, :8].contiguous(), mask, None)
+    with pytest.raises(ValueError, match="kv_heads"):
+        mistral.rope_attention(q[:, :, :3].contiguous(), k, k, cos, sin, mask, None)
+    with pytest.raises(ValueError):
+        mistral.swiglu(x, x.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="one device"):
+        mistral.swiglu(x, x.cpu())
+
+
+def _seeded_tower(cfg, device) -> "torch.nn.Module":
+    """A tower of ``cfg`` on weights drawn from a seed: matrices N(0, 0.02^2),
+    gains 1 + N(0, 0.02^2), embeddings N(0, 1) (E5's initializer range)."""
+    from fastforward_tpu_torch.models import mistral
+
+    gen = torch.Generator(device).manual_seed(5)
+    dt = torch.float32 if cfg.dtype == "float32" else torch.bfloat16
+
+    def made(shape, kind):
+        t = torch.randn(shape, device=device, generator=gen)
+        return (t if kind == "embed" else (1 + 0.02 * t) if kind == "gain" else 0.02 * t).to(
+            torch.float32 if kind == "gain" else dt)
+
+    state = {"embed_tokens.weight": made((cfg.vocab_size, cfg.hidden_size), "embed"),
+             "norm.weight": made((cfg.hidden_size,), "gain")}
+    for i in range(cfg.num_layers):
+        for key, name in mistral.LAYER_NAMES.items():
+            state[f"layers.{i}.{name}"] = made(cfg.shapes()[key], "gain" if key in mistral.NORMS else "w")
+    return mistral.MistralTower.from_arrays(cfg, state)
+
+
+@pytest.mark.parametrize("widths", ["tiny", "e5"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_mistral_tower_kernels_match_the_plain_tower(cuda, monkeypatch, dtype, widths):
+    """The tower on the card (two layers; the tiny config, or E5-Mistral's
+    widths) through its kernels against the same tower with the plain
+    versions on the card, at 8 right-padded sequences of up to 31 tokens
+    (one of a single token): fp32 within 1e-4 of the largest output (fp32
+    sums in other orders, through two layers), bf16 within eight bf16 steps
+    (a bf16 rounding one step apart in a layer moves what follows).  Each
+    forward launches each layer's two norms, attention and SwiGLU and the
+    final norm, and the plain tower none."""
+    from fastforward_tpu_torch.models import mistral
+
+    base = mistral.MistralConfig.tiny() if widths == "tiny" else mistral.MistralConfig(
+        num_layers=2, vocab_size=1024)
+    cfg = dataclasses.replace(base, dtype=dtype)
+    tower = _seeded_tower(cfg, cuda).eval()
+    mask = _decoder_mask(8, 31).to(cuda)
+    gen = torch.Generator(cuda).manual_seed(6)
+    ids = torch.randint(0, cfg.vocab_size, (8, 31), device=cuda, generator=gen)
+    before = [kernel.launches for kernel in mistral.KERNELS]
+    with torch.inference_mode():
+        got = tower(ids, mask)
+        counts = [kernel.launches - b for kernel, b in zip(mistral.KERNELS, before)]
+        for name in ("rms_norm", "rope_attention", "swiglu"):
+            monkeypatch.setattr(mistral, name, getattr(mistral, f"{name}_plain") if name != "rms_norm"
+                                else lambda x, g, eps, out_dtype=None: mistral.rms_norm_plain(
+                                    x, g, eps, x.dtype if out_dtype is None else out_dtype))
+        want = tower(ids, mask)
+    assert counts == [2 * cfg.num_layers + 1, cfg.num_layers, cfg.num_layers]
+    assert [kernel.launches for kernel in mistral.KERNELS] == [b + c for b, c in zip(before, counts)]
+    assert got.dtype == want.dtype == torch.float32
+    real = mask.bool()
+    tol = 1e-4 if dtype == "float32" else 8 * 2.0**-8
+    torch.testing.assert_close(got[real], want[real], atol=tol * want[real].abs().max().item(), rtol=0)

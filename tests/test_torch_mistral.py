@@ -12,6 +12,8 @@ EOS, last-token pooling and normalization, and through
 decoder.
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -161,6 +163,75 @@ def test_last_token_pooling_reads_each_rows_last_real_position():
     assert torch.equal(mistral.pool_last_token(hidden, mask), hidden[[0, 1], [2, 4]])
 
 
+# -- the fp32 chains between the GEMMs ----------------------------------------------
+
+
+def _rope_attention_f64(q, k, v, cos, sin, mask, window):
+    """The attention of :func:`mistral.rope_attention` as a float64 loop over
+    sequences, query heads and positions: RoPE with the given tables, the
+    keys a position sees (causal, within the window, not padding), logits
+    over ``sqrt(d)``, softmax, context.  A position that sees no key gets
+    the mean of v over all keys (the softmax of logits that all read the
+    same masked value)."""
+    q, k, v, cos, sin = (t.double() for t in (q, k, v, cos, sin))
+    b, length, heads, d = q.shape
+    group = heads // k.shape[2]
+
+    def rope(t, p):
+        return t * cos[p] + torch.cat([-t[d // 2 :], t[: d // 2]]) * sin[p]
+
+    out = torch.zeros(b, length, heads, d, dtype=torch.float64)
+    for s in range(b):
+        for j in range(heads):
+            for p in range(length):
+                keys = [t for t in range(p + 1) if mask[s, t] and (window is None or p - t < window)]
+                if not keys:
+                    out[s, p, j] = v[s, :, j // group].mean(0)
+                    continue
+                qr = rope(q[s, p, j], p)
+                logits = torch.stack([qr @ rope(k[s, t, j // group], t) for t in keys]) / math.sqrt(d)
+                out[s, p, j] = torch.softmax(logits, 0) @ v[s, keys, j // group]
+    return out.reshape(b, length, heads * d)
+
+
+@pytest.mark.parametrize("group", [2, 4], ids=lambda g: f"group{g}")
+@pytest.mark.parametrize("window", [5, None], ids=lambda w: f"window{w}")
+def test_rope_attention_matches_a_float64_loop(group, window):
+    """Right padding (lengths 12, 7 and a row of one real token), a window
+    shorter than L, 2 and 4 query heads a key/value head: the plain version
+    within 1e-5 of float64 (fp32 against float64 on the same tables)."""
+    gen = torch.Generator().manual_seed(11)
+    b, length, kv, d = 3, 12, 2, 16
+    q = torch.randn(b, length, kv * group, d, generator=gen)
+    k, v = torch.randn(b, length, kv, d, generator=gen), torch.randn(b, length, kv, d, generator=gen)
+    mask = torch.zeros(b, length, dtype=torch.int32)
+    for row, n in enumerate([12, 7, 1]):
+        mask[row, :n] = 1
+    cos, sin = mistral.rope_tables(length, d, 10000.0, "cpu")
+    got = mistral.rope_attention(q, k, v, cos, sin, mask, window)
+    want = _rope_attention_f64(q, k, v, cos, sin, mask, window)
+    assert got.dtype == torch.float32 and got.shape == (b, length, kv * group * d)
+    assert float((got.double() - want).abs().max() / want.abs().max()) < FP32_TOL
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_swiglu_and_rms_norm_match_float64(dtype):
+    """fp32 within 1e-6 of float64; bf16 inputs within one bf16 step of the
+    float64 result of the same inputs (the one rounding to bf16)."""
+    gen = torch.Generator().manual_seed(12)
+    x = (3 * torch.randn(4, 5, 64, generator=gen)).to(dtype)
+    gain = 1 + 0.1 * torch.randn(64, generator=gen)
+    gate, up = (torch.randn(4, 5, 128, generator=gen).to(dtype) for _ in range(2))
+    xd, gd, ud = x.double(), gate.double(), up.double()
+    norm = xd / torch.sqrt((xd * xd).mean(-1, keepdim=True) + 1e-5) * gain.double()
+    for got, want in ((mistral.swiglu(gate, up), gd * torch.sigmoid(gd) * ud),
+                      (mistral.rms_norm(x, gain, 1e-5), norm),
+                      (mistral.rms_norm(x, gain, 1e-5, torch.float32), norm)):
+        tol = 1e-6 if got.dtype == torch.float32 else 2.0**-8
+        assert float((got.double() - want).abs().max() / want.abs().max()) < tol, got.dtype
+    assert mistral.swiglu(gate, up).dtype == dtype and mistral.rms_norm(x, gain, 1e-5).dtype == dtype
+
+
 # -- the encoder -------------------------------------------------------------------
 
 
@@ -235,10 +306,14 @@ def test_the_tower_counter_counts_sequences_real_and_padded_tokens(checkpoint):
     transformer.reset_tower_stats()
     encoder(TEXTS)
     lengths = [16 + len(t.split()) for t in TEXTS]
+    # the CPU tower runs the plain versions: no kernel launches
     assert transformer.TOWER_STATS == {"sequences": 3, "real_tokens": sum(lengths),
-                                       "padded_tokens": 3 * max(lengths)}
+                                       "padded_tokens": 3 * max(lengths),
+                                       "rms_norm": 0, "rope_attention": 0, "swiglu": 0}
+    mistral.swiglu.launches = 3  # as a card would have counted
     transformer.reset_tower_stats()
     assert set(transformer.TOWER_STATS.values()) == {0}
+    assert [kernel.launches for kernel in mistral.KERNELS] == [0, 0, 0]
 
 
 def test_an_index_reranks_with_the_e5_encoder(checkpoint):
