@@ -2813,11 +2813,11 @@ def sharded_phase(index, pq_index, ranking, doc_rank, sparse, corpus, corpus_dev
     # phases 3 and 12 are made again: later phases' plans evict them)
     index.mode = Mode.PASSAGE
     index(ranking)
-    plan = index._get_plan(ranking)
-    q_pad = index._pad_queries(index.encode_queries(plan["queries"]), view)
-    rows, qno = plan["rows_mat"][:, 0].astype(np.int64), plan["pair_qno"]
+    cands = index._get_plan(ranking)["cands"]
+    q_pad = index._pad_queries(index.encode_queries(cands.queries), view)
+    rows, qno = cands.rows_mat[:, 0].astype(np.int64), cands.pair_qno
     # the plan numbers queries by first appearance: its query block is the reference's
-    ref = pairs_exact(corpus_dev, torch.from_numpy(q_pad).cuda(), plan["rows_mat"], plan["counts_pp"],
+    ref = pairs_exact(corpus_dev, torch.from_numpy(q_pad).cuda(), cands.rows_mat, cands.counts_pp,
                       qno, "first", DIM)
     sh_plan: dict = {}
     one_plan: dict = {}  # the single table's layout, kept as the sharded one is
@@ -2832,14 +2832,14 @@ def sharded_phase(index, pq_index, ranking, doc_rank, sparse, corpus, corpus_dev
     # MAXP: phase 12's layout with the K-reduce after the combine
     index.mode = Mode.MAXP
     index(doc_rank)
-    dplan = index._get_plan(doc_rank)
-    k = dplan["k"]
-    rows_d = dplan["rows_mat"].reshape(-1).astype(np.int64)
-    qno_d = np.repeat(dplan["pair_qno"], k)
-    counts_dev = torch.from_numpy(dplan["counts_pp"].astype(np.int32)).cuda()
-    q_doc = index._pad_queries(index.encode_queries(dplan["queries"]), view)
-    ref_d = pairs_exact(corpus_dev, torch.from_numpy(q_doc).cuda(), dplan["rows_mat"],
-                        dplan["counts_pp"], dplan["pair_qno"], "max", DIM)
+    dcands = index._get_plan(doc_rank)["cands"]
+    k = dcands.k
+    rows_d = dcands.rows_mat.reshape(-1).astype(np.int64)
+    qno_d = np.repeat(dcands.pair_qno, k)
+    counts_dev = torch.from_numpy(dcands.counts_pp.astype(np.int32)).cuda()
+    q_doc = index._pad_queries(index.encode_queries(dcands.queries), view)
+    ref_d = pairs_exact(corpus_dev, torch.from_numpy(q_doc).cuda(), dcands.rows_mat,
+                        dcands.counts_pp, dcands.pair_qno, "max", DIM)
     sh_doc: dict = {}
     one_doc: dict = {}
     run_sharded(
@@ -2853,8 +2853,8 @@ def sharded_phase(index, pq_index, ranking, doc_rank, sparse, corpus, corpus_dev
     )
     index.mode = Mode.PASSAGE
     # the sparse run: the gather path on each shard's rows, no kernel
-    sp = index._candidate_arrays(sparse._df)
-    _, sp_rows, sp_counts, sp_k, _ = sp
+    sp = index._candidates(sparse, None)
+    sp_rows, sp_counts, sp_k = sp.rows_mat, sp.counts_pp, sp.k
     sp_qno = sparse._df["q_id"].map(lambda q: int(q[1:])).to_numpy(dtype=np.int64)
     q_sp = np.zeros((scoring.bucket(QUERIES), DIM), dtype=np.float32)
     q_sp[:QUERIES] = qvecs_dev.cpu().numpy()
@@ -2878,11 +2878,11 @@ def sharded_phase(index, pq_index, ranking, doc_rank, sparse, corpus, corpus_dev
     pq_cb = multihost.put_replicated(mesh, np.asarray(pq_index.quantizer.codewords, dtype=np.float32))
     pq_index.mode = Mode.PASSAGE
     pq_index(ranking)
-    pq_plan = pq_index._get_plan(ranking)
-    q_pq = pq_index._pad_queries(pq_index.encode_queries(pq_plan["queries"]), pq_view)
-    pq_rows_, pq_qno = pq_plan["rows_mat"][:, 0].astype(np.int64), pq_plan["pair_qno"]
+    pq_cands = pq_index._get_plan(ranking)["cands"]
+    q_pq = pq_index._pad_queries(pq_index.encode_queries(pq_cands.queries), pq_view)
+    pq_rows_, pq_qno = pq_cands.rows_mat[:, 0].astype(np.int64), pq_cands.pair_qno
     ref_pq = pairs_exact(pq_rows(codes, pq_index.quantizer.codewords), torch.from_numpy(q_pq).cuda(),
-                         pq_plan["rows_mat"], pq_plan["counts_pp"], pq_qno, "first", DIM)
+                         pq_cands.rows_mat, pq_cands.counts_pp, pq_qno, "first", DIM)
     sh_pq: dict = {}
     one_pq: dict = {}
     run_sharded(
@@ -3471,14 +3471,15 @@ def main() -> int:
     mem_maxp = warm  # phase 19's disk index must equal it bit for bit
     flows["doc_maxp_rerank"] = {"cold_ms": cold_ms, "warm_ms": warm_ms, "qps": QUERIES / warm_ms * 1e3}
     doc_plan = index._get_plan(doc_rank)
-    doc_k = doc_plan["k"]
+    doc_cands = doc_plan["cands"]
+    doc_k = doc_cands.k
     doc_inputs = (doc_plan["stream"][0], doc_plan["stream"][1], doc_plan["q_dev"][1])
     # the same rows without the K-padding: each pair's real rows only
-    valid = np.arange(doc_k)[None, :] < doc_plan["counts_pp"][:, None]
-    real_rows = doc_plan["rows_mat"][valid].astype(np.int64)
-    real_qno = np.repeat(doc_plan["pair_qno"], doc_plan["counts_pp"])
+    valid = np.arange(doc_k)[None, :] < doc_cands.counts_pp[:, None]
+    real_rows = doc_cands.rows_mat[valid].astype(np.int64)
+    real_qno = np.repeat(doc_cands.pair_qno, doc_cands.counts_pp)
     log(f"[doc] MAXP: {len(doc_rank._df)} pairs, K {doc_k}, {real_rows.shape[0]} real rows "
-        f"({np.unique(real_rows).shape[0]} distinct), {doc_plan['rows_mat'].size} slots; "
+        f"({np.unique(real_rows).shape[0]} distinct), {doc_cands.rows_mat.size} slots; "
         f"layout {tuple(doc_inputs[0].shape)}; re-rank cold {cold_ms:.1f} ms, warm median "
         f"{warm_ms:.2f} ms")
     for label, refine in (("doc_maxp_serve", None), ("doc_maxp_serve_refine", REFINE)):

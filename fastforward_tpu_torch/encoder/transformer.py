@@ -46,38 +46,6 @@ _TOWERS = {
     "mistral": mistral.from_hf_torch,
 }
 
-#: every tower micro-batch's sequences, their real (mask 1) tokens and the
-#: tokens the padded batches ran (sequences x padded length), and the
-#: launches of each decoder kernel (``models.mistral.KERNELS``, by wrapper
-#: name: ``rms_norm``, ``rope_attention``, ``swiglu``; copied from the
-#: wrappers' counters after each ``MistralTower`` micro-batch); reset with
-#: :func:`reset_tower_stats`
-TOWER_STATS = {"sequences": 0, "real_tokens": 0, "padded_tokens": 0,
-               **{kernel.__name__: 0 for kernel in mistral.KERNELS}}
-_TOWER_STATS_LOCK = threading.Lock()
-
-
-def reset_tower_stats() -> None:
-    """Zero the tower counters and the decoder kernels' launch counters."""
-    with _TOWER_STATS_LOCK:
-        TOWER_STATS.update(sequences=0, real_tokens=0, padded_tokens=0)
-        for kernel in mistral.KERNELS:
-            kernel.launches = TOWER_STATS[kernel.__name__] = 0
-
-
-def _count_tower(mask: np.ndarray) -> None:
-    with _TOWER_STATS_LOCK:
-        TOWER_STATS["sequences"] += mask.shape[0]
-        TOWER_STATS["real_tokens"] += int(mask.sum())
-        TOWER_STATS["padded_tokens"] += mask.size
-
-
-def _count_kernels() -> None:
-    with _TOWER_STATS_LOCK:
-        for kernel in mistral.KERNELS:
-            TOWER_STATS[kernel.__name__] = kernel.launches
-
-
 class TransformerEncoder(Encoder):
     """Encoder backed by a pre-trained Transformer (BERT, DistilBERT or
     Mistral, by the checkpoint's ``model_type``).
@@ -160,13 +128,10 @@ class TransformerEncoder(Encoder):
     def _encode(self, texts: Sequence[str]) -> np.ndarray:
         with annotate("ff.tokenize"), self._tokenizer_lock:
             ids_np, mask_np = self._tokenize(texts)
-        _count_tower(mask_np)
         with annotate("ff.tower"), torch.inference_mode():
             ids = torch.from_numpy(ids_np).to(self._device)
             mask = torch.from_numpy(mask_np).to(self._device)
             hidden = self._tower(ids, mask)
-            if isinstance(self._tower, mistral.MistralTower):
-                _count_kernels()
             pooled = _POOLING[self._pooling](hidden, mask)
             if self._normalize:
                 pooled = bert.l2_normalize(pooled)

@@ -291,27 +291,6 @@ def _cat_from_codes(codes: np.ndarray, dtype: "pd.CategoricalDtype") -> "pd.Cate
         return pd.Categorical.from_codes(codes, dtype=dtype)
 
 
-#: a fresh plan's result-column builds by the route that numbered the ``id``
-#: column: ``rows`` (each pair's table row, numbered natively), ``factorize``
-#: (the grouped modes' factorize from ``ff.resolve``, reused), and
-#: ``fallback`` (``pd.Categorical`` of the column: no numbering, no native
-#: library, or an ``id`` column that is categorical already); reset with
-#: :func:`reset_column_stats`
-COLUMN_STATS = {"rows": 0, "factorize": 0, "fallback": 0}
-_COLUMN_STATS_LOCK = threading.Lock()
-
-
-def reset_column_stats() -> None:
-    """Zero the result-column route counters."""
-    with _COLUMN_STATS_LOCK:
-        COLUMN_STATS.update(rows=0, factorize=0, fallback=0)
-
-
-def _count_columns(route: str) -> None:
-    with _COLUMN_STATS_LOCK:
-        COLUMN_STATS[route] += 1
-
-
 def _per_query_categorical(col: pd.Series, heads: np.ndarray, q_no: np.ndarray) -> "pd.Categorical":
     """``pd.Categorical(col)`` for a column constant on each query's rows:
     the categories of the queries' own values (``heads`` holds each query
@@ -323,10 +302,10 @@ def _per_query_categorical(col: pd.Series, heads: np.ndarray, q_no: np.ndarray) 
 
 def _sorted_id_categorical(
     id_col: pd.Series, numbering, ranks: np.ndarray
-) -> "tuple[str, pd.Categorical] | None":
+) -> "pd.Categorical | None":
     """``pd.Categorical(id_col)`` from ``ff.resolve``'s numbering, with no
-    string hashed or compared: the route and the column, or ``None`` where
-    the native library is missing.
+    string hashed or compared, or ``None`` where the native library is
+    missing.
 
     ``numbering`` is each pair's table row, or the ids' factorize with a
     table row of each distinct id; the native numbering of those rows by
@@ -336,15 +315,16 @@ def _sorted_id_categorical(
     """
     from fastforward_tpu_torch.runtime.idmap import number_rows, take_strings
 
-    if isinstance(numbering, np.ndarray):
-        route, rows = "rows", numbering
+    by_rows = isinstance(numbering, np.ndarray)
+    if by_rows:
+        rows = numbering
     else:
-        route, (pair_codes, uniques, rows) = "factorize", numbering
+        pair_codes, uniques, rows = numbering
     numbered = number_rows(rows, ranks)
     if numbered is None:
         return None
     codes, first = numbered
-    if route == "rows":
+    if by_rows:
         gathered = take_strings(id_col, first)
         if gathered is None:
             categories = id_col.array.take(first)
@@ -356,7 +336,7 @@ def _sorted_id_categorical(
         codes = codes[pair_codes]
     # unique by construction: no second hash to check it
     dtype = pd.CategoricalDtype._from_fastpath(pd.Index(categories), ordered=False)
-    return route, _cat_from_codes(codes, dtype)
+    return _cat_from_codes(codes, dtype)
 
 
 def _result_columns(
@@ -374,7 +354,6 @@ def _result_columns(
     (``numbering``, see :func:`_sorted_id_categorical`) and sorted by the
     id map's ``ranks``; without them, or for an ``id`` column that is
     categorical already, it is ``pd.Categorical`` of the column.
-    :data:`COLUMN_STATS` counts the route.
     """
     q_no = df["q_no"].to_numpy()
     q_head = np.diff(q_no, prepend=-1) != 0  # the first row of each query run
@@ -389,15 +368,15 @@ def _result_columns(
         qid_arr = pd.Categorical(df["q_id"])
         query_arr = pd.Categorical(df["query"])
 
-    built = None
+    id_arr = None
     if (
         numbering is not None
         and ranks is not None
         and not isinstance(df["id"].dtype, pd.CategoricalDtype)
     ):
-        built = _sorted_id_categorical(df["id"], numbering, ranks)
-    route, id_arr = built or ("fallback", pd.Categorical(df["id"]))
-    _count_columns(route)
+        id_arr = _sorted_id_categorical(df["id"], numbering, ranks)
+    if id_arr is None:
+        id_arr = pd.Categorical(df["id"])
     return qid_arr, id_arr, query_arr
 
 
@@ -585,16 +564,84 @@ def _slot_matrix(
     return out
 
 
-def _numbered_frame(ranking: Ranking) -> "tuple[pd.DataFrame, list, pd.Index]":
-    """A copy of the ranking's frame with dense query numbers ``q_no``
-    (``pd.factorize`` numbers queries by first appearance), the query
-    strings in that order and the unique ``q_id`` values."""
+@dataclass(frozen=True, eq=False)
+class _Candidates:
+    """A ranking's candidates, numbered and resolved once for every entry
+    point of :class:`Index`.
+
+    The numbered frame: ``df`` (the ranking's frame with the dense query
+    number of each pair, ``q_no``), ``queries`` and ``q_uniques`` (the query
+    strings and ``q_id`` values by query number) and ``pair_qno``.  Once
+    resolved (``view`` set: the table the rows index), the pairs' table rows
+    in one of two layouts: grouped, ``(rows_mat, counts_pp, k)``, the
+    ``(pairs, K)`` layout of :meth:`Index._device_score_grouped` with K a
+    power of two up to ``Index._MAX_GROUP_K``; or ``flat``, the ``(rows,
+    qno, seg)`` layout of :meth:`Index._device_score_flat` (from
+    :func:`expand_pairs`) for a document of more passages.  ``numbering``
+    says how the ids map to table rows, for a new plan's ``id`` column
+    (:func:`_sorted_id_categorical`): each pair's one row, or the ids'
+    factorize ``(codes, uniques, a row of each unique)``; ``None`` for the
+    flat layout and the host gather.
+    """
+
+    df: "pd.DataFrame | None"
+    queries: "list | None"
+    q_uniques: object
+    pair_qno: np.ndarray
+    view: "DeviceView | None" = None
+    rows_mat: "np.ndarray | None" = None
+    counts_pp: "np.ndarray | None" = None
+    k: int = 0
+    flat: "tuple[np.ndarray, np.ndarray, np.ndarray] | None" = None
+    numbering: object = None
+
+    @property
+    def n_pairs(self) -> int:
+        return self.pair_qno.shape[0]
+
+    def take(self, pos: np.ndarray) -> "_Candidates":
+        """The resolved pairs at ``pos`` (ascending) as a record of their
+        own, in the same layout (no frame)."""
+        if self.flat is None:
+            return dataclasses.replace(
+                self, df=None, pair_qno=self.pair_qno[pos], rows_mat=self.rows_mat[pos],
+                counts_pp=self.counts_pp[pos],
+            )
+        rows, qno, seg = self.flat
+        renumber = np.full(self.n_pairs, -1, dtype=np.int64)
+        renumber[pos] = np.arange(pos.shape[0])
+        kept = renumber[seg] >= 0
+        flat = (rows[kept], qno[kept], renumber[seg[kept]].astype(seg.dtype))
+        return dataclasses.replace(self, df=None, pair_qno=self.pair_qno[pos], flat=flat)
+
+
+def _numbered_frame(ranking: Ranking) -> _Candidates:
+    """The candidates' numbered frame: a copy of the ranking's frame with
+    dense query numbers ``q_no`` (``pd.factorize`` numbers queries by first
+    appearance), the query strings in that order and the unique ``q_id``
+    values (not resolved)."""
     with annotate("ff.frame"):
         df = ranking._df.copy()
         q_codes, q_uniques = pd.factorize(df["q_id"], sort=False)
         df["q_no"] = q_codes
         queries = df.loc[~df["q_id"].duplicated(), "query"].tolist()
-    return df, queries, q_uniques
+    return _Candidates(df, queries, q_uniques, df["q_no"].to_numpy(dtype=np.int64))
+
+
+class _ServeLayout(NamedTuple):
+    """A serve tail's layout on the host: each pair's lexical score
+    (``lex``), each output row's query number (``perm``; rows in output
+    order, ``n_rows`` of them, the rows past ``perm`` empty), and either
+    the slot matrix (``slot``, :func:`_slot_matrix`) or, where each query's
+    pairs are one contiguous range, each row's start and count (``seg``),
+    with the depth axis ``d_max``."""
+
+    lex: np.ndarray
+    perm: np.ndarray
+    n_rows: int
+    slot: "np.ndarray | None"
+    seg: "tuple[np.ndarray, np.ndarray] | None"
+    d_max: int
 
 
 def _query_ranks(q_uniques) -> np.ndarray:
@@ -623,6 +670,33 @@ def _desc_rank_order(qhi: np.ndarray, scores: np.ndarray) -> np.ndarray:
     if order is None:
         order = np.argsort(key, kind="stable")
     return order
+
+
+def _plan_q_ids(plan: dict, q_uniques) -> set:
+    """The ranking's query ids, kept in the plan; a copy each call: rankings
+    must not share the mutable set."""
+    q_ids = plan.get("q_ids_set")
+    if q_ids is None:
+        q_ids = plan["q_ids_set"] = set(np.asarray(q_uniques, dtype=object))
+    return q_ids.copy()
+
+
+def _ordered(result: pd.DataFrame, q_uniques, score_dtype) -> Ranking:
+    """The ranking of scored pairs (``result``'s ``ff_score`` column), its
+    rows ordered by (q_id desc, score desc) with an integer lexsort over
+    the query numbers' ranks instead of a string sort."""
+    with annotate("ff.assemble"):
+        result["score"] = result["ff_score"]
+        order = np.lexsort(
+            (
+                -result["score"].to_numpy(dtype=np.float64),
+                _query_ranks(q_uniques)[result["q_no"].to_numpy()],
+            )
+        )
+        return Ranking(
+            result.iloc[order], name="fast-forward", dtype=score_dtype, copy=False,
+            is_sorted=True,
+        )
 
 
 class ScoreFuture:
@@ -1470,32 +1544,61 @@ class Index(abc.ABC):
         call has a ``numbering`` to order by them (:func:`_result_columns`)."""
         return None if numbering is None else self._ids.ranks(self.mode)
 
-    def _candidate_arrays(
-        self, df: pd.DataFrame
-    ) -> "tuple[DeviceView, np.ndarray, np.ndarray, int, object] | None":
-        """Resolve every row of ``df`` to the grouped candidate arrays
-        ``(view, rows_mat, counts_pp, k, numbering)`` — the ``(pairs, K)``
-        layout of :meth:`_device_score_grouped`, K a power of two, and how
-        the ids map to table rows, for a new plan's ``id`` column
-        (:func:`_sorted_id_categorical`): each pair's one row, or the ids'
-        factorize ``(codes, uniques, a row of each unique)``; ``None``
-        without a device table — or ``None`` when a document has more than
-        ``_MAX_GROUP_K`` passages.
+    def _candidates(
+        self, ranking: Ranking, plan: "dict | None", resolve: bool = True
+    ) -> _Candidates:
+        """The ranking's candidates (:class:`_Candidates`), for every entry
+        point: the plan's record, else the frame numbered under ``ff.frame``
+        (:func:`_numbered_frame`); with ``resolve``, its ids resolved to
+        table rows under ``ff.resolve`` (:meth:`_resolve`).
+
+        The plan keeps the record: resolved against a persistent device
+        table (its view taken anew on every call: a progressive preload
+        swaps the table), numbered only for the host gather, which builds
+        its table for each call.
 
         :raises IndexError: When an ID is missing from the index.
         """
+        view = self._device_view()
+        cands = plan.get("cands") if plan is not None else None
+        if cands is None:
+            cands = _numbered_frame(ranking)
+        elif cands.view is not None and cands.view is not view:
+            # the table changed under the plan (a progressive preload)
+            cands = dataclasses.replace(cands, view=view)
+        frame = cands
+        if resolve and cands.view is None:
+            cands = self._resolve(cands)
+        if plan is not None:
+            plan["cands"] = cands if view is not None else frame
+        return cands
+
+    def _resolve(self, cands: _Candidates) -> _Candidates:
+        """``cands`` resolved (``ff.resolve``): each pair's table rows in the
+        grouped layout, or in the flat one where a document has more than
+        ``_MAX_GROUP_K`` passages; without a device table, against the table
+        the host gather builds for the call (:meth:`_gather_view`).
+
+        :raises IndexError: When an ID is missing from the index.
+        """
+        ids = cands.df["id"]
+        frame = (cands.df, cands.queries, cands.q_uniques, cands.pair_qno)
         with annotate("ff.resolve"):
             table = self._device_view()
             if table is not None and self.mode in (Mode.PASSAGE, Mode.FIRSTP):
                 # exactly one row per pair: resolve the whole id column
                 # directly (zero-copy from the arrow buffers)
-                rows, _ = self._ids.resolve(df["id"], self.mode)
-                return table, rows[:, None], np.ones(len(df), dtype=np.int32), 1, rows
-            pair_id_pos, ids_unique = pd.factorize(df["id"], sort=False)
+                rows, _ = self._ids.resolve(ids, self.mode)
+                return _Candidates(
+                    *frame, view=table, rows_mat=rows[:, None],
+                    counts_pp=np.ones(len(ids), dtype=np.int32), k=1, numbering=rows,
+                )
+            pair_id_pos, ids_unique = pd.factorize(ids, sort=False)
             view, rows_concat, counts = self._gather_view(ids_unique)
             k_max = int(counts.max()) if counts.size else 1
             if k_max > self._MAX_GROUP_K:
-                return None
+                flat = expand_pairs(pair_id_pos.astype(np.int64), cands.pair_qno, rows_concat, counts)
+                return _Candidates(*frame, view=view, flat=flat)
             k = max(1, 1 << (k_max - 1).bit_length())
             rows_mat, counts_pp = expand_pairs_grouped(
                 pair_id_pos.astype(np.int64), rows_concat, counts, k
@@ -1503,89 +1606,63 @@ class Index(abc.ABC):
         numbering = None
         if table is not None:  # the host gather's rows index a table of its own
             numbering = (pair_id_pos, ids_unique, rows_concat[np.cumsum(counts) - counts])
-        return view, rows_mat, counts_pp, k, numbering
+        return _Candidates(
+            *frame, view=view, rows_mat=rows_mat, counts_pp=counts_pp, k=k, numbering=numbering
+        )
 
-    def _compute_scores(self, data: pd.DataFrame, query_vectors: np.ndarray) -> np.ndarray:
-        """Semantic scores for the (query, ID) pairs of ``data`` (columns
-        ``id`` and ``q_no``; ``query_vectors`` is indexed by ``q_no``), one
-        per row in row order: the grouped layout when every document has at
-        most ``_MAX_GROUP_K`` passages, the flat segment path otherwise."""
-        if len(data) == 0:
-            return np.zeros((0,), dtype=np.float32)
-        pair_qno = data["q_no"].to_numpy(dtype=np.int64)
-        prep = self._candidate_arrays(data)
-        if prep is not None:
-            view, rows_mat, counts_pp, k, _ = prep
-            with annotate("ff.score"):
-                return self._device_score_grouped(
-                    view, query_vectors, rows_mat, pair_qno, counts_pp, k
-                )
-        with annotate("ff.resolve"):
-            pair_id_pos, ids_unique = pd.factorize(data["id"], sort=False)
-            view, rows_concat, counts = self._gather_view(ids_unique)
-            rows, qno, seg = expand_pairs(
-                pair_id_pos.astype(np.int64), pair_qno, rows_concat, counts
-            )
-        with annotate("ff.score"):
-            return self._device_score_flat(view, query_vectors, rows, qno, seg, len(data))
-
-    def _score_and_sort(
+    def _compute_scores(
         self,
-        df: pd.DataFrame | None,
+        cands: _Candidates,
         query_vectors: np.ndarray,
-        q_uniques,
+        fetch: bool = True,
+        plan: "dict | None" = None,
+    ) -> "np.ndarray | torch.Tensor":
+        """Semantic scores of a resolved record's pairs (``query_vectors``
+        indexed by query number), one per pair in pair order: the grouped
+        layout through :meth:`_device_score_grouped` (``plan`` caching its
+        device arrays), the flat one through :meth:`_device_score_flat`.
+        With ``fetch=False`` the device tensor is returned."""
+        if fetch and cands.n_pairs == 0:
+            return np.zeros((0,), dtype=np.float32)
+        if cands.flat is not None:
+            rows, qno, seg = cands.flat
+            return self._device_score_flat(
+                cands.view, query_vectors, rows, qno, seg, cands.n_pairs, fetch=fetch
+            )
+        return self._device_score_grouped(
+            cands.view, query_vectors, cands.rows_mat, cands.pair_qno, cands.counts_pp, cands.k,
+            fetch=fetch, plan=plan,
+        )
+
+    def _rerank(
+        self,
+        cands: _Candidates,
+        query_vectors: np.ndarray,
         score_dtype,
-        plan: dict | None = None,
+        plan: "dict | None",
         defer: bool = False,
-    ) -> "Ranking | Callable[[], Ranking] | None":
-        """Fused fast path: device scoring + host result ordering.
+    ) -> "Ranking | Callable[[], Ranking]":
+        """The re-ranked ranking of a resolved record.
 
-        Returns ``None`` when the candidates need the flat segment path
-        (documents with more than ``_MAX_GROUP_K`` passages), or when a
-        ready plan's device table is gone.  With a
-        *ready* ``plan`` (a previous call on the same ranking succeeded),
-        ``df`` may be ``None`` — every candidate-derived artifact comes from
-        the plan and only queries are live.
-
-        With ``defer=True`` the device work is launched now but the zero-arg
-        *finish* callable is returned instead of the ranking: the score
-        fetch + result assembly run when it is called (the seam used by
-        :meth:`Index.submit`).
+        The flat layout is scored and ordered at once.  The grouped one is
+        the fused fast path: device scoring, then the score fetch and host
+        result ordering of :meth:`_finish_score_and_sort`; a *ready* ``plan``
+        (a previous call on the same ranking succeeded) holds the result
+        columns, sort keys and segments, and the host gather keeps no plan.
+        With ``defer=True`` the device work is launched now and the zero-arg
+        *finish* callable is returned instead of the ranking (the seam used
+        by :meth:`Index.submit`).
         """
+        if cands.flat is not None:
+            with annotate("ff.score"):
+                scores = self._compute_scores(cands, query_vectors)
+            return _ordered(cands.df.assign(ff_score=scores), cands.q_uniques, score_dtype)
         if plan is not None and self._device_view() is None:
-            if plan.get("ready"):  # the table went away under a ready plan
-                return None
             # plans hold rows of a persistent device table; the host gather
             # builds its table anew on every call
             plan = None
-        if plan is not None and plan.get("cand_ready"):
-            # candidate resolution already done (by an earlier call or a
-            # serve() call on the same ranking)
-            n_pairs = plan["n_pairs"]
-            pair_qno = plan["pair_qno"]
-            rows_mat = plan["rows_mat"]
-            counts_pp = plan["counts_pp"]
-            k = plan["k"]
-            view = self._device_view()
-            numbering = plan.get("id_numbering")
-        else:
-            n_pairs = len(df)
-            pair_qno = df["q_no"].to_numpy(dtype=np.int64)
-            prep = self._candidate_arrays(df)
-            if prep is None:
-                return None
-            view, rows_mat, counts_pp, k, numbering = prep
         with annotate("ff.score"):
-            scores_dev = self._device_score_grouped(
-                view,
-                query_vectors,
-                rows_mat,
-                pair_qno,
-                counts_pp,
-                k,
-                fetch=False,
-                plan=plan,
-            )
+            scores_dev = self._compute_scores(cands, query_vectors, fetch=False, plan=plan)
         if (
             self._score_transport == "u16"
             and isinstance(scores_dev, torch.Tensor)
@@ -1594,44 +1671,23 @@ class Index(abc.ABC):
             scores_dev = _PackedScores(ops.encode_scores_u16(scores_dev))
 
         def finish() -> Ranking:
-            return self._finish_score_and_sort(
-                scores_dev,
-                df,
-                q_uniques,
-                score_dtype,
-                plan,
-                n_pairs,
-                pair_qno,
-                rows_mat,
-                counts_pp,
-                k,
-                numbering,
-            )
+            return self._finish_score_and_sort(scores_dev, cands, score_dtype, plan)
 
-        if defer:
-            return finish
-        return finish()
+        return finish if defer else finish()
 
     def _finish_score_and_sort(
         self,
         scores_dev: "torch.Tensor | _PackedScores",
-        df: pd.DataFrame | None,
-        q_uniques,
+        cands: _Candidates,
         score_dtype,
         plan: dict | None,
-        n_pairs: int,
-        pair_qno: np.ndarray,
-        rows_mat: np.ndarray,
-        counts_pp: np.ndarray,
-        k: int,
-        numbering=None,
     ) -> Ranking:
         """Fetch + order + assemble the result of a launched fast path.
 
-        ``numbering``: how the candidates' resolution mapped the ids to
-        table rows (:meth:`_candidate_arrays`), which a new plan's ``id``
-        column is built from (:func:`_result_columns`).
+        A new plan's ``id`` column is built from the numbering of the
+        candidates' resolution (:func:`_result_columns`).
         """
+        n_pairs, pair_qno, q_uniques = cands.n_pairs, cands.pair_qno, cands.q_uniques
         # result order: q_id desc (via per-query rank), then score desc
         if plan is not None and plan.get("ready"):
             q_rank = plan["q_rank"]
@@ -1639,6 +1695,7 @@ class Index(abc.ABC):
             segments = plan["segments"]
             qid_arr, id_arr, query_arr = plan["out_arrays"]
         else:
+            df = cands.df
             with annotate("ff.columns"):
                 n_q = len(q_uniques)
                 q_rank = _query_ranks(q_uniques)
@@ -1647,7 +1704,7 @@ class Index(abc.ABC):
                     # codes instead of on string arrays; they wrap the
                     # numbering the call already has, and the plan keeps them
                     qid_arr, id_arr, query_arr = _result_columns(
-                        df, numbering, self._id_ranks(numbering)
+                        df, cands.numbering, self._id_ranks(cands.numbering)
                     )
                 else:
                     qid_arr = df["q_id"].array
@@ -1720,30 +1777,18 @@ class Index(abc.ABC):
                 )
             if plan is not None and not plan.get("ready"):
                 plan.update(
-                    n_pairs=n_pairs,
-                    pair_qno=pair_qno,
-                    rows_mat=rows_mat,
-                    counts_pp=counts_pp,
-                    k=k,
                     q_rank=q_rank,
                     qkey=qkey,
                     segments=segments,
                     out_arrays=(qid_arr, id_arr, query_arr),
-                    cand_ready=True,
                     ready=True,
                 )
-            q_ids = None
-            if plan is not None:
-                q_ids = plan.get("q_ids_set")
-                if q_ids is None:
-                    q_ids = set(np.asarray(q_uniques, dtype=object))
-                    plan["q_ids_set"] = q_ids
-                q_ids = q_ids.copy()  # rankings must not share the mutable set
+            q_ids = None if plan is None else _plan_q_ids(plan, q_uniques)
             return Ranking._from_trusted_frame(out, "fast-forward", q_ids=q_ids)
 
     def _early_stopping(
         self,
-        df: pd.DataFrame,
+        cands: _Candidates,
         query_vectors: np.ndarray,
         cutoff: int,
         alpha: float,
@@ -1752,8 +1797,8 @@ class Index(abc.ABC):
     ) -> tuple[np.ndarray, np.ndarray]:
         """Score progressively deeper chunks, dropping queries that stopped.
 
-        Returns ``(take, ff)``: positional indices of the scored rows of
-        ``df`` (in depth-round order) and their semantic scores; callers
+        Returns ``(take, ff)``: positional indices of the scored pairs of
+        ``cands`` (in depth-round order) and their semantic scores; callers
         assemble the result frame.
 
         A query stops once its ``cutoff``-th best interpolated score can no
@@ -1763,14 +1808,15 @@ class Index(abc.ABC):
         each query's rows form one contiguous run: depth chunks are integer
         ranges over its run offsets, and each round scores only the rows not
         scored before on the device (one-row-per-pair modes resolve their
-        IDs per round, so stopped queries never resolve deep candidates).
+        IDs per round, so stopped queries never resolve deep candidates;
+        the others resolve ``cands`` once, unless it is resolved already).
 
         ``plan`` keeps the per-ranking ES state across calls: candidate
         resolution, run offsets and the alpha-independent semantic scores
         (an alpha sweep re-scores nothing it scored before), checked against
         the query vectors' content, so a changed encoder output rescores.
         """
-        n = len(df)
+        df, n = cands.df, cands.n_pairs
         if n == 0:
             return np.empty(0, dtype=np.int64), np.empty(0, dtype=np.float32)
 
@@ -1786,10 +1832,13 @@ class Index(abc.ABC):
             # is building cached categorical ID columns worth it
             plan["es_hot"] = state is not None
         if state is None:
-            q_no = df["q_no"].to_numpy(dtype=np.int64)
+            q_no = cands.pair_qno
             change = np.flatnonzero(np.diff(q_no)) + 1
             view = self._device_view()
             lazy = view is not None and self.mode in (Mode.PASSAGE, Mode.FIRSTP)
+            prep = None
+            if not lazy:
+                prep = cands if cands.view is not None else self._resolve(cands)
             state = {
                 "n": n,
                 "qv": np.array(query_vectors, copy=True),
@@ -1798,7 +1847,7 @@ class Index(abc.ABC):
                 # contiguous run per query
                 "starts": np.concatenate(([0], change)),
                 "ends": np.concatenate((change, [n])),
-                "prep": None if lazy else self._candidate_arrays(df),
+                "prep": prep,
                 "view": view if lazy else None,
                 "lazy_rows": np.full(n, -1, dtype=np.int64) if lazy else None,
                 "ff": np.empty(n, dtype=np.float32),
@@ -1863,13 +1912,8 @@ class Index(abc.ABC):
                             np.ones(need.size, dtype=np.int32),
                             1,
                         )
-                    elif prep is not None:
-                        view, rows_mat, counts_pp, k, _ = prep
-                        scored = self._device_score_grouped(
-                            view, query_vectors, rows_mat[need], q_no[need], counts_pp[need], k
-                        )
-                    else:  # documents with more than _MAX_GROUP_K passages
-                        scored = self._compute_scores(df.iloc[need], query_vectors)
+                    else:
+                        scored = self._compute_scores(prep.take(need), query_vectors)
                 ff_cache[need] = scored
                 have[need] = True
             ff = ff_cache[sel]
@@ -1901,10 +1945,9 @@ class Index(abc.ABC):
 
     def _assemble_es(
         self,
-        df: pd.DataFrame,
+        cands: _Candidates,
         take: np.ndarray,
         ff: np.ndarray,
-        q_uniques,
         score_dtype,
         plan: dict | None,
         cut: "int | None" = None,
@@ -1917,16 +1960,17 @@ class Index(abc.ABC):
         repeat call of the same plan; a one-shot ranking takes the frame's
         own arrays.
         """
+        df = cands.df
         arrs = plan.get("es_arrays") if plan is not None else None
         if arrs is None:
             # per-row high key bits (query rank): candidate layout only
-            qhi = _query_ranks(q_uniques)[df["q_no"].to_numpy()] << np.uint64(32)
+            qhi = _query_ranks(cands.q_uniques)[df["q_no"].to_numpy()] << np.uint64(32)
             if plan is not None and plan.get("es_hot"):
                 # the rows resolved so far number the ids only when every
                 # row was resolved
                 state = plan["es_state"]
                 prep, lazy_rows = state["prep"], state["lazy_rows"]
-                numbering = None if prep is None else prep[4]
+                numbering = None if prep is None else prep.numbering
                 if lazy_rows is not None and (lazy_rows >= 0).all():
                     numbering = lazy_rows
                 qid_arr, id_arr, query_arr = _result_columns(
@@ -2004,87 +2048,61 @@ class Index(abc.ABC):
     ) -> Ranking:
         t0 = perf_counter()
         score_dtype = ranking._df.dtypes["score"]
-        # prepared-run fast path: the same ranking was scored before against
-        # the current table — skip all frame work and candidate resolution
+        # the plan keeps the candidates: a ranking scored before against the
+        # current table skips the frame work and the resolution
         plan = self._get_plan(ranking)
-        if early_stopping is None and plan.get("ready"):
-            queries = plan["queries"]
-            if batch_size is None or batch_size >= len(queries):
-                query_vectors = self.encode_queries(queries)
-                out = self._score_and_sort(
-                    None, query_vectors, plan["q_uniques"], score_dtype, plan=plan
-                )
-                if out is not None:
-                    LOGGER.info("computed scores in %s seconds (prepared)", perf_counter() - t0)
-                    return out
-
-        # unique queries -> dense query numbers (device batch indices):
-        # factorize numbers queries by first appearance, and the
-        # first-occurrence rows carry the matching query strings
-        es_prep = plan.get("es_prep")
-        if es_prep is not None:
-            df, queries, q_uniques = es_prep
-        else:
-            df, queries, q_uniques = _numbered_frame(ranking)
-            if early_stopping is not None:
-                # warm ES calls (alpha sweeps, re-evaluation) reuse the
-                # prepared frame: the plan is keyed on the ranking's frame
-                plan["es_prep"] = (df, queries, q_uniques)
-        query_vectors = self.encode_queries(queries)
-        whole = batch_size is None or batch_size >= len(queries)
-
+        whole = batch_size is None or batch_size >= len(
+            self._candidates(ranking, plan, resolve=False).queries
+        )
         if early_stopping is None and whole:
-            plan["queries"] = queries
-            plan["q_uniques"] = q_uniques
-            out = self._score_and_sort(df, query_vectors, q_uniques, score_dtype, plan=plan)
-            if out is not None:
-                LOGGER.info("computed scores in %s seconds", perf_counter() - t0)
-                return out
-
-        if early_stopping is not None and whole:
-            take, ff = self._early_stopping(
-                df, query_vectors, early_stopping, early_stopping_alpha,
-                early_stopping_depths, plan=plan,
-            )
-            out = self._assemble_es(df, take, ff, q_uniques, score_dtype, plan)
+            out = self._launch(ranking, plan, score_dtype, defer=False)
             LOGGER.info("computed scores in %s seconds", perf_counter() - t0)
             return out
 
-        def _get_result(frame: pd.DataFrame) -> pd.DataFrame:
+        # early stopping, or query batches: the numbered frame (warm ES
+        # calls, alpha sweeps and re-evaluation, reuse the plan's)
+        cands = self._candidates(ranking, plan, resolve=False)
+        query_vectors = self.encode_queries(cands.queries)
+        if whole:
+            take, ff = self._early_stopping(
+                cands, query_vectors, early_stopping, early_stopping_alpha,
+                early_stopping_depths, plan=plan,
+            )
+            out = self._assemble_es(cands, take, ff, score_dtype, plan)
+            LOGGER.info("computed scores in %s seconds", perf_counter() - t0)
+            return out
+
+        parts, df = [], cands.df
+        for start in range(0, len(cands.queries), batch_size):
+            frame = df[(df["q_no"] >= start) & (df["q_no"] < start + batch_size)]
+            batch = _Candidates(
+                frame, cands.queries, cands.q_uniques, frame["q_no"].to_numpy(dtype=np.int64)
+            )
             if early_stopping is None:
-                return frame.assign(ff_score=self._compute_scores(frame, query_vectors))
+                batch = self._resolve(batch)
+                with annotate("ff.score"):
+                    scores = self._compute_scores(batch, query_vectors)
+                parts.append(frame.assign(ff_score=scores))
+                continue
             # the ES state is frame-aligned: never plan-cached for a batch
             take, ff = self._early_stopping(
-                frame, query_vectors, early_stopping, early_stopping_alpha,
+                batch, query_vectors, early_stopping, early_stopping_alpha,
                 early_stopping_depths, plan=None,
             )
-            return frame.iloc[take].assign(ff_score=ff)
-
-        if whole:
-            result = _get_result(df)
-        else:
-            result = pd.concat(
-                [
-                    _get_result(df[(df["q_no"] >= start) & (df["q_no"] < start + batch_size)])
-                    for start in range(0, len(queries), batch_size)
-                ]
-            )
-        with annotate("ff.assemble"):
-            result["score"] = result["ff_score"]
-            # order rows by (q_id desc, score desc) with an integer lexsort
-            # over query codes instead of a string sort
-            order = np.lexsort(
-                (
-                    -result["score"].to_numpy(dtype=np.float64),
-                    _query_ranks(q_uniques)[result["q_no"].to_numpy()],
-                )
-            )
-            out = Ranking(
-                result.iloc[order], name="fast-forward", dtype=score_dtype, copy=False,
-                is_sorted=True,
-            )
+            parts.append(frame.iloc[take].assign(ff_score=ff))
+        out = _ordered(pd.concat(parts), cands.q_uniques, score_dtype)
         LOGGER.info("computed scores in %s seconds", perf_counter() - t0)
         return out
+
+    def _launch(
+        self, ranking: Ranking, plan: dict, score_dtype, defer: bool
+    ) -> "Ranking | Callable[[], Ranking]":
+        """The re-rank of :meth:`__call__` and :meth:`submit`: the ranking's
+        candidates (:meth:`_candidates`), the query encode, and
+        :meth:`_rerank`."""
+        cands = self._candidates(ranking, plan)
+        query_vectors = self.encode_queries(cands.queries)
+        return self._rerank(cands, query_vectors, score_dtype, plan, defer)
 
     def submit(self, ranking: Ranking) -> ScoreFuture:
         """Launch scoring for a ranking and return a future (pipelined
@@ -2115,24 +2133,10 @@ class Index(abc.ABC):
         """
         if not ranking.has_queries:
             raise ValueError("Input ranking has no queries attached.")
-        score_dtype = ranking._df.dtypes["score"]
-        plan = self._get_plan(ranking)
-        if plan.get("ready"):
-            query_vectors = self.encode_queries(plan["queries"])
-            deferred = self._score_and_sort(
-                None, query_vectors, plan["q_uniques"], score_dtype, plan=plan, defer=True
-            )
-        else:
-            df, queries, q_uniques = _numbered_frame(ranking)
-            plan["queries"] = queries
-            plan["q_uniques"] = q_uniques
-            query_vectors = self.encode_queries(queries)
-            deferred = self._score_and_sort(
-                df, query_vectors, q_uniques, score_dtype, plan=plan, defer=True
-            )
-        if deferred is None:
-            return ScoreFuture(result=self(ranking))
-        return ScoreFuture(finish=deferred)
+        out = self._launch(ranking, self._get_plan(ranking), ranking._df.dtypes["score"], defer=True)
+        if isinstance(out, Ranking):
+            return ScoreFuture(result=out)
+        return ScoreFuture(finish=out)
 
     def serve(
         self,
@@ -2221,25 +2225,18 @@ class Index(abc.ABC):
         if early_stopping_depths is not None:
             return self._serve_early_stopping(ranking, alpha, cutoff, early_stopping_depths)
         t0 = perf_counter()
+        score_dtype = ranking._df.dtypes["score"]
         plan = self._get_plan(ranking)
-        if plan.get("cand_ready") and plan.get("queries") is not None:
-            queries = plan["queries"]
-            q_uniques = plan["q_uniques"]
-            q_codes = None
-        else:
-            q_codes, q_uniques = pd.factorize(ranking._df["q_id"], sort=False)
-            first = ~ranking._df["q_id"].duplicated()
-            queries = ranking._df.loc[first, "query"].tolist()
-            plan["queries"] = queries
-            plan["q_uniques"] = q_uniques
-        query_vectors = self.encode_queries(queries)
+        cands = self._candidates(ranking, plan)
+        query_vectors = self.encode_queries(cands.queries)
         finish = self._serve_fused(
-            ranking, query_vectors, q_uniques, q_codes, plan, alpha, cutoff, refine
+            cands, query_vectors, plan, alpha, cutoff, refine, score_dtype
         )
         if finish is None:
             # the unfused flow (documents with more than _MAX_GROUP_K
-            # passages, or no device table)
-            out = ranking.interpolate(self(ranking), alpha).cut(cutoff)
+            # passages, or no device table), on the same candidates
+            scored = self._rerank(cands, query_vectors, score_dtype, plan)
+            out = ranking.interpolate(scored, alpha).cut(cutoff)
             out.name = "fast-forward"
             return out
         if not defer:
@@ -2271,148 +2268,65 @@ class Index(abc.ABC):
         (``_assemble_es(cut=...)``).
         """
         plan = self._get_plan(ranking)
-        if "es_prep" not in plan:
-            plan["es_prep"] = _numbered_frame(ranking)
-        df, queries, q_uniques = plan["es_prep"]
-        query_vectors = self.encode_queries(queries)
-        take, ff = self._early_stopping(df, query_vectors, cutoff, alpha, depths, plan=plan)
-        lex = plan["es_state"]["lex"] if "es_state" in plan else df["score"].to_numpy(np.float32)
+        cands = self._candidates(ranking, plan, resolve=False)
+        query_vectors = self.encode_queries(cands.queries)
+        take, ff = self._early_stopping(cands, query_vectors, cutoff, alpha, depths, plan=plan)
+        lex = (
+            plan["es_state"]["lex"] if "es_state" in plan
+            else cands.df["score"].to_numpy(np.float32)
+        )
         interp = (alpha * lex[take] + (1.0 - alpha) * ff).astype(np.float32)
         return self._assemble_es(
-            df, take, interp, q_uniques, ranking._df.dtypes["score"], plan, cut=cutoff
+            cands, take, interp, ranking._df.dtypes["score"], plan, cut=cutoff
         )
 
     def _serve_fused(
         self,
-        ranking: Ranking,
+        cands: _Candidates,
         query_vectors: np.ndarray,
-        q_uniques,
-        q_codes: "np.ndarray | None",
         plan: dict,
         alpha: float,
         cutoff: int,
-        refine: "int | None" = None,
+        refine: "int | None",
+        score_dtype,
     ) -> "Callable[[], Ranking] | None":
-        """Launch the fused serve program; return the finish callable, or
-        ``None`` when the candidates need the unfused flow.
+        """Launch the fused serve program on resolved candidates; return the
+        finish callable, or ``None`` when they need the unfused flow (the
+        flat layout, or no device table: the host gather).
 
-        Static artifacts (candidate arrays, the per-query slot layout, the
-        lexical score upload, output id arrays) are plan-cached: warm calls
-        pay only encode + device work + the ``(2, Q, cutoff)`` fetch, whose
-        copy starts as soon as it is launched.  An index without a device
-        table takes the unfused flow.
+        Static artifacts (the per-query slot layout, the lexical score
+        upload, output id arrays) are plan-cached: warm calls pay only
+        encode + device work + the ``(2, Q, cutoff)`` fetch, whose copy
+        starts as soon as it is launched.
         """
-        if self._device_view() is None:
-            # no device table (the host gather): the unfused flow
+        if cands.flat is not None or self._device_view() is None:
             return None
-        score_dtype = ranking._df.dtypes["score"]
-        if plan.get("cand_ready"):
-            n_pairs = plan["n_pairs"]
-            pair_qno = plan["pair_qno"]
-            rows_mat = plan["rows_mat"]
-            counts_pp = plan["counts_pp"]
-            k = plan["k"]
-            view = self._device_view()
-        else:
-            n_pairs = len(ranking._df)
-            pair_qno = q_codes.astype(np.int64)
-            prep = self._candidate_arrays(ranking._df)
-            if prep is None:
-                return None
-            view, rows_mat, counts_pp, k, numbering = prep
-            plan.update(
-                n_pairs=n_pairs,
-                pair_qno=pair_qno,
-                rows_mat=rows_mat,
-                counts_pp=counts_pp,
-                k=k,
-                id_numbering=numbering,
-                cand_ready=True,
-            )
-        device = view.table.device
-        # two-phase refine: bf16 preselect + exact rescore of the top
-        # (cutoff + margin) per query (fast-tier indexes still get exact
-        # final scores) -- dense tables only; quantized tables serve without
-        # it, as in fastforward_tpu
-        # (single device only: a mesh serves without it, as fastforward_tpu)
-        refine_live = refine is not None and k == 1 and view.kind == "dense" and view.mesh is None
-        scoring_view = (
-            dataclasses.replace(view, precision="fast") if refine_live else view
-        )
-        # per-call token: the query upload validated during THIS call's
-        # scoring stamps itself with it, so the refine tail reuses it
-        # without a second content compare
-        plan["_call_tok"] = plan.get("_call_tok", 0) + 1
-        with annotate("ff.score"):
-            scores_dev = self._device_score_grouped(
-                scoring_view,
-                query_vectors,
-                rows_mat,
-                pair_qno,
-                counts_pp,
-                k,
-                fetch=False,
-                plan=plan,
-            )
-        scores_dev = self._scores_on(scores_dev, n_pairs, device)
+        df = cands.df
         sv = plan.get("serve")
         if sv is None:
-            n_q = len(q_uniques)
+            sv = plan["serve"] = {}
+
+        def layout() -> _ServeLayout:
+            n_q = len(cands.q_uniques)
             # output query order: q_id descending (the ranking sort
             # convention) — baked into the slot rows so the device result is
             # already in final row order
-            by_rank = np.argsort(np.asarray(q_uniques, dtype=object))[::-1].astype(
+            by_rank = np.argsort(np.asarray(cands.q_uniques, dtype=object))[::-1].astype(
                 np.int64
             )
-            slot = _slot_matrix(pair_qno, n_q, by_rank, n_q)
-            lex = np.zeros(ops.bucket(n_pairs), dtype=np.float32)
-            lex[:n_pairs] = ranking._df["score"].to_numpy(dtype=np.float32)
-            sv = {
-                "slot": slot,
-                "slot_dev": torch.from_numpy(slot).to(device),
-                "lex_dev": torch.from_numpy(lex).to(device),
-                "qid_arr": ranking._df["q_id"].array,
-                "id_arr": ranking._df["id"].array,
+            slot = _slot_matrix(cands.pair_qno, n_q, by_rank, n_q)
+            sv.update(
+                qid_arr=df["q_id"].array,
+                id_arr=df["id"].array,
                 # keep the query column so serve() output has the same
                 # schema as the unfused interpolate().cut() flow
-                "query_arr": (
-                    ranking._df["query"].array
-                    if "query" in ranking._df.columns
-                    else None
-                ),
-                "by_rank": by_rank,
-            }
-            plan["serve"] = sv
-        kc = min(cutoff, sv["slot"].shape[1])
-        with annotate("ff.serve_tail"):
-            if refine_live:
-                rows_dev = sv.get("rows_dev")
-                if rows_dev is None:
-                    rows_pad = np.zeros(ops.bucket(n_pairs), dtype=np.int32)
-                    rows_pad[:n_pairs] = rows_mat[:, 0]
-                    rows_dev = torch.from_numpy(rows_pad).to(device)
-                    sv["rows_dev"] = rows_dev
-                    # slot-row -> query-index permutation (slot rows are in
-                    # output order, queries in first-appearance order)
-                    sv["q_perm_dev"] = torch.from_numpy(sv["by_rank"]).to(device)
-                q_dev = self._call_queries(query_vectors, view, plan)
-                packed = ops.serve_topk_refine(
-                    scores_dev,
-                    sv["lex_dev"],
-                    sv["slot_dev"],
-                    alpha,
-                    kc,
-                    int(refine),
-                    view.table,
-                    rows_dev,
-                    q_dev,
-                    sv["q_perm_dev"],
-                )
-            else:
-                packed = ops.serve_topk(scores_dev, sv["lex_dev"], sv["slot_dev"], alpha, kc)
-        # start the (tiny) result copy the moment the device finishes;
-        # finish() then only waits
-        fetch = ops.fetch_np_async(packed)
+                query_arr=df["query"].array if "query" in df.columns else None,
+            )
+            return _ServeLayout(
+                df["score"].to_numpy(dtype=np.float32), by_rank, n_q, slot, None, slot.shape[1]
+            )
+
+        fetch = self._serve_tail(cands, query_vectors, plan, sv, layout, alpha, cutoff, refine)
 
         def finish() -> Ranking:
             with annotate("ff.fetch"):
@@ -2429,13 +2343,93 @@ class Index(abc.ABC):
             if sv.get("query_arr") is not None:
                 cols["query"] = sv["query_arr"].take(take)
             out = pd.DataFrame(cols)
-            q_ids = plan.get("q_ids_set")
-            if q_ids is None:
-                q_ids = set(np.asarray(q_uniques, dtype=object))
-                plan["q_ids_set"] = q_ids
-            return Ranking._from_trusted_frame(out, "fast-forward", q_ids=q_ids.copy())
+            return Ranking._from_trusted_frame(
+                out, "fast-forward", q_ids=_plan_q_ids(plan, cands.q_uniques)
+            )
 
         return finish
+
+    def _serve_tail(
+        self,
+        cands: _Candidates,
+        query_vectors: np.ndarray,
+        plan: dict,
+        sv: dict,
+        layout: "Callable[[], _ServeLayout]",
+        alpha: float,
+        cutoff: int,
+        refine: "int | None",
+    ) -> "Callable[[], np.ndarray]":
+        """Score a grouped record for a serve call and launch its top-k tail
+        on the device: returns the wait of the packed result's copy, which
+        starts the moment the device finishes.
+
+        ``sv`` holds the tail's device arrays across calls (a plan's, or a
+        batch's own), uploaded from the caller's ``layout()`` on first use,
+        after the scoring is launched.  Two-phase refine (``refine``): a
+        bf16 preselect of the top ``cutoff + refine`` per query and an exact
+        rescore (fast-tier indexes still get exact final scores), for dense
+        tables with one row per pair on a single device only; quantized
+        tables and a mesh serve without it, as in fastforward_tpu.
+        """
+        view = cands.view
+        device = view.table.device
+        n_pairs = cands.n_pairs
+        refine_live = refine is not None and cands.k == 1 and view.kind == "dense" and view.mesh is None
+        scoring_view = dataclasses.replace(view, precision="fast") if refine_live else view
+        # per-call token: the query upload validated during THIS call's
+        # scoring stamps itself with it, so the refine tail reuses it
+        # without a second content compare
+        plan["_call_tok"] = plan.get("_call_tok", 0) + 1
+        with annotate("ff.score"):
+            scores_dev = self._device_score_grouped(
+                scoring_view, query_vectors, cands.rows_mat, cands.pair_qno, cands.counts_pp,
+                cands.k, fetch=False, plan=plan,
+            )
+        scores_dev = self._scores_on(scores_dev, n_pairs, device)
+        if "lex_dev" not in sv:
+            lay = layout()
+            lex = np.zeros(ops.bucket(n_pairs), dtype=np.float32)
+            lex[:n_pairs] = lay.lex
+            sv.update(lex_dev=torch.from_numpy(lex).to(device), layout=lay)
+            if lay.seg is not None:
+                # contiguous per-query pair ranges: two (n_rows,) vectors go
+                # up and the device builds the slots
+                sv["seg_dev"] = tuple(torch.from_numpy(a).to(device) for a in lay.seg)
+            else:
+                sv["slot_dev"] = torch.from_numpy(lay.slot).to(device)
+        lay = sv["layout"]
+        kc = min(cutoff, lay.d_max)
+        with annotate("ff.serve_tail"):
+            if refine_live:
+                if "rows_dev" not in sv:
+                    rows_pad = np.zeros(ops.bucket(n_pairs), dtype=np.int32)
+                    rows_pad[:n_pairs] = cands.rows_mat[:, 0]
+                    sv["rows_dev"] = torch.from_numpy(rows_pad).to(device)
+                    # slot-row -> query-number permutation (slot rows are in
+                    # output order, queries in first-appearance order)
+                    q_perm = np.zeros(lay.n_rows, dtype=np.int32)
+                    q_perm[: lay.perm.shape[0]] = lay.perm
+                    sv["q_perm_dev"] = torch.from_numpy(q_perm).to(device)
+                q_dev = self._call_queries(query_vectors, view, plan)
+                rescore = (view.table, sv["rows_dev"], q_dev, sv["q_perm_dev"])
+                if lay.seg is not None:
+                    packed = ops.serve_topk_refine_seg(
+                        scores_dev, sv["lex_dev"], *sv["seg_dev"], alpha, kc, int(refine),
+                        lay.d_max, *rescore,
+                    )
+                else:
+                    packed = ops.serve_topk_refine(
+                        scores_dev, sv["lex_dev"], sv["slot_dev"], alpha, kc, int(refine), *rescore
+                    )
+            elif lay.seg is not None:
+                packed = ops.serve_topk_seg(
+                    scores_dev, sv["lex_dev"], *sv["seg_dev"], alpha, kc, lay.d_max
+                )
+            else:
+                packed = ops.serve_topk(scores_dev, sv["lex_dev"], sv["slot_dev"], alpha, kc)
+        # the copy starts now, on the stream that ran this call's work
+        return ops.fetch_np_async(packed)
 
     # -- array-path serving (BatchingServer) ---------------------------------
 
@@ -2449,7 +2443,7 @@ class Index(abc.ABC):
         ``None`` when the request cannot take the array path (empty
         ranking, no device table, documents with more than
         ``_MAX_GROUP_K`` passages): the server then serves it through
-        :meth:`submit_serve`.
+        :meth:`submit_serve`.  Keeps no plan.
         """
         df = ranking._df
         view = self._device_view() if len(df) else None
@@ -2457,15 +2451,10 @@ class Index(abc.ABC):
             # several processes must run every call in the same order: the
             # server serves such requests through submit_serve
             return None
-        with annotate("ff.prep"):
-            prep = self._candidate_arrays(df)
-        if prep is None:
-            return None
-        _view, rows_mat, counts_pp, k, _ = prep
-        # query codes from run boundaries: the Ranking ctor sorts frames by
-        # (q_id desc, score desc), so each query's pairs are one contiguous
-        # run.  A repeated run head means a foreign frame that is not
-        # run-contiguous: factorize instead.
+        # query codes from run boundaries, without a copy of the frame: the
+        # Ranking ctor sorts frames by (q_id desc, score desc), so each
+        # query's pairs are one contiguous run.  A repeated run head means a
+        # foreign frame that is not run-contiguous: factorize instead.
         first = _run_heads(df["q_id"])
         uniq_idx = np.flatnonzero(first)
         uniq = df["q_id"].iloc[uniq_idx].to_numpy(dtype=object)
@@ -2477,19 +2466,22 @@ class Index(abc.ABC):
             sorted_codes = bool((np.diff(pair_qno) >= 0).all())
         else:
             pair_qno = np.cumsum(first, dtype=np.int64) - 1
-        q_counts = np.bincount(pair_qno, minlength=len(uniq)).astype(np.int64)
         queries = (
             df["query"].iloc[uniq_idx].tolist()
             if sorted_codes
             else df.loc[~df["q_id"].duplicated(), "query"].tolist()
         )
+        with annotate("ff.prep"):
+            cands = self._resolve(_Candidates(df, queries, uniq, pair_qno))
+        if cands.flat is not None:
+            return None
         return {
-            "rows_mat": rows_mat,
-            "counts_pp": counts_pp,
-            "k": k,
+            "rows_mat": cands.rows_mat,
+            "counts_pp": cands.counts_pp,
+            "k": cands.k,
             "pair_qno": pair_qno,
             "sorted": sorted_codes,
-            "q_counts": q_counts,
+            "q_counts": np.bincount(pair_qno, minlength=len(uniq)).astype(np.int64),
             "lex": df["score"].to_numpy(dtype=np.float32),
             "queries": queries,
             "q_uniques": uniq,
@@ -2525,9 +2517,7 @@ class Index(abc.ABC):
         view = self._device_view()
         if view is None or _multiprocess(view):
             return None
-        device = view.table.device
         k = max(p["k"] for p in preps)
-        n_pairs = sum(p["n_pairs"] for p in preps)
         rows_parts = [
             p["rows_mat"] if p["k"] == k else np.pad(p["rows_mat"], ((0, 0), (0, k - p["k"])))
             for p in preps
@@ -2540,69 +2530,31 @@ class Index(abc.ABC):
         n_q = int(q_offs[-1])
         pair_qno = np.concatenate([p["pair_qno"] + off for p, off in zip(preps, q_offs)])
         query_vectors = self.encode_queries([q for p in preps for q in p["queries"]])
+        cands = _Candidates(
+            None, None, None, pair_qno, view=view, rows_mat=rows_mat, counts_pp=counts_pp, k=k
+        )
 
-        refine_live = refine is not None and view.kind == "dense" and k == 1 and view.mesh is None
-        scoring_view = dataclasses.replace(view, precision="fast") if refine_live else view
-        # a plan of the batch's own: concurrent batches share nothing
-        plan: dict = {"_call_tok": 1}
-        with annotate("ff.score"):
-            scores_dev = self._device_score_grouped(
-                scoring_view, query_vectors, rows_mat, pair_qno, counts_pp, k,
-                fetch=False, plan=plan,
-            )
-        scores_dev = self._scores_on(scores_dev, n_pairs, device)
-
-        # slot rows padded to a power of two too: stable shapes across
-        # batches with varying request mixes
-        n_rows = 1 << max(3, (n_q - 1).bit_length())
-        perm = np.concatenate([p["by_rank"] + off for p, off in zip(preps, q_offs)])
-        lex_pad = np.zeros(ops.bucket(n_pairs), dtype=np.float32)
-        lex_pad[:n_pairs] = lex
-        lex_dev = torch.from_numpy(lex_pad).to(device)
-        if all(p["sorted"] for p in preps):
-            # contiguous per-query pair ranges (every Ranking-sorted frame):
-            # two (n_rows,) vectors go up and the device builds the slots
+        def layout() -> _ServeLayout:
+            # slot rows padded to a power of two too: stable shapes across
+            # batches with varying request mixes
+            n_rows = 1 << max(3, (n_q - 1).bit_length())
+            perm = np.concatenate([p["by_rank"] + off for p, off in zip(preps, q_offs)])
+            if not all(p["sorted"] for p in preps):  # a foreign frame whose queries are not contiguous
+                slot = _slot_matrix(pair_qno, n_q, perm, n_rows)
+                return _ServeLayout(lex, perm, n_rows, slot, None, slot.shape[1])
+            # contiguous per-query pair ranges (every Ranking-sorted frame)
             counts_q = np.concatenate([p["q_counts"] for p in preps])
-            d_max = 1 << max(3, (int(counts_q.max()) - 1).bit_length())
             starts_q = np.zeros(n_q, dtype=np.int64)
             np.cumsum(counts_q[:-1], out=starts_q[1:])
             starts_perm = np.zeros(n_rows, dtype=np.int32)
             starts_perm[:n_q] = starts_q[perm]
             counts_perm = np.zeros(n_rows, dtype=np.int32)
             counts_perm[:n_q] = counts_q[perm]
-            seg = (torch.from_numpy(starts_perm).to(device), torch.from_numpy(counts_perm).to(device))
-            slot_dev = None
-        else:  # a foreign frame whose queries are not contiguous
-            slot = _slot_matrix(pair_qno, n_q, perm, n_rows)
-            d_max = slot.shape[1]
-            seg = None
-            slot_dev = torch.from_numpy(slot).to(device)
-        kc = min(cutoff, d_max)
-        with annotate("ff.serve_tail"):
-            if refine_live:
-                rows_pad = np.zeros(ops.bucket(n_pairs), dtype=np.int32)
-                rows_pad[:n_pairs] = rows_mat[:, 0]
-                q_perm = np.zeros(n_rows, dtype=np.int32)
-                q_perm[:n_q] = perm.astype(np.int32)
-                q_dev = self._call_queries(query_vectors, view, plan)
-                rows_dev = torch.from_numpy(rows_pad).to(device)
-                q_perm_dev = torch.from_numpy(q_perm).to(device)
-                if seg is not None:
-                    packed = ops.serve_topk_refine_seg(
-                        scores_dev, lex_dev, *seg, alpha, kc, int(refine), d_max,
-                        view.table, rows_dev, q_dev, q_perm_dev,
-                    )
-                else:
-                    packed = ops.serve_topk_refine(
-                        scores_dev, lex_dev, slot_dev, alpha, kc, int(refine),
-                        view.table, rows_dev, q_dev, q_perm_dev,
-                    )
-            elif seg is not None:
-                packed = ops.serve_topk_seg(scores_dev, lex_dev, *seg, alpha, kc, d_max)
-            else:
-                packed = ops.serve_topk(scores_dev, lex_dev, slot_dev, alpha, kc)
-        # the copy starts now, on the stream that ran this batch's work
-        fetch = ops.fetch_np_async(packed)
+            d_max = 1 << max(3, (int(counts_q.max()) - 1).bit_length())
+            return _ServeLayout(lex, perm, n_rows, None, (starts_perm, counts_perm), d_max)
+
+        # a plan of the batch's own: concurrent batches share nothing
+        fetch = self._serve_tail(cands, query_vectors, {}, {}, layout, alpha, cutoff, refine)
 
         def finish() -> "tuple[np.ndarray, np.ndarray]":
             with annotate("ff.fetch"):

@@ -342,7 +342,7 @@ def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
 #: launches of each kernel (the plain versions do not count)
 rms_norm.launches = rope_attention.launches = swiglu.launches = 0
 
-#: the wrappers whose launches ``encoder.transformer.TOWER_STATS`` counts
+#: the decoder kernels' wrappers, each counting its ``.launches``
 KERNELS = (rms_norm, rope_attention, swiglu)
 
 

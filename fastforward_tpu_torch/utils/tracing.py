@@ -8,8 +8,9 @@ card, the device work launched inside it.  The ranges of the port:
 Re-rank (``Index.__call__``)
 
 - ``ff.call``: the whole call;
-- ``ff.frame``: ``_numbered_frame``: the frame's copy, the query factorize
-  and the query list;
+- ``ff.frame``: ``_numbered_frame``, the candidate record's numbered
+  frame (``Index._candidates``): the frame's copy, the query factorize and
+  the query list;
 - ``ff.encode``: ``encode_queries``, every micro-batch of the encoder;
 - ``ff.tokenize``: one micro-batch's tokenization on the host
   (``TransformerEncoder``);
@@ -22,9 +23,10 @@ Re-rank (``Index.__call__``)
 - ``ff.mlp``: inside ``ff.tower``, the same layer's MLP block: the
   post-attention norm, the gate and up projections, the SiLU product, the
   down projection and the residual;
-- ``ff.resolve``: string ids to table rows (``_candidate_arrays``, the
-  flat path's factorize, ``_gather_view`` and ``expand_pairs``), with an
-  ``OnDiskIndex``'s host read and upload where no table is on the card;
+- ``ff.resolve``: string ids to table rows, once a call (``Index._resolve``:
+  the id column's resolve, or the factorize, ``_gather_view`` and the
+  grouped or flat layout's expansion), with an ``OnDiskIndex``'s host read
+  and upload where no table is on the card;
 - ``ff.score``: the scoring's device work (grouped and flat);
 - ``ff.layout``: the streamed layout's build on the host;
 - ``ff.columns``: a new plan's query ranks, sort keys, per-query segments

@@ -227,7 +227,7 @@ class TestServe(unittest.TestCase):
         index, ranking = _build(seed=4, device=self.device)
         want = index(ranking)
         index2, ranking2 = _build(seed=4, device=self.device)
-        index2.serve(ranking2, 0.4, 7)  # serve first: cand_ready only
+        index2.serve(ranking2, 0.4, 7)  # serve first: the candidates only
         got = index2(ranking2)
         self.assertEqual(list(got._df["id"]), list(want._df["id"]))
         np.testing.assert_allclose(

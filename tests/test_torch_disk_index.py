@@ -731,7 +731,8 @@ def test_host_gather_scores_on_the_index_device(tmp_path):
         _assert_rankings_close(disk(ranking), disk(ranking))  # no plan is kept
         assert disk._serve_prep(ranking) is None
         plan = disk._get_plan(ranking)
-        assert disk._serve_fused(ranking, None, None, None, plan, 0.5, 3) is None
+        cands = disk._candidates(ranking, plan)
+        assert disk._serve_fused(cands, None, plan, 0.5, 3, None, np.float32) is None
         _assert_rankings_close(disk.serve(ranking, 0.5, 3), memory.serve(ranking, 0.5, 3))
         es = {"early_stopping": 3, "early_stopping_alpha": 0.5, "early_stopping_depths": (5, 20)}
         _assert_rankings_close(disk(ranking, **es), memory(ranking, **es))

@@ -195,7 +195,7 @@ def test_doc_modes_match_jax(data, mode, device_dtype, precision):
     _assert_same(scored, jax_index(jr), precision)
     plan = index._get_plan(tr)
     assert plan["ready"] and "stream" in plan
-    assert plan["k"] == (1 if mode == "FIRSTP" else 8)
+    assert plan["cands"].k == (1 if mode == "FIRSTP" else 8)
     assert ("counts_dev" in plan) == (mode != "FIRSTP")
 
     served = index.serve(tr, 0.2, 10)

@@ -300,22 +300,6 @@ def test_the_checkpoints_model_type_picks_the_tower(checkpoint, monkeypatch):
         transformer.TransformerEncoder(str(path), device="cpu")
 
 
-def test_the_tower_counter_counts_sequences_real_and_padded_tokens(checkpoint):
-    path, _, _ = checkpoint
-    encoder = E5MistralEncoder(str(path), device="cpu", compute_dtype="float32")
-    transformer.reset_tower_stats()
-    encoder(TEXTS)
-    lengths = [16 + len(t.split()) for t in TEXTS]
-    # the CPU tower runs the plain versions: no kernel launches
-    assert transformer.TOWER_STATS == {"sequences": 3, "real_tokens": sum(lengths),
-                                       "padded_tokens": 3 * max(lengths),
-                                       "rms_norm": 0, "rope_attention": 0, "swiglu": 0}
-    mistral.swiglu.launches = 3  # as a card would have counted
-    transformer.reset_tower_stats()
-    assert set(transformer.TOWER_STATS.values()) == {0}
-    assert [kernel.launches for kernel in mistral.KERNELS] == [0, 0, 0]
-
-
 def test_an_index_reranks_with_the_e5_encoder(checkpoint):
     """``InMemoryIndex`` through ``Index.__call__`` against the plain
     reference's query vectors dotted with the rows (fp32 tower and fp32

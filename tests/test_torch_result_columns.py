@@ -16,7 +16,9 @@ does.  These tests hold:
   on a new plan and a ready one, and the re-rank of such a result (whose
   columns are categorical already), against the same calls with the
   columns built by ``pd.Categorical``: every value, the row order, and the
-  three columns' dtypes, categories and codes exactly; the route counter;
+  three columns' dtypes, categories and codes exactly; the route that
+  numbered ``id`` (a spy on ``_result_columns`` and
+  ``_sorted_id_categorical``);
 - that nothing downstream depends on the order of ``id``'s categories.
 
 The file runs on the CPU and imports neither JAX nor ``fastforward_tpu``.
@@ -212,6 +214,34 @@ def _run(index, ranking, path: str):
     )
 
 
+def _spy_routes(m) -> list:
+    """The route of each result-column build, recorded through ``m`` (a
+    monkeypatch): ``rows`` (each pair's table row, numbered natively),
+    ``factorize`` (the grouped modes' factorize from ``ff.resolve``,
+    reused) or ``fallback`` (``pd.Categorical`` of the column: no
+    numbering, no native library, or an ``id`` column that is categorical
+    already)."""
+    routes = []
+    sorted_id, columns = base._sorted_id_categorical, base._result_columns
+
+    def spy_sorted_id(id_col, numbering, ranks):
+        built = sorted_id(id_col, numbering, ranks)
+        by_rows = isinstance(numbering, np.ndarray)
+        routes.append("fallback" if built is None else "rows" if by_rows else "factorize")
+        return built
+
+    def spy_columns(df, *args):
+        before = len(routes)
+        out = columns(df, *args)
+        if len(routes) == before:  # no numbering to build ``id`` from
+            routes.append("fallback")
+        return out
+
+    m.setattr(base, "_sorted_id_categorical", spy_sorted_id)
+    m.setattr(base, "_result_columns", spy_columns)
+    return routes
+
+
 def _assert_same_result(new: Ranking, ref: Ranking) -> None:
     a, b = new._df, ref._df
     assert list(a.columns) == list(b.columns)
@@ -236,10 +266,10 @@ def test_columns_equal_pd_categorical(mode, path, monkeypatch):
     index, ranking = _build(mode)
     ref_index, ref_ranking = _build(mode)
     results, refs = [], []
-    base.reset_column_stats()
-    for _ in range(3):  # a new plan, then a ready (or hot) one, twice
-        results.append(_run(index, ranking, path))
-    stats = dict(base.COLUMN_STATS)
+    with monkeypatch.context() as m:
+        routes = _spy_routes(m)
+        for _ in range(3):  # a new plan, then a ready (or hot) one, twice
+            results.append(_run(index, ranking, path))
     with monkeypatch.context() as m:
         m.setattr(base, "_result_columns", _categorical_columns)
         for _ in range(3):
@@ -261,9 +291,7 @@ def test_columns_equal_pd_categorical(mode, path, monkeypatch):
         route = "rows" if mode in (Mode.PASSAGE, Mode.FIRSTP) else "factorize"
     for new, ref in checked:
         _assert_same_result(new, ref)
-    want = {"rows": 0, "factorize": 0, "fallback": 0}
-    want[route] = 1
-    assert stats == want
+    assert routes == [route]
 
 
 @pytest.mark.parametrize("cut", [None, 7], ids=["whole", "cut"])
@@ -293,14 +321,14 @@ def test_rerank_a_result(mode, path, cut, monkeypatch):
 
 def test_fallback_route_without_the_library(monkeypatch):
     """Without the native library the ids take ``pd.Categorical``: the same
-    columns, and the counter says so."""
+    columns, through the fallback route."""
     index, ranking = _build(Mode.PASSAGE)
     ref_index, ref_ranking = _build(Mode.PASSAGE)
     with monkeypatch.context() as m:
         m.setattr(idmap, "_get_lib", lambda: None)
-        base.reset_column_stats()
+        routes = _spy_routes(m)
         new = index(ranking)
-        assert base.COLUMN_STATS == {"rows": 0, "factorize": 0, "fallback": 1}
+        assert routes == ["fallback"]
     with monkeypatch.context() as m:
         m.setattr(base, "_result_columns", _categorical_columns)
         ref = ref_index(ref_ranking)

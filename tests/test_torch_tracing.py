@@ -112,9 +112,8 @@ def test_a_ready_plan_skips_the_frame_and_the_candidates():
 def test_the_flat_maxp_path_is_resolved_and_scored_under_its_ranges():
     index, ranking = _document_index()
     out, ranges = _traced(lambda: index(ranking))
-    # the ids are resolved three times: the fast path's grouped attempt,
-    # the generic path's grouped attempt, then the flat path
-    assert _count(ranges, "ff.resolve") == 3
+    # the ids are resolved once, into the flat layout the call scores
+    assert _count(ranges, "ff.resolve") == 1
     assert _count(ranges, "ff.score") == 1
     assert {"ff.call", "ff.frame", "ff.assemble"} <= _names(ranges)
     assert not _self_nested(ranges)
