@@ -69,7 +69,7 @@ def build_idmap() -> Path | None:
     """Compile (if needed) and return the id-map object, or ``None``."""
     try:
         path = build_object(
-            _IDMAP_SOURCE, ["g++", "-O3", "-std=c++20", "-shared", "-fPIC"], 120
+            _IDMAP_SOURCE, ["g++", "-O3", "-std=c++20", "-shared", "-fPIC", "-pthread"], 120
         )
     except (subprocess.SubprocessError, OSError) as e:
         LOGGER.warning("native idmap build failed (%s); using python fallback", e)

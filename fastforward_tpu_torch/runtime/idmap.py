@@ -3,7 +3,10 @@
 One interface, two implementations: ``NativeIdMap`` binds the C++ hash map
 (GIL-free batch resolution over fixed-width numpy ``S`` arrays) and
 ``PyIdMap`` keeps plain dicts.  ``create_idmap()`` picks the native one when
-the shared object builds.
+the shared object builds.  The same library holds a call's other per-pair
+passes (id numbering, string gather, streamed layout, per-query sort); each
+runs on a native worker pool of the host's cores above a grain of items
+(:func:`pool_stats`).
 """
 
 import ctypes
@@ -70,6 +73,7 @@ def _get_lib():
         lib.idmap_fill_cached.argtypes = [
             ctypes.c_void_p,
             ctypes.POINTER(ctypes.c_void_p),
+            ctypes.POINTER(ctypes.c_int32),
             ctypes.c_int64,
             ctypes.c_int32,
             ctypes.POINTER(ctypes.c_int32),
@@ -94,6 +98,8 @@ def _get_lib():
             ctypes.c_int64,
             ctypes.POINTER(ctypes.c_int64),
             ctypes.POINTER(ctypes.c_int32),
+            ctypes.c_int64,
+            ctypes.c_int32,
             ctypes.POINTER(ctypes.c_int32),
             ctypes.POINTER(ctypes.c_int64),
         ]
@@ -150,6 +156,8 @@ def _get_lib():
                 ctypes.POINTER(ctypes.c_int32),
                 ctypes.POINTER(ctypes.c_void_p),
             ]
+        lib.pool_stats.restype = None
+        lib.pool_stats.argtypes = [ctypes.POINTER(ctypes.c_int64)]
         lib.idmap_bulk_load.argtypes = [
             ctypes.c_void_p,
             ctypes.c_char_p,
@@ -191,11 +199,10 @@ def _arrow_view(ids):
     try:
         import pyarrow as pa
 
-        combined = (
-            chunked.combine_chunks()
-            if isinstance(chunked, pa.ChunkedArray)
-            else chunked
-        )
+        combined = chunked
+        if isinstance(chunked, pa.ChunkedArray):
+            # one chunk is read in place: concatenating copies it
+            combined = chunked.chunk(0) if chunked.num_chunks == 1 else chunked.combine_chunks()
         if combined.null_count:
             return None
         if pa.types.is_string(combined.type):
@@ -350,8 +357,9 @@ class NativeIdMap:
         """
         code = _MODE_CODE[mode]
         n = len(ids)
-        counts = np.zeros(n, dtype=np.int32)
-        cache = np.zeros(n, dtype=np.uintp)
+        # every entry is written before it is read
+        counts = np.empty(n, dtype=np.int32)
+        cache = np.empty(n, dtype=np.uintp)
         counts_ptr = counts.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
         cache_ptr = cache.ctypes.data_as(ctypes.POINTER(ctypes.c_void_p))
 
@@ -378,10 +386,11 @@ class NativeIdMap:
             pos = int(-total - 1)
             bad = ids.iloc[pos] if hasattr(ids, "iloc") else ids[pos]
             raise IndexError(f"ID {bad} not found in the index.")
-        rows = np.zeros(int(total), dtype=np.int32)
+        rows = np.empty(int(total), dtype=np.int32)
         self._lib.idmap_fill_cached(
             self._handle,
             cache.ctypes.data_as(ctypes.POINTER(ctypes.c_void_p)),
+            counts_ptr,
             n,
             code,
             rows.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
@@ -508,6 +517,21 @@ class PyIdMap:
         return doc_out, psg_out
 
 
+def pool_stats() -> "dict[str, int] | None":
+    """The native worker pool's ``width`` (CPUs in the process's affinity
+    mask) and the per-pair passes run so far in this process: ``wide`` on
+    the pool, ``serial`` on the calling thread alone (below the grain, or
+    the pool busy with another caller's pass).  ``None`` without the
+    native library.  See ``idmap.cc``."""
+    lib = _get_lib()
+    if lib is None:
+        return None
+    out = np.zeros(3, dtype=np.int64)
+    lib.pool_stats(_i64ptr(out))
+    width, wide, serial = (int(v) for v in out)
+    return {"width": width, "wide": wide, "serial": serial}
+
+
 def create_idmap():
     """Return a native ID map when available, else the python fallback."""
     if _get_lib() is not None:
@@ -552,7 +576,7 @@ def native_stream_layout(
     if t_virtual == 0:
         return None
     t_bucket = max(8, 1 << (int(t_virtual) - 1).bit_length())
-    cand = np.full((t_bucket, cap), pad_value, dtype=np.int32)
+    cand = np.empty((t_bucket, cap), dtype=np.int32)  # the fill pads it
     tile_idx = np.zeros(t_bucket, dtype=np.int32)
     slot_of_pair = np.empty(p, dtype=np.int64)
     lib.stream_fill(
@@ -565,6 +589,8 @@ def native_stream_layout(
         qb,
         _i64ptr(tile_counts),
         _i32ptr(cand.reshape(-1)),
+        cand.size,
+        pad_value,
         _i32ptr(tile_idx),
         _i64ptr(slot_of_pair),
     )

@@ -51,6 +51,16 @@ Early stopping, serving and the tier beyond device memory
 
 No range opens inside a range of its own name, so the time of a name is the
 sum of its ranges.
+
+The native per-pair passes inside four of these ranges run on a worker
+pool of the host's cores once a pass has 2^15 items (``runtime/idmap.cc``):
+in ``ff.resolve`` the resolve and its row fill, in ``ff.columns`` the id
+numbering and the string gather, in ``ff.layout`` the tile count and the
+fill, in ``ff.fetch_sort`` the per-query sort (a pass for each fetched
+chunk).  ``runtime.idmap.pool_stats()`` counts, for the whole process, the
+passes run wide and those run serially (below the grain, or while another
+thread's pass holds the pool), with the pool's width: the difference of
+two readings around a call splits those ranges' time between the two.
 """
 
 
