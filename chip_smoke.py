@@ -238,7 +238,26 @@ Phases, each of which must pass (any failure exits non-zero):
     call, the bytes bound) beside its plain version on the card, and the
     whole tower through the kernels against the plain tower on the card.
 
-The phases run in the order 1-5, 12, 14-20, 22, 23, 6-11, 24-28 (phases 13
+29. Moonlight-16B-A3B's DeepSeek-V3 tower (``models/deepseek.py``) at its
+    published widths, whole (27 layers, 64 experts, 163,840 ids, bf16),
+    drawn as ``bench_port/encoders/E5MoonlightEncoder.py`` draws it: one
+    call of the ``moonlight.batch-encode`` cell, 512 queries of 18-31 tokens
+    in micro-batches of 128, must launch the latent attention on every
+    layer, the router, the permutation, two grouped GEMMs and the combine
+    on every expert layer, the RMSNorms and SwiGLUs, and no more, and route
+    6 experts a real token (``moe_stats``); on the first micro-batch each
+    kernel is held against its plain version on the activations it sees at
+    layers 0, 1, 13 and 26 (the attention in bf16 and fp32 within one bf16
+    step or 1e-5 of the largest output, the router's choices equal but for
+    near-ties, the permutation exact, the grouped GEMMs within one bf16
+    step, the combine within one), then timed on layer 1's (CUDA events, a
+    traced call, its bound: bytes at the memory's rate, operations at the
+    bf16 or fp32 peak); the layers stepped by hand give the tower's own
+    output; and the share of the (token, layer) choices of 6 experts that
+    differ from the float64 reference's (the benchmark's plug-in), and the
+    fp8 control's, with each one's query-vector error.
+
+The phases run in the order 1-5, 12, 14-20, 22, 23, 6-11, 24-29 (phases 13
 and 21 inside 7 and 9, while their indexes exist).  After phases 12 (for 4 and 12 together),
 14 and 7-10, one warm call of each flow (and one cold early-stopping call)
 runs under
@@ -258,6 +277,7 @@ and power limit, the ``{"kernels": [...]}`` summary and, last,
 """
 
 import json
+import math
 import shutil
 import subprocess
 import sys
@@ -357,6 +377,16 @@ DECODER_QUERIES, DECODER_BATCH, DECODER_TOKENS = 512, 32, (18, 31)
 DECODER_CHECK_LAYERS = (0, 15, 31)
 DECODER_KERNELS = {"rms_norm": "rms_norm_kernel", "rope_attention": "rope_attention_kernel",
                    "swiglu": "swiglu_kernel"}
+
+#: phase 29: one call of the ``moonlight.batch-encode`` cell (queries and
+#: micro-batch; 18-31 tokens a query, as phase 28), the layers whose
+#: activations the kernels are held on, and each kernel of
+#: ``models/deepseek.py`` by its wrapper's name
+MOE_QUERIES, MOE_BATCH = 512, 128
+MOE_CHECK_LAYERS = (0, 1, 13, 26)
+MOE_KERNELS = {"latent_attention": "rope_attention_kernel", "moe_route": "route_kernel",
+               "moe_permute": "permute_kernel", "grouped_gemm": "grouped_gemm_kernel",
+               "moe_combine": "combine_kernel"}
 
 QUANT_FIT = 1 << 16  # training vectors of the quantizers
 DENSE_N = 262_144  # rows of the dense-tile phases: ~1,000 pairs per 512-row tile
@@ -1891,6 +1921,247 @@ def decoder_phase(rates) -> list:
     del tower, batches, timed_inputs, got, want_out
     torch.cuda.empty_cache()
     log(f"[decoder] phase 28 passed in {time.perf_counter() - t_phase:.1f} s on {smi_line()}")
+    return summary
+
+
+def moe_phase(rates, bf16_rate: float) -> list:
+    """Phase 29: the expert tower's kernels at Moonlight-16B-A3B's widths
+    (see the module docstring).  Returns the five kernels' rows of the
+    ``{"kernels": [...]}`` summary."""
+    from types import SimpleNamespace
+
+    import torch.nn.functional as F
+
+    from bench_port import spec
+    from fastforward_tpu_torch.device import fp32_matmul
+    from fastforward_tpu_torch.models import deepseek, mistral
+    from fastforward_tpu_torch.ops import _build
+
+    t_phase = time.perf_counter()
+    for source in ("moe", "decoder"):
+        lib_path = _build.build_kernel(source)
+        log(f"[moe] {source}.cu built: {lib_path.name}")
+        for line in lib_path.with_suffix(".log").read_text().splitlines():
+            if "Used" in line or "spill" in line:
+                log("  ptxas:", line.strip())
+
+    root = Path(__file__).resolve().parent
+    config = json.loads((root / "bench_port/configs/msmarco-passage-moonlight.json").read_text())
+    plugin = spec.plugin(root, "encoders", config["encoder"])
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    hf_config = SimpleNamespace(**config["tower"])
+    tower = deepseek.DeepseekTower.from_arrays(
+        deepseek.config_from_hf(hf_config), plugin.state_dict(SEED, config["tower"], torch.bfloat16, dev)).eval()
+    cfg = tower.config
+    vocab = plugin._E5.vocabulary(cfg.vocab_size)
+    index = {w: i for i, w in enumerate(vocab)}
+    rng = np.random.default_rng(SEED)
+    texts = [" ".join(f"w{w}" for w in rng.integers(0, cfg.vocab_size - 9, size=n))
+             for n in rng.integers(2, 16, size=MOE_QUERIES)]
+    seqs = [plugin._E5.token_ids(t, index) for t in texts]
+    batches = []
+    for start in range(0, MOE_QUERIES, MOE_BATCH):
+        part = seqs[start:start + MOE_BATCH]
+        ids = np.zeros((len(part), max(map(len, part))), dtype=np.int64)
+        mask = np.zeros_like(ids)
+        for row, seq in enumerate(part):
+            ids[row, :len(seq)], mask[row, :len(seq)] = seq, 1
+        batches.append((torch.from_numpy(ids).to(dev), torch.from_numpy(mask).to(dev)))
+    torch.cuda.synchronize()
+    log(f"[moe] tower of {cfg.num_layers} layers ({sum(p.numel() for p in tower.parameters())} parameters, "
+        f"bf16) drawn in {time.perf_counter() - t0:.1f} s; {len(batches)} micro-batches of {MOE_BATCH} x "
+        f"{[int(b[0].shape[1]) for b in batches]} tokens ({int(sum(b[1].sum() for b in batches))} real)")
+
+    # one call of the cell: every micro-batch through the kernels, and no more
+    wrappers = {kernel.__name__: kernel for kernel in deepseek.KERNELS + (mistral.rms_norm, mistral.swiglu)}
+    with torch.inference_mode():
+        tower(*batches[0])  # the first forward binds the objects and the experts' address tables
+        torch.cuda.synchronize()
+        reset_counts(wrappers)
+        t0 = time.perf_counter()
+        for ids, mask in batches:
+            tower(ids, mask)
+        torch.cuda.synchronize()
+        call_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_counts(wrappers)
+    n, layers, dense = len(batches), cfg.num_layers, cfg.first_k_dense_replace
+    sparse = layers - dense
+    want = {"latent_attention": n * layers, "moe_route": n * sparse, "moe_permute": n * sparse,
+            "grouped_gemm": 2 * n * sparse, "moe_combine": n * sparse, "rms_norm": n * (3 * layers + 1),
+            "swiglu": n * (dense + 2 * sparse)}
+    check(launches == want, f"one call of the cell launched {launches}, not {want}")
+    stats = tower.moe_stats()["recent"][-n:]
+    for (ids, mask), got in zip(batches, stats):
+        real = int(mask.sum())
+        check(got["routed"] == [real * cfg.num_experts_per_tok] * sparse,
+              f"routed {got['routed'][:3]}... for {real} real tokens")
+    log(f"[moe] one call ({MOE_QUERIES} queries) in {call_ms:.1f} ms (host clock, synchronized) launched "
+        f"{json.dumps(launches)}; the last micro-batch's experts took at most "
+        f"{stats[-1]['expert_max'][:4]}... pairs (mean {stats[-1]['expert_mean'][0]:.1f})")
+
+    # each kernel against its plain version on the first micro-batch's
+    # activations at MOE_CHECK_LAYERS, stepping the layers by hand
+    ids, mask = batches[0]
+    b, length = ids.shape
+    dn, heads, k_top, hidden = cfg.qk_nope_head_dim, cfg.num_heads, cfg.num_experts_per_tok, cfg.hidden_size
+    cos, sin = mistral.rope_tables(length, cfg.qk_rope_head_dim, cfg.rope_theta, dev)
+    keys = mask.to(torch.int32)
+    flat_keys = keys.view(-1)
+    real = flat_keys.bool()
+    errs = {name: [] for name in MOE_KERNELS}
+    timed, chosen = {}, []
+
+    def hold_kernel(name, got, want, where):
+        check(got.dtype == want.dtype and got.shape == want.shape and bool(torch.isfinite(got.float()).all()),
+              f"{name} {where}: {got.dtype} {tuple(got.shape)} vs {want.dtype} {tuple(want.shape)}")
+        top = want.float().abs().max().item()
+        # fp32: sums in other orders; bf16: both round an fp32 value, which
+        # may land one step apart (2^-7 of the largest output's power of two)
+        tol = math.ldexp(1.0, math.frexp(top)[1] - 8) if want.dtype == torch.bfloat16 else 1e-5 * top
+        err = (got.float() - want.float()).abs().max().item()
+        check(err <= tol, f"{name} {where}: max err {err:.3e} over {tol:.3e}")
+        errs[name].append({"at": where, "max_abs_err": err, "tolerance": tol})
+
+    with torch.inference_mode(), fp32_matmul(dev):
+        x = tower.embed[ids]
+        for i, layer in enumerate(tower.layers):
+            where = f"layer {i}"
+            if i in MOE_CHECK_LAYERS:
+                h = mistral.rms_norm(x, layer.attn_norm, cfg.rms_norm_eps)
+                q = F.linear(h, layer.q).view(b, length, heads, cfg.qk_head_dim)
+                latent = mistral.rms_norm(F.linear(h, layer.kv_latent), layer.kv_norm, cfg.rms_norm_eps)
+                kv = F.linear(latent, layer.kv_b).view(b, length, heads, dn + cfg.v_head_dim)
+                args = (q, kv[..., :dn], F.linear(h, layer.k_rope), kv[..., dn:], cos, sin, keys)
+                for tag, cast in (("bf16", lambda t: t), ("fp32", lambda t: t.float())):
+                    typed = tuple(cast(t) for t in args[:4]) + args[4:]
+                    hold_kernel("latent_attention", deepseek.latent_attention(*typed),
+                                deepseek.latent_attention_plain(*typed), f"{where} {tag}")
+                if i == 1:
+                    timed["latent_attention"] = (lambda a=args: deepseek.latent_attention(*a),
+                                                 lambda a=args: deepseek.latent_attention_plain(*a))
+            x = tower._attention(x, layer, cos, sin, keys)
+            if i < dense:
+                x = tower._mlp(x, layer)
+                continue
+            xf = x.reshape(-1, hidden)
+            h = mistral.rms_norm(xf, layer.mlp_norm, cfg.rms_norm_eps)
+            logits = F.linear(h.float(), layer.router)
+            counts = torch.zeros(cfg.n_routed_experts, dtype=torch.int32, device=dev)
+            route_args = (logits, layer.router_bias, flat_keys, k_top, cfg.routed_scaling_factor, cfg.norm_topk_prob)
+            ids_k, weights, slots = deepseek.moe_route(*route_args, counts)
+            chosen.append(ids_k[real].cpu())
+            offsets, rows, pos = deepseek.moe_permute(ids_k, slots, counts)
+            bank_gu, bank_down = tower._bank(layer, "gate_up"), tower._bank(layer, "down")
+            gate, up = deepseek.grouped_gemm(h, rows, bank_gu, offsets)
+            act = mistral.swiglu(gate, up)
+            (y,) = deepseek.grouped_gemm(act, None, bank_down, offsets)
+            shared = tower._shared_expert(h, layer)
+            out = deepseek.moe_combine(y, pos, weights, shared, xf)
+            if i in MOE_CHECK_LAYERS:
+                plain_counts = torch.zeros_like(counts)
+                ids_p, weights_p, _ = deepseek.moe_route_plain(*route_args, plain_counts)
+                # a choice may differ only where the two sigmoids' last bits
+                # swap two biased scores closer than 1e-6
+                biased = torch.sigmoid(logits) + layer.router_bias
+                kth = biased.gather(1, ids_p.long().clamp(min=0))[:, -1:]
+                picked = biased.gather(1, ids_k.long().clamp(min=0))
+                check(bool(((ids_k == ids_p) | (picked >= kth - 1e-6)).all()), f"moe_route {where}: choices")
+                same = (ids_k == ids_p).all(1)
+                hold_kernel("moe_route", weights[same], weights_p[same], where)
+                check(torch.equal(counts, plain_counts) or not bool(same.all()), f"moe_route {where}: counts")
+                offsets_p, rows_p, pos_p = deepseek.moe_permute_plain(ids_k, slots, counts)
+                total = int(offsets_p[-1])
+                check(torch.equal(offsets, offsets_p) and torch.equal(pos, pos_p)
+                      and torch.equal(rows[:total], rows_p[:total]), f"moe_permute {where}")
+                errs["moe_permute"].append({"at": where, "max_abs_err": 0.0, "tolerance": 0.0})
+                gate_p, up_p = deepseek.grouped_gemm_plain(h, rows, bank_gu.sets, offsets)
+                (y_p,) = deepseek.grouped_gemm_plain(act, None, bank_down.sets, offsets)
+                for got, plain, part in ((gate, gate_p, "gate"), (up, up_p, "up"), (y, y_p, "down")):
+                    hold_kernel("grouped_gemm", got[:total], plain[:total], f"{where} {part}")
+                hold_kernel("moe_combine", out, deepseek.moe_combine_plain(y, pos, weights, shared, xf), where)
+                if i == 1:
+                    timed.update({
+                        "moe_route": (lambda a=route_args: deepseek.moe_route(*a, torch.zeros_like(counts)),
+                                      lambda a=route_args: deepseek.moe_route_plain(*a, torch.zeros_like(counts))),
+                        "moe_permute": (lambda a=(ids_k, slots, counts): deepseek.moe_permute(*a),
+                                        lambda a=(ids_k, slots, counts): deepseek.moe_permute_plain(*a)),
+                        "grouped_gemm": (lambda a=(h, rows, bank_gu, offsets): deepseek.grouped_gemm(*a),
+                                         lambda a=(h, rows, bank_gu.sets, offsets): deepseek.grouped_gemm_plain(*a)),
+                        "moe_combine": (lambda a=(y, pos, weights, shared, xf): deepseek.moe_combine(*a),
+                                        lambda a=(y, pos, weights, shared, xf): deepseek.moe_combine_plain(*a)),
+                    })
+                    pairs_1 = total
+            x = out.view(b, length, hidden)
+        stepped = mistral.rms_norm(x, tower.norm, cfg.rms_norm_eps, torch.float32)
+        whole = tower(ids, mask)
+        torch.cuda.synchronize()
+    check(torch.equal(stepped[mask.bool()], whole[mask.bool()]), "the layers stepped by hand differ from the tower")
+
+    # each kernel timed on layer 1's activations, against its bound
+    tokens, pairs = int(real.sum()), pairs_1
+    lengths = mask.sum(1).tolist()
+    causal = sum(n_ * (n_ + 1) // 2 for n_ in lengths)
+    e, i_moe = cfg.n_routed_experts, cfg.moe_intermediate_size
+    work = {  # (bytes, operations, peak of the operations)
+        "latent_attention": (2 * b * length * heads * (cfg.qk_head_dim + 3 * cfg.v_head_dim)
+                             + 2 * b * length * cfg.qk_rope_head_dim + 8 * length * cfg.qk_rope_head_dim,
+                             2.0 * causal * heads * (cfg.qk_head_dim + cfg.v_head_dim), rates[1]),
+        "moe_route": (4 * b * length * (e + 3 * k_top) + 8 * e, 0.0, rates[1]),
+        "moe_permute": (4 * b * length * k_top * 4 + 8 * e, 0.0, rates[1]),
+        "grouped_gemm": (2 * (2 * e * i_moe * hidden + pairs * hidden + 2 * pairs * i_moe),
+                         2.0 * 2 * pairs * i_moe * hidden, bf16_rate),
+        "moe_combine": (2 * (pairs * hidden + 3 * b * length * hidden) + 8 * b * length * k_top, 0.0, rates[1]),
+    }
+    summary = []
+    for name, kname in MOE_KERNELS.items():
+        fn, plain = timed[name]
+        moved, flops, peak = work[name]
+        bound_ms = max(moved / rates[0], flops / peak) * 1e3
+        traced = traced_kernels(fn, (kname,)).get(kname)
+        row = {"name": name, "route": "cuda",
+               "source": "fastforward_tpu_torch/ops/csrc/" + ("decoder.cu" if name == "latent_attention" else "moe.cu"),
+               "replaces": None,  # the JAX package has no decoder tower
+               "launches": launches[name], "max_abs_err": max(x["max_abs_err"] for x in errs[name]),
+               "tolerance": "bf16 one step, fp32 1e-5, at the largest output; the permutation exact",
+               "ms": median_ms(fn, TIMED_LAUNCHES), "back_to_back_ms": back_to_back_ms(fn, TIMED_LAUNCHES),
+               "traced_ms": traced, "plain_ms": median_ms(plain, 5, warmup=1), "bytes": moved, "flops": flops,
+               "bound_ms": bound_ms, "bound_by": "bytes" if moved / rates[0] >= flops / peak else "operations",
+               "bound_share": None if not traced else bound_ms / traced, "library_ms": None,
+               "launches_by_phase": {"moe": launches[name]}, "checks": errs[name],
+               "variant": f"bf16 layer 1, {b} x {length} tokens ({tokens} real, {pairs} pairs)"}
+        log(f"  {name} {row['variant']}: {row['ms']:.4f} ms ({row['back_to_back_ms']:.4f} back to back), "
+            f"traced {traced} ms, bound {bound_ms:.5f} ms ({row['bound_by']}; share "
+            f"{row['bound_share'] if row['bound_share'] is None else round(100 * row['bound_share'], 2)}%), "
+            f"plain {row['plain_ms']:.4f} ms")
+        summary.append(row)
+
+    # the routing against the float64 reference's on the same queries, and
+    # the fp8 control's: the share of (token, layer) choices of 6 that differ
+    with torch.inference_mode():
+        got = mistral.pool_last_token(whole, mask)
+        got = (got / got.norm(dim=1, keepdim=True)).double()
+    inputs = {"vocab": vocab, "seed": SEED}
+    flips = {}
+    ref_choices = []
+    want = plugin.reference(texts[:MOE_BATCH], inputs, config, "float64", dev, choices=ref_choices)
+    for label, choices, vectors in (("program", chosen, got),
+                                    ("fp8 control", None, None)):
+        if choices is None:
+            choices = []
+            vectors = plugin.reference(texts[:MOE_BATCH], inputs, config, "tf32", dev, choices=choices).double()
+        differ = [(np.sort(c.numpy(), 1) != np.sort(r.numpy(), 1)).any(1) for c, r in zip(choices, ref_choices)]
+        rel = ((vectors - want).norm(dim=1) / want.norm(dim=1)).cpu().numpy()
+        flips[label] = {"choice_flip_share": float(np.mean(np.concatenate(differ))),
+                        "tokens_flipped_somewhere": float(np.mean(np.any(np.stack(differ), 0))),
+                        "qvec_rel_err_median": float(np.median(rel)), "qvec_rel_err_max": float(rel.max())}
+    log(f"[moe] routing against float64 on {MOE_BATCH} queries ({tokens} tokens x {sparse} layers): "
+        f"{json.dumps(flips)}")
+    summary[0]["routing"] = flips
+    summary[0]["call_ms"] = call_ms
+    del tower, batches, timed, whole, stepped
+    torch.cuda.empty_cache()
+    log(f"[moe] phase 29 passed in {time.perf_counter() - t_phase:.1f} s on {smi_line()}")
     return summary
 
 
@@ -4082,6 +4353,9 @@ def main() -> int:
 
     # -- 28. the decoder tower's kernels at E5-Mistral-7B's widths -------------------------
     decoder_summary = decoder_phase(rates)
+
+    # -- 29. the expert tower's kernels at Moonlight-16B-A3B's widths ----------------------
+    decoder_summary += moe_phase(rates, card_bf16_rate(name))
 
     small_by_kernel = {"stream_select_pairwise": "K1", "stream_select": "K2",
                        "stream_select_pq_pairwise": "K3", "stream_select_pq": "K4"}

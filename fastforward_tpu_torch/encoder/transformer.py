@@ -4,9 +4,11 @@ The port of ``fastforward_tpu/encoder/transformer.py``: the same five
 pretrained dual-encoder variants (TCT-ColBERT query/document, TAS-B,
 Contriever, BGE) with their input templates, lengths and pooling rules,
 and one the JAX package lacks, the decoder embedder E5-Mistral-7B-instruct
-(``E5MistralEncoder``).  The checkpoint's ``model_type`` picks the tower:
+(``E5MistralEncoder``; its recipe also runs a DeepSeek-V3 checkpoint such
+as Moonlight-16B-A3B).  The checkpoint's ``model_type`` picks the tower:
 ``bert`` and ``distilbert`` run ``models.bert.BertTower``, ``mistral``
-runs ``models.mistral.MistralTower``.  Texts are tokenized on the host
+runs ``models.mistral.MistralTower``, ``deepseek_v3``
+``models.deepseek.DeepseekTower``.  Texts are tokenized on the host
 with the checkpoint's ``AutoTokenizer``; the tower, the pooling and the
 normalization run on the encoder's device: the card unless the caller
 passes ``device="cpu"``.  Batches keep the tokenizer's own length (no
@@ -28,7 +30,7 @@ import torch
 
 from fastforward_tpu_torch.device import resolve_device
 from fastforward_tpu_torch.encoder.base import Encoder
-from fastforward_tpu_torch.models import bert, mistral
+from fastforward_tpu_torch.models import bert, deepseek, mistral
 from fastforward_tpu_torch.utils.tracing import annotate
 
 _POOLING = {
@@ -44,11 +46,12 @@ _TOWERS = {
     "bert": bert.from_hf_torch,
     "distilbert": bert.from_hf_torch,
     "mistral": mistral.from_hf_torch,
+    "deepseek_v3": deepseek.from_hf_torch,
 }
 
 class TransformerEncoder(Encoder):
-    """Encoder backed by a pre-trained Transformer (BERT, DistilBERT or
-    Mistral, by the checkpoint's ``model_type``).
+    """Encoder backed by a pre-trained Transformer (BERT, DistilBERT,
+    Mistral or DeepSeek-V3, by the checkpoint's ``model_type``).
 
     By default the CLS-token output of the last hidden layer is used.
     """
@@ -108,7 +111,13 @@ class TransformerEncoder(Encoder):
         return self._device
 
     @property
-    def config(self) -> "bert.BertConfig | mistral.MistralConfig":
+    def tower(self) -> torch.nn.Module:
+        """The tower the encoder runs (``BertTower``, ``MistralTower`` or
+        ``DeepseekTower``)."""
+        return self._tower
+
+    @property
+    def config(self) -> "bert.BertConfig | mistral.MistralConfig | deepseek.DeepseekConfig":
         """The tower's configuration (``dtype`` is the compute type)."""
         return self._tower.config
 
@@ -295,6 +304,8 @@ class E5MistralEncoder(TransformerEncoder):
     instruct template ``Instruct: <task>\\nQuery: <query>``, BOS in front
     and EOS appended, and the final hidden state at the EOS, L2-normalized,
     is the query vector (the model card's recipe).  Runs in bf16 by default.
+    The recipe runs any decoder checkpoint the port has a tower for: given a
+    ``deepseek_v3`` checkpoint (Moonlight-16B-A3B) it embeds with that tower.
     """
 
     _pooling = "last_token"

@@ -1,12 +1,14 @@
-// The fp32 element-wise chains of a Mistral decoder layer
-// (fastforward_tpu_torch/models/mistral.py, MistralTower), one kernel for
-// each gap between two bf16 GEMMs:
+// The fp32 element-wise chains of a decoder layer, one kernel for each gap
+// between two bf16 GEMMs (fastforward_tpu_torch/models/mistral.py,
+// MistralTower; models/deepseek.py, DeepseekTower, takes RMSNorm, SwiGLU and
+// the attention's latent instance):
 //
 // - rms_norm_kernel: x / sqrt(mean(x^2) + eps) * g, before the q/k/v
 //   GEMMs, before the gate/up GEMMs, and the tower's final norm;
 // - rope_attention_kernel: RoPE on q and k, the causal windowed
 //   grouped-query attention and its softmax, between the q/k/v GEMMs and
-//   the o GEMM;
+//   the o GEMM; a second instance takes DeepSeek-V3's latent attention
+//   (q/k heads of 128 + 64 RoPE dims, v heads of 128, one RoPE key head);
 // - swiglu_kernel: silu(gate) * up, between the gate/up GEMMs and the down
 //   GEMM.
 //
@@ -218,60 +220,92 @@ cudaError_t swiglu_launch(const void* gate, const void* up, void* out,
 }
 
 // ---------------------------------------------------------------------------
-// RoPE + causal windowed grouped-query attention.
+// RoPE + causal windowed attention, two instances of one template.
 //
-// q is (B, L, heads, D), k and v (B, L, kv, D), all as the q/k/v GEMMs
-// wrote them (no permute); the context is written as (B, L, heads, D),
-// which is the (B, L, heads * D) the o GEMM reads.  Query head h reads
-// key/value head h / G (G = heads / kv).  Query p sees key j when
+// q is (B, L, heads, DN + DR) as the q GEMM wrote it: DN dims without RoPE,
+// then DR dims with it.  A key row is DN dims of `kn` and DR dims of `kr`,
+// a value row DV dims of `v`, each addressed by a token stride and a head
+// stride (elements), so the GEMMs' outputs are read where they lie: a head
+// stride of 0 is one head shared by all.  The context is written as (B, L,
+// heads, DV), which is the (B, L, heads * DV) the o GEMM reads.  Query head
+// h reads key/value head h / G (G = heads / kv).  Query p sees key j when
 // j <= p, p - j < window (window <= 0: no window) and mask[b, j] != 0.
+//
+// - Mistral (E5-Mistral-7B): DN = 0, DR = DV = D (16 or 128), k and v
+//   (B, L, kv, D): grouped-query attention, RoPE on the whole head.
+// - Multi-head latent attention (DeepSeek-V3, Moonlight-16B-A3B): DN = 128,
+//   DR = 64, DV = 128, kv = heads; k's no-RoPE part and v are the halves of
+//   each head of the kv_b GEMM's output (B, L, heads, 256), the RoPE part
+//   is one head (B, L, 64) shared by all heads.  The tower permutes the RoPE
+//   rows of its weights at load, so DeepSeek's RoPE on pairs (2i, 2i + 1) is
+//   the rotate-half form here.
 //
 // Grid: x = b * kv + g, one key/value head of one sequence; y = a tile of
 // that head's L * G query rows (row r: position r / G, query head
 // g * G + r % G), so k and v are read for the whole GQA group at once.
-// A row is held by LPR = D / 16 lanes, 16 dims a lane: the lane's four
-// float4 chunks c = sub + LPR * i (i = 0..3) of the row's D / 4, so the
-// lanes of a row read consecutive 16 bytes of shared memory (no bank
-// conflicts), and RoPE's partner of chunk c, c +- D / 8, is chunk i ^ 2 of
-// the same lane.  A warp holds 32 / LPR rows, a block 8 warps.
+// A row is held by LPR = DV / 16 lanes: 16 dims of the context a lane (its
+// four float4 chunks c = sub + LPR * i, i = 0..3, of the row's DV / 4), and
+// the q chunks c = sub + LPR * i, i = 0..(DN + DR) / (4 LPR) - 1, the first
+// DN / (4 LPR) of them without RoPE.  So the lanes of a row read consecutive
+// 16 bytes of shared memory (no bank conflicts), and RoPE's partner of a
+// chunk, DR / 8 chunks away, is a slot of the same lane.  A warp holds
+// 32 / LPR rows, a block 8 warps.
 //
 // The block walks the keys its rows can see in tiles of kKeys: the tile's
-// k (rotated, fp32) and v (fp32) go to shared memory, then each row takes
-// the tile's keys four at a time: the logits (its lanes' FMA chains summed
-// by xor shuffles, times 1 / sqrt(D), as PyTorch divides a CUDA tensor by
-// a scalar) and, for the keys allowed, an online softmax step in fp32 (a
-// running max, the sum of exp(logit - max) and the context, rescaled when
-// the max rises).  Any length runs: the keys are walked in tiles up to the
-// window.  A row that sees no key at all (a padded position past the
-// window of every real key) gets what the plain version's softmax over
-// logits that all read finfo.min gives: the mean of v over all L keys.
+// k (its RoPE part rotated, fp32) and v (fp32) go to shared memory, then
+// each row takes the tile's keys four at a time: the logits (its lanes'
+// FMA chains summed by xor shuffles, times 1 / sqrt(DN + DR), as PyTorch
+// divides a CUDA tensor by a scalar) and, for the keys allowed, an online
+// softmax step in fp32 (a running max, the sum of exp(logit - max) and the
+// context, rescaled when the max rises).  Any length runs: the keys are
+// walked in tiles up to the window.  A row that sees no key at all (a
+// padded position past the window of every real key) gets what the plain
+// version's softmax over logits that all read finfo.min gives: the mean of
+// v over all L keys.
 //
 // Bound: q, k and v read once and the context written once (k and v of a
 // tile are re-read from L2 by the row tiles of one head); the logits and
-// context products, about 4 D flops a (row, key) pair, run on CUDA cores.
-// At E5-Mistral's widths on 32 x 31 tokens the kernel takes ~35 us against
-// ~6 us of bytes: the instructions a (row, key) pair costs (each row's
-// lanes shuffle every logit together and each computes its exp) set it.
+// context products, about 2 (DN + DR + DV) flops a (row, key) pair, run on
+// CUDA cores.  At E5-Mistral's widths on 32 x 31 tokens the kernel takes
+// ~35 us against ~6 us of bytes: the instructions a (row, key) pair costs
+// (each row's lanes shuffle every logit together and each computes its
+// exp) set it.
 
 constexpr int kAttnWarps = 8;
 
-template <typename T, int D>
+// where the key and value rows lie (elements)
+struct KeyLayout {
+  long long kn_tok, kn_head;  // k's no-RoPE part
+  long long kr_tok, kr_head;  // k's RoPE part (kr_head 0: one head for all)
+  long long v_tok, v_head;
+};
+
+template <typename T, int DN, int DR, int DV>
 __global__ void __launch_bounds__(kAttnWarps * 32)
-    rope_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                          const T* __restrict__ v,
+    rope_attention_kernel(const T* __restrict__ q, const T* __restrict__ kn,
+                          const T* __restrict__ kr, const T* __restrict__ v,
                           const float* __restrict__ cos_t,
                           const float* __restrict__ sin_t,
                           const int* __restrict__ mask, T* __restrict__ out,
-                          int length, int heads, int kv_heads, int window,
-                          float inv_sqrt_d) {
-  constexpr int kLanes = D / 16;             // lanes a row
+                          KeyLayout lay, int length, int heads, int kv_heads,
+                          int window, float inv_sqrt_d) {
+  constexpr int kLanes = DV / 16;            // lanes a row
   constexpr int kRowsPerWarp = 32 / kLanes;  // rows a warp holds
   constexpr int kRows = kAttnWarps * kRowsPerWarp;
   constexpr int kKeys = 32;                  // keys a tile (32 KB of k and v at D 128)
-  constexpr int kChunks = D / 4;             // float4 chunks a row
+  constexpr int kQ = DN + DR;                // q/k head size
+  constexpr int kQChunks = kQ / 4;           // float4 chunks a q/k row
+  constexpr int kVChunks = DV / 4;           // float4 chunks a v row
+  constexpr int kNChunks = DN / 4;           // ... of them without RoPE
+  constexpr int kRChunks = DR / 4;           // ... with RoPE
+  constexpr int kSlots = kQ / (4 * kLanes);  // q chunks a lane
+  constexpr int kNSlots = DN / (4 * kLanes);
+  constexpr int kRHalf = (kSlots - kNSlots) / 2;  // RoPE's partner, in slots
   constexpr int kStep = 4;                   // keys a step of the inner loop
-  __shared__ float4 ks[kKeys * kChunks];
-  __shared__ float4 vs[kKeys * kChunks];
+  static_assert(DV % 16 == 0 && 32 % kLanes == 0, "16 context dims a lane");
+  static_assert(DN % (4 * kLanes) == 0 && DR % (8 * kLanes) == 0, "whole slots, RoPE halves");
+  __shared__ float4 ks[kKeys * kQChunks];
+  __shared__ float4 vs[kKeys * kVChunks];
   __shared__ int key_ok[kKeys];
 
   const int group = heads / kv_heads;
@@ -286,30 +320,37 @@ __global__ void __launch_bounds__(kAttnWarps * 32)
   const int pos = active ? r / group : 0;
   const int head = g * group + (active ? r % group : 0);
 
-  // the row's rotated query, 16 dims: chunk i holds dims 4 (sub + kLanes i)
-  float qr[16], acc[16];
+  // the row's query, RoPE part rotated: slot i holds dims 4 (sub + kLanes i)
+  float qr[4 * kSlots], acc[16];
   if (active) {
-    const T* qrow = q + ((seq + pos) * heads + head) * D;
-    float x[16];
+    const T* qrow = q + ((seq + pos) * heads + head) * kQ;
+    float x[4 * kSlots];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) load4(qrow + 4 * (sub + kLanes * i), x + 4 * i);
+    for (int i = 0; i < kSlots; ++i) load4(qrow + 4 * (sub + kLanes * i), x + 4 * i);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int d0 = 4 * (sub + kLanes * i);
+    for (int i = 0; i < kNSlots; ++i) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) qr[4 * i + e] = x[4 * i + e];
+    }
+#pragma unroll
+    for (int i = kNSlots; i < kSlots; ++i) {
+      const int ir = i - kNSlots;
+      const int d0 = 4 * (sub + kLanes * ir);  // dim within the RoPE part
       float c4[4], s4[4];
-      load4(cos_t + static_cast<long long>(pos) * D + d0, c4);
-      load4(sin_t + static_cast<long long>(pos) * D + d0, s4);
+      load4(cos_t + static_cast<long long>(pos) * DR + d0, c4);
+      load4(sin_t + static_cast<long long>(pos) * DR + d0, s4);
+      const int ip = kNSlots + (ir < kRHalf ? ir + kRHalf : ir - kRHalf);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        // rotate_half: -x[d + D/2] in the first half, x[d - D/2] in the second
-        const float partner = x[4 * (i ^ 2) + e];
-        const float rot = i < 2 ? -partner : partner;
+        // rotate_half: -x[d + DR/2] in the first half, x[d - DR/2] in the second
+        const float partner = x[4 * ip + e];
+        const float rot = ir < kRHalf ? -partner : partner;
         qr[4 * i + e] = __fadd_rn(__fmul_rn(x[4 * i + e], c4[e]), __fmul_rn(rot, s4[e]));
       }
     }
   } else {
 #pragma unroll
-    for (int i = 0; i < 16; ++i) qr[i] = 0.f;
+    for (int i = 0; i < 4 * kSlots; ++i) qr[i] = 0.f;
   }
 #pragma unroll
   for (int i = 0; i < 16; ++i) acc[i] = 0.f;
@@ -322,25 +363,34 @@ __global__ void __launch_bounds__(kAttnWarps * 32)
   for (int t0 = key_lo; t0 <= pos_hi; t0 += kKeys) {
     const int n = min(kKeys, pos_hi - t0 + 1);
     __syncthreads();  // the previous tile is read
-    for (int u = threadIdx.x; u < n * kChunks; u += blockDim.x) {
-      const int jj = u / kChunks, c = u % kChunks;
-      const int j = t0 + jj;
-      const long long at = ((seq + j) * kv_heads + g) * D;
-      float kx[4], kp[4], vx[4], c4[4], s4[4];
-      const int pc = (c + kChunks / 2) % kChunks;  // RoPE's partner chunk
-      load4(k + at + 4 * c, kx);
-      load4(k + at + 4 * pc, kp);
-      load4(v + at + 4 * c, vx);
-      load4(cos_t + static_cast<long long>(j) * D + 4 * c, c4);
-      load4(sin_t + static_cast<long long>(j) * D + 4 * c, s4);
-      float rk[4];
+    for (int u = threadIdx.x; u < n * kQChunks; u += blockDim.x) {
+      const int jj = u / kQChunks, c = u % kQChunks;
+      const long long j = seq + t0 + jj;
+      float kx[4];
+      if (c < kNChunks) {
+        load4(kn + j * lay.kn_tok + g * lay.kn_head + 4 * c, kx);
+      } else {
+        const int cr = c - kNChunks;
+        const int pc = (cr + kRChunks / 2) % kRChunks;  // RoPE's partner chunk
+        const T* krow = kr + j * lay.kr_tok + g * lay.kr_head;
+        float kp[4], c4[4], s4[4];
+        load4(krow + 4 * cr, kx);
+        load4(krow + 4 * pc, kp);
+        load4(cos_t + (t0 + jj) * static_cast<long long>(DR) + 4 * cr, c4);
+        load4(sin_t + (t0 + jj) * static_cast<long long>(DR) + 4 * cr, s4);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float rot = c < kChunks / 2 ? -kp[e] : kp[e];
-        rk[e] = __fadd_rn(__fmul_rn(kx[e], c4[e]), __fmul_rn(rot, s4[e]));
+        for (int e = 0; e < 4; ++e) {
+          const float rot = cr < kRChunks / 2 ? -kp[e] : kp[e];
+          kx[e] = __fadd_rn(__fmul_rn(kx[e], c4[e]), __fmul_rn(rot, s4[e]));
+        }
       }
-      ks[jj * kChunks + c] = make_float4(rk[0], rk[1], rk[2], rk[3]);
-      vs[jj * kChunks + c] = make_float4(vx[0], vx[1], vx[2], vx[3]);
+      ks[jj * kQChunks + c] = make_float4(kx[0], kx[1], kx[2], kx[3]);
+    }
+    for (int u = threadIdx.x; u < n * kVChunks; u += blockDim.x) {
+      const int jj = u / kVChunks, c = u % kVChunks;
+      float vx[4];
+      load4(v + (seq + t0 + jj) * lay.v_tok + g * lay.v_head + 4 * c, vx);
+      vs[jj * kVChunks + c] = make_float4(vx[0], vx[1], vx[2], vx[3]);
     }
     for (int jj = threadIdx.x; jj < n; jj += blockDim.x) {
       key_ok[jj] = mask[seq + t0 + jj] != 0;
@@ -353,10 +403,10 @@ __global__ void __launch_bounds__(kAttnWarps * 32)
       float dot[kStep];
 #pragma unroll
       for (int u = 0; u < kStep; ++u) {
-        const int row = min(jj + u, n - 1) * kChunks + sub;
+        const int row = min(jj + u, n - 1) * kQChunks + sub;
         dot[u] = 0.f;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < kSlots; ++i) {
           const float4 k4 = ks[row + kLanes * i];
           dot[u] = fmaf(qr[4 * i + 0], k4.x, dot[u]);
           dot[u] = fmaf(qr[4 * i + 1], k4.y, dot[u]);
@@ -391,7 +441,7 @@ __global__ void __launch_bounds__(kAttnWarps * 32)
         if (!ok[u]) continue;
         const float p = expf(dot[u] - run_max);
         run_sum += p;
-        const int row = (jj + u) * kChunks + sub;
+        const int row = (jj + u) * kVChunks + sub;
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const float4 v4 = vs[row + kLanes * i];
@@ -409,7 +459,7 @@ __global__ void __launch_bounds__(kAttnWarps * 32)
     // version's softmax of logits that all read finfo.min
     const float p = 1.f / static_cast<float>(length);
     for (int j = 0; j < length; ++j) {
-      const T* vrow = v + ((seq + j) * kv_heads + g) * D;
+      const T* vrow = v + (seq + j) * lay.v_tok + g * lay.v_head;
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         float vx[4];
@@ -422,42 +472,49 @@ __global__ void __launch_bounds__(kAttnWarps * 32)
 #pragma unroll
     for (int i = 0; i < 16; ++i) acc[i] = __fdiv_rn(acc[i], run_sum);
   }
-  T* orow = out + ((seq + pos) * heads + head) * D;
+  T* orow = out + ((seq + pos) * heads + head) * DV;
 #pragma unroll
   for (int i = 0; i < 4; ++i) store4(orow + 4 * (sub + kLanes * i), acc + 4 * i);
 }
 
-template <typename T, int D>
-cudaError_t attention_launch_d(const void* q, const void* k, const void* v,
-                               const void* cos_t, const void* sin_t,
-                               const void* mask, void* out, int batch,
-                               int length, int heads, int kv_heads, int window,
+template <typename T, int DN, int DR, int DV>
+cudaError_t attention_launch_d(const void* q, const void* kn, const void* kr,
+                               const void* v, const void* cos_t,
+                               const void* sin_t, const void* mask, void* out,
+                               const KeyLayout& lay, int batch, int length,
+                               int heads, int kv_heads, int window,
                                float inv_sqrt_d, cudaStream_t s) {
-  constexpr int kRows = kAttnWarps * 32 / (D / 16);
+  constexpr int kRows = kAttnWarps * 32 / (DV / 16);
   const long long rows = static_cast<long long>(length) * (heads / kv_heads);
   const dim3 grid(static_cast<unsigned>(batch) * kv_heads,
                   static_cast<unsigned>((rows + kRows - 1) / kRows));
-  rope_attention_kernel<T, D><<<grid, kAttnWarps * 32, 0, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const float*>(cos_t),
-      static_cast<const float*>(sin_t), static_cast<const int*>(mask),
-      static_cast<T*>(out), length, heads, kv_heads, window, inv_sqrt_d);
+  rope_attention_kernel<T, DN, DR, DV><<<grid, kAttnWarps * 32, 0, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(kn),
+      static_cast<const T*>(kr), static_cast<const T*>(v),
+      static_cast<const float*>(cos_t), static_cast<const float*>(sin_t),
+      static_cast<const int*>(mask), static_cast<T*>(out), lay, length, heads,
+      kv_heads, window, inv_sqrt_d);
   return cudaGetLastError();
 }
 
+// Mistral: k and v (B, L, kv, D), RoPE on the whole head
 template <typename T>
 cudaError_t attention_launch(int head_dim, const void* q, const void* k,
                              const void* v, const void* cos_t,
                              const void* sin_t, const void* mask, void* out,
                              int batch, int length, int heads, int kv_heads,
                              int window, float inv_sqrt_d, cudaStream_t s) {
+  const long long tok = static_cast<long long>(kv_heads) * head_dim;
+  const KeyLayout lay{tok, head_dim, tok, head_dim, tok, head_dim};
   switch (head_dim) {
     case 16:
-      return attention_launch_d<T, 16>(q, k, v, cos_t, sin_t, mask, out, batch, length,
-                                       heads, kv_heads, window, inv_sqrt_d, s);
+      return attention_launch_d<T, 0, 16, 16>(q, nullptr, k, v, cos_t, sin_t, mask, out, lay,
+                                              batch, length, heads, kv_heads, window,
+                                              inv_sqrt_d, s);
     case 128:
-      return attention_launch_d<T, 128>(q, k, v, cos_t, sin_t, mask, out, batch, length,
-                                        heads, kv_heads, window, inv_sqrt_d, s);
+      return attention_launch_d<T, 0, 128, 128>(q, nullptr, k, v, cos_t, sin_t, mask, out, lay,
+                                                batch, length, heads, kv_heads, window,
+                                                inv_sqrt_d, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -523,6 +580,36 @@ extern "C" int ff_decoder_attention(const void* q, const void* k,
     return static_cast<int>(attention_launch<bf16>(head_dim, q, k, v, cos_t, sin_t, mask, out,
                                                    batch, length, heads, kv_heads, window,
                                                    inv_sqrt_d, s));
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Multi-head latent attention (DeepSeek-V3's, at its published head sizes:
+// 128 dims without RoPE and 64 with it a q/k head, 128 a v head): q (batch,
+// length, heads, 192); k_nope and v rows of 128 at the given token and head
+// strides (elements; the halves of the kv_b GEMM's heads); k_rope (batch,
+// length) rows of 64 at token stride kr_tok, one head for all; cos_t and
+// sin_t (length, 64) fp32; mask (batch, length) int32; out (batch, length,
+// heads, 128) of dtype; window <= 0 for none.
+extern "C" int ff_decoder_latent_attention(
+    const void* q, const void* k_nope, const void* k_rope, const void* v,
+    const void* cos_t, const void* sin_t, const void* mask, void* out,
+    int dtype, int batch, int length, int heads, long long kn_tok,
+    long long kn_head, long long kr_tok, long long v_tok, long long v_head,
+    int window, float inv_sqrt_d, int device, void* stream) {
+  using namespace ff::decoder;
+  if (batch <= 0 || length <= 0) return 0;
+  cudaError_t err = use_device(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const KeyLayout lay{kn_tok, kn_head, kr_tok, 0, v_tok, v_head};
+  if (dtype == 0)
+    return static_cast<int>(attention_launch_d<float, 128, 64, 128>(
+        q, k_nope, k_rope, v, cos_t, sin_t, mask, out, lay, batch, length, heads, heads,
+        window, inv_sqrt_d, s));
+  if (dtype == 1)
+    return static_cast<int>(attention_launch_d<bf16, 128, 64, 128>(
+        q, k_nope, k_rope, v, cos_t, sin_t, mask, out, lay, batch, length, heads, heads,
+        window, inv_sqrt_d, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -8,6 +8,7 @@ port's dependencies (``--noconftest`` skips the JAX test configuration)::
 """
 
 import dataclasses
+import math
 import subprocess
 import sys
 from pathlib import Path
@@ -1207,6 +1208,14 @@ def _bf16_step(want: torch.Tensor) -> float:
     return 2.0**-8 * want.abs().max().item()
 
 
+def _bf16_ulp(want: torch.Tensor) -> float:
+    """One bf16 step in the binade of the largest magnitude (2^-7 of its
+    power of two): where kernel and plain version sum the same products in
+    other orders and both round to bf16, an output may land one step apart,
+    and one next to the largest is one such step."""
+    return math.ldexp(1.0, math.frexp(want.abs().max().item())[1] - 8)
+
+
 def _decoder_mask(batch: int, length: int) -> torch.Tensor:
     """Right padding: the first row full, the second one real token (its
     positions past the window see no key), the rest from the seed."""
@@ -1347,3 +1356,287 @@ def test_cuda_mistral_tower_kernels_match_the_plain_tower(cuda, monkeypatch, dty
     real = mask.bool()
     tol = 1e-4 if dtype == "float32" else 8 * 2.0**-8
     torch.testing.assert_close(got[real], want[real], atol=tol * want[real].abs().max().item(), rtol=0)
+
+
+# -- the DeepSeek-V3 tower's kernels (models/deepseek.py; ops/csrc/moe.cu and
+# -- the latent instance of decoder.cu's attention) ---------------------------------
+
+#: the first 16 hex digits of the sha256 of the Mistral attention's outputs
+#: on :func:`mistral_attention_digests`' inputs, as the kernel gave them
+#: before it took the latent layout (NVIDIA H100 80GB HBM3, CUDA 12.8)
+MISTRAL_ATTENTION_DIGESTS = {"e5 bfloat16 L31 window 4096": "7bcbb1152d83070f",
+                             "e5 float32 L64 window 5": "208f2c9a74d3effc",
+                             "tiny bfloat16 L7 window 8": "7e37ce9b84766777",
+                             "tiny float32 L300 window None": "5e331641aeae0dc7"}
+
+
+def mistral_attention_digests(device) -> dict:
+    """The sha256 (first 16 hex digits) of ``mistral.rope_attention``'s
+    output bytes on seeded inputs: E5's and the tiny widths, bf16 and fp32,
+    with and without a window that bites."""
+    import hashlib
+
+    from fastforward_tpu_torch.models import mistral
+
+    out = {}
+    for widths, dtype, length, window in (("e5", torch.bfloat16, 31, 4096), ("e5", torch.float32, 64, 5),
+                                          ("tiny", torch.bfloat16, 7, 8), ("tiny", torch.float32, 300, None)):
+        _hidden, heads, kv, d, _ffn, _window = DECODER_WIDTHS[widths]
+        gen = torch.Generator(device).manual_seed(length)
+        q, k, v = (torch.randn(8, length, h, d, device=device, generator=gen).to(dtype) for h in (heads, kv, kv))
+        cos, sin = mistral.rope_tables(length, d, 10000.0, device)
+        got = mistral.rope_attention(q, k, v, cos, sin, _decoder_mask(8, length).to(device), window)
+        key = f"{widths} {str(dtype).split('.')[-1]} L{length} window {window}"
+        out[key] = hashlib.sha256(got.cpu().contiguous().view(torch.uint8).numpy().tobytes()).hexdigest()[:16]
+    return out
+
+
+def test_cuda_mistral_attention_gives_the_bits_it_gave_before_the_latent_instance(cuda):
+    with torch.inference_mode():
+        assert mistral_attention_digests(cuda) == MISTRAL_ATTENTION_DIGESTS
+
+
+@pytest.mark.parametrize("length", [1, 7, 31, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_cuda_latent_attention_matches_plain(cuda, dtype, length):
+    """The latent attention at DeepSeek-V3's head sizes (128 + 64 RoPE, v
+    128, 16 heads, the RoPE key one head for all), k and v read from the
+    kv_b GEMM's output where they lie, against the plain version on the
+    card: fp32 within 1e-5 of the largest output, bf16 within one bf16 step."""
+    from fastforward_tpu_torch.models import deepseek, mistral
+
+    from .plain_mistral import no_tf32
+
+    gen = torch.Generator(cuda).manual_seed(length)
+
+    def act(*shape):
+        return torch.randn(*shape, device=cuda, generator=gen).to(dtype)
+
+    q, kv, k_rope = act(8, length, 16, 192), act(8, length, 16, 256), act(8, length, 64)
+    mask = _decoder_mask(8, length).to(cuda)
+    cos, sin = mistral.rope_tables(length, 64, 50000.0, cuda)
+    args = (q, kv[..., :128], k_rope, kv[..., 128:], cos, sin, mask)
+    with no_tf32(), torch.inference_mode():
+        got, want = deepseek.latent_attention(*args), deepseek.latent_attention_plain(*args)
+        torch.cuda.synchronize()
+    assert got.dtype == want.dtype and got.shape == want.shape == (8, length, 16 * 128)
+    tol = 1e-5 * want.abs().max().item() if dtype == torch.float32 else _bf16_step(want.float())
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
+
+
+#: (hidden, expert width, experts, top k): Moonlight-16B-A3B's and a small one
+MOE_WIDTHS = {"moonlight": (2048, 1408, 64, 6), "small": (128, 64, 8, 2)}
+
+
+@pytest.mark.parametrize("skew", ["even", "skewed"])
+@pytest.mark.parametrize("widths", list(MOE_WIDTHS))
+def test_cuda_expert_kernels_match_plain(cuda, widths, skew):
+    """The router, the permutation, the grouped GEMMs (gate and up on
+    gathered rows, down on the expert order) and the combine against their
+    plain versions on the card, over tokens of which some are padded.
+    ``skewed``: one expert takes every real token and another none.  The
+    choices equal but where two biased scores lie within 1e-6, the
+    permutation exact, the GEMMs and the combine within one bf16 step
+    (:func:`_bf16_ulp`)."""
+    from fastforward_tpu_torch.models import deepseek
+
+    from .plain_mistral import no_tf32
+
+    hidden, width, experts, k = MOE_WIDTHS[widths]
+    tokens = 3000 if widths == "moonlight" else 300
+    gen = torch.Generator(cuda).manual_seed(experts + (skew == "skewed"))
+    logits = torch.randn(tokens, experts, device=cuda, generator=gen)
+    if skew == "skewed":
+        logits[:, 3] += 30.0
+        logits[:, 5] -= 30.0
+    bias = 0.1 * torch.randn(experts, device=cuda, generator=gen)
+    if skew == "skewed":  # expert 3 above every other biased score, 5 below
+        bias[3], bias[5] = 1.0, -1.0
+    mask = (torch.rand(tokens, device=cuda, generator=gen) > 0.2).to(torch.int32)
+    h = torch.randn(tokens, hidden, device=cuda, generator=gen).to(torch.bfloat16)
+    x = torch.randn(tokens, hidden, device=cuda, generator=gen).to(torch.bfloat16)
+    shared = torch.randn(tokens, hidden, device=cuda, generator=gen).to(torch.bfloat16)
+
+    def mats(n, m):
+        return [(0.03 * torch.randn(n, m, device=cuda, generator=gen)).to(torch.bfloat16) for _ in range(experts)]
+
+    bank_gu = deepseek.ExpertBank([mats(width, hidden), mats(width, hidden)])
+    bank_down = deepseek.ExpertBank([mats(hidden, width)])
+    with no_tf32(), torch.inference_mode():
+        counts, plain_counts = (torch.zeros(experts, dtype=torch.int32, device=cuda) for _ in range(2))
+        ids, weights, slots = deepseek.moe_route(logits, bias, mask, k, 2.446, True, counts)
+        ids_p, weights_p, _ = deepseek.moe_route_plain(logits, bias, mask, k, 2.446, True, plain_counts)
+        biased = torch.sigmoid(logits) + bias
+        kth = biased.gather(1, ids_p.long().clamp(min=0))[:, -1:]
+        assert bool(((ids == ids_p) | (biased.gather(1, ids.long().clamp(min=0)) >= kth - 1e-6)).all())
+        same = (ids == ids_p).all(1)
+        torch.testing.assert_close(weights[same], weights_p[same], atol=1e-6, rtol=0)
+        real = int(mask.sum())
+        assert int(counts.sum()) == real * k and (ids[mask == 0] == -1).all()
+        if skew == "skewed":
+            assert int(counts[3]) == real and int(counts[5]) == 0
+        offsets, rows, pos = deepseek.moe_permute(ids, slots, counts)
+        offsets_p, rows_p, pos_p = deepseek.moe_permute_plain(ids, slots, counts)
+        total = int(offsets_p[-1])
+        assert torch.equal(offsets, offsets_p) and torch.equal(pos, pos_p) and torch.equal(rows[:total], rows_p[:total])
+        gate, up = deepseek.grouped_gemm(h, rows, bank_gu, offsets)
+        gate_p, up_p = deepseek.grouped_gemm_plain(h, rows, bank_gu.sets, offsets)
+        (y,) = deepseek.grouped_gemm(up, None, bank_down, offsets)
+        (y_p,) = deepseek.grouped_gemm_plain(up, None, bank_down.sets, offsets)
+        out = deepseek.moe_combine(y, pos, weights, shared, x)
+        out_p = deepseek.moe_combine_plain(y, pos, weights, shared, x)
+        torch.cuda.synchronize()
+    for got, want in ((gate, gate_p), (up, up_p), (y, y_p)):
+        assert got.dtype == torch.bfloat16 and got.shape == want.shape
+        torch.testing.assert_close(got[:total].float(), want[:total].float(), atol=_bf16_ulp(want[:total].float()),
+                                   rtol=0)
+    torch.testing.assert_close(out.float(), out_p.float(), atol=_bf16_ulp(out_p.float()), rtol=0)
+
+
+def test_cuda_expert_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    from fastforward_tpu_torch.models import deepseek
+
+    logits, bias = torch.randn(10, 64, device=cuda), torch.zeros(64, device=cuda)
+    mask, counts = torch.ones(10, dtype=torch.int32, device=cuda), torch.zeros(64, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="one device"):
+        deepseek.moe_route(logits, bias.cpu(), mask, 6, 1.0, True, counts)
+    with pytest.raises(ValueError, match="contiguous"):
+        deepseek.moe_route(logits.t().contiguous().t(), bias, mask, 6, 1.0, True, counts)
+    with pytest.raises(ValueError, match="top_k"):
+        deepseek.moe_route(logits, bias, mask, 9, 1.0, True, counts)
+    bank = deepseek.ExpertBank([[torch.zeros(64, 32, dtype=torch.bfloat16, device=cuda)] * 4])
+    offsets = torch.zeros(5, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        deepseek.grouped_gemm(torch.zeros(8, 32, device=cuda), None, bank, offsets)
+    with pytest.raises(ValueError, match="contiguous"):
+        deepseek.grouped_gemm(torch.zeros(32, 8, dtype=torch.bfloat16, device=cuda).t(), None, bank, offsets)
+    q = torch.zeros(2, 3, 16, 192, dtype=torch.bfloat16, device=cuda)
+    kv = torch.zeros(2, 3, 16, 256, dtype=torch.bfloat16, device=cuda)
+    k_rope = torch.zeros(2, 3, 64, dtype=torch.bfloat16, device=cuda)
+    cos = sin = torch.zeros(3, 64, device=cuda)
+    with pytest.raises(ValueError, match="unit stride"):
+        deepseek.latent_attention(q, kv[..., :128].transpose(0, 1), k_rope, kv[..., 128:], cos, sin, mask[:6].view(2, 3))
+
+
+def _seeded_deepseek(cfg, device) -> "torch.nn.Module":
+    """A tower of ``cfg`` on weights drawn from a seed: matrices N(0, 0.02^2),
+    gains 1 + N(0, 0.02^2), embeddings N(0, 1), the correction bias N(0, 0.1^2)."""
+    from fastforward_tpu_torch.models import deepseek
+
+    gen = torch.Generator(device).manual_seed(7)
+    dt = torch.float32 if cfg.dtype == "float32" else torch.bfloat16
+
+    def made(shape, name):
+        t = torch.randn(shape, device=device, generator=gen)
+        if name.endswith("norm.weight"):
+            return 1 + 0.02 * t
+        if name.endswith("bias"):
+            return 0.1 * t
+        return (t if name.startswith("embed") else 0.02 * t).to(dt)
+
+    shapes = {"embed_tokens.weight": (cfg.vocab_size, cfg.hidden_size), "norm.weight": (cfg.hidden_size,)}
+    for i in range(cfg.num_layers):
+        sparse = i >= cfg.first_k_dense_replace
+        own = cfg.shapes(sparse)
+        own["kv_a"] = (cfg.kv_lora_rank + cfg.qk_rope_head_dim, cfg.hidden_size)
+        names = {**deepseek.ATTN_NAMES, **(deepseek.MOE_NAMES if sparse else deepseek.DENSE_NAMES)}
+        shapes.update({f"layers.{i}.{name}": own[key] for key, name in names.items()})
+        if sparse:
+            for e in range(cfg.n_routed_experts):
+                shapes.update({f"layers.{i}.mlp.experts.{e}.{name}": cfg.expert_shapes()[key]
+                               for key, name in deepseek.EXPERT_NAMES.items()})
+    return deepseek.DeepseekTower.from_arrays(cfg, {name: made(shape, name) for name, shape in shapes.items()})
+
+
+def _moonlight_layers(layers: int = 2):
+    from fastforward_tpu_torch.models import deepseek
+
+    return deepseek.DeepseekConfig(num_layers=layers, vocab_size=1024)
+
+
+def test_cuda_deepseek_tower_kernels_match_the_plain_tower(cuda, monkeypatch):
+    """Two layers at Moonlight's widths (one dense, one of 64 experts), bf16,
+    through the kernels against the same tower with every plain version on
+    the card, at 8 right-padded sequences of up to 31 tokens (one of a
+    single token).  The router's input differs between the two by bf16
+    roundings, so a token's 6 experts may differ where two biased scores
+    nearly tie.  Each choice of the kernel tower must lie below the plain
+    router's 6th biased score by no more than the two towers' scores of it
+    and of the plain choices differ (a router that takes the top 6 of its
+    own scores picks nothing lower), and at most 5% of the tokens may
+    differ.  Every token's output agrees within eight bf16 steps of the
+    largest (a rounding one step apart in a layer moves what follows) with
+    the plain tower's: the tokens that differ with the plain tower routed by
+    the kernel tower's choices.  Each forward launches the latent attention
+    a layer and the expert kernels once."""
+    from fastforward_tpu_torch.models import deepseek, mistral
+
+    tower = _seeded_deepseek(_moonlight_layers(), cuda).eval()
+    mask = _decoder_mask(8, 31).to(cuda)
+    ids = torch.randint(0, 1024, (8, 31), device=cuda, generator=torch.Generator(cuda).manual_seed(6))
+    chosen, plain_chosen, scores, plain_scores = [], [], [], []
+
+    def recording(route, into, seen, forced=None):
+        def call(logits, bias, *rest):
+            seen.append(torch.sigmoid(logits.float()))
+            if forced is not None:  # the given choices outrank every other expert
+                bias = bias + 10 * torch.zeros_like(logits).scatter_(1, forced.clamp(min=0), 1.0)
+            out = route(logits, bias, *rest)
+            into.append(out[0].long())
+            return out
+
+        call.launches = 0  # the kernel's wrapper counts its launches under the name it is called by
+        return call
+
+    before = [kernel.launches for kernel in deepseek.KERNELS]
+    with torch.inference_mode():
+        monkeypatch.setattr(deepseek, "moe_route", recording(deepseek.moe_route, chosen, scores))
+        got = tower(ids, mask)
+        counts = [kernel.launches - b for kernel, b in zip(deepseek.KERNELS, before)]
+        counts[1] = deepseek.moe_route.launches
+        monkeypatch.setattr(deepseek, "moe_route", recording(deepseek.moe_route_plain, plain_chosen, plain_scores))
+        for name in ("latent_attention", "moe_permute", "moe_combine"):
+            monkeypatch.setattr(deepseek, name, getattr(deepseek, f"{name}_plain"))
+        monkeypatch.setattr(deepseek, "grouped_gemm",
+                            lambda a, rows, bank, offsets: deepseek.grouped_gemm_plain(a, rows, bank.sets, offsets))
+        monkeypatch.setattr(mistral, "rms_norm", lambda x, g, eps, out_dtype=None: mistral.rms_norm_plain(
+            x, g, eps, x.dtype if out_dtype is None else out_dtype))
+        monkeypatch.setattr(mistral, "swiglu", mistral.swiglu_plain)
+        want = tower(ids, mask)
+        (k_ids,), (p_ids,) = chosen, plain_chosen
+        monkeypatch.setattr(deepseek, "moe_route", recording(deepseek.moe_route_plain, [], [], forced=k_ids))
+        followed = tower(ids, mask)
+    assert counts == [2, 1, 1, 2, 1]
+    real = mask.bool().view(-1)
+    (s_k,), (s_p,) = scores, plain_scores
+    biased = s_p + tower.layers[1].router_bias
+    moved = (s_k - s_p).abs()
+    differ = (k_ids.sort(1).values != p_ids.sort(1).values).any(1) & real
+    kth = biased.gather(1, p_ids.clamp(min=0))[:, -1:]
+    room = moved.gather(1, k_ids.clamp(min=0)) + moved.gather(1, p_ids.clamp(min=0)).amax(1, keepdim=True) + 1e-6
+    assert bool((biased.gather(1, k_ids.clamp(min=0)) >= kth - room)[real].all())
+    assert int(differ.sum()) <= 0.05 * int(real.sum())
+    keep = (real & ~differ).view(mask.shape)
+    torch.testing.assert_close(got[keep], want[keep], atol=8 * 2.0**-8 * want[keep].abs().max().item(), rtol=0)
+    swapped = differ.view(mask.shape)
+    torch.testing.assert_close(got[swapped], followed[swapped],
+                               atol=8 * 2.0**-8 * followed[mask.bool()].abs().max().item(), rtol=0)
+
+
+def test_cuda_deepseek_forward_never_waits_for_the_host(cuda):
+    """One forward of two layers at Moonlight's widths (the router, the
+    permutation and the grouped GEMMs' segments all on the card) under
+    ``set_sync_debug_mode("error")``: no call inside it synchronizes with
+    the host; only the fetch after it does."""
+    tower = _seeded_deepseek(_moonlight_layers(), cuda).eval()
+    mask = _decoder_mask(8, 31).to(cuda)
+    ids = torch.randint(0, 1024, (8, 31), device=cuda, generator=torch.Generator(cuda).manual_seed(8))
+    with torch.inference_mode():
+        tower(ids, mask)  # binds the objects and builds the experts' address tables
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = tower(ids, mask)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert bool(torch.isfinite(out[mask.bool()]).all())
